@@ -4,13 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout with ``nvcc``, holds each
-kernel against its plain torch version on the card, drives the port's main
-path at full size -- one RnBP inference on a 1000 x 1000 Ising grid
-(3,996,032 directed edges) through ``BPEngine(backend="triton")`` -- and
-then the paper-size runs, the max-product (MAP) path, a card-vs-CPU
-agreement check, kernel timings (CUDA events) and a ``torch.profiler``
-trace of main-path rounds (device time by kernel, busy share). Every phase
-raises on failure; nothing is caught. Output:
+kernel against its plain torch version on the card, drives the port's two
+main paths at full size and measures them:
+
+- one graph: one RnBP inference on a 1000 x 1000 Ising grid (3,996,032
+  directed edges) through ``BPEngine(backend="triton")``, then the
+  paper-size runs, the max-product (MAP) path, a card-vs-CPU agreement
+  check, kernel timings (CUDA events) and a ``torch.profiler`` trace of
+  main-path rounds (device time by kernel, busy share);
+- many graphs: ``BPEngine.run_many`` over four 384 x 288 stereo frames at
+  16 disparities (the Middlebury "Tsukuba" pair's size; one bucket of
+  1,764,352 directed edges) through the ``"pallas"`` backends, whose
+  kernel is ``fused_update_t``; slot 0 against its solo run; the zoo
+  stream through both bucket paths against the CPU's plain path; then the
+  same timings and trace for a batched round.
+
+Every phase raises on failure; nothing is caught. Output:
 
 - progress lines per phase;
 - the card's name and power limit (``nvidia-smi``);
@@ -26,6 +35,7 @@ exits non-zero without a GPU or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,6 +66,18 @@ FLOPS_PER_EDGE = {"sum": (5.0, 24.0, 6.0), "max": (2.0, 14.0, 1.0)}
 REPLACES = {"sum": "src/repro/kernels/triton_update.py:103",
             "max": "src/repro/kernels/triton_update.py:125"}
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_update_e.cu"
+
+# The batched main path: four stereo frames at the Middlebury "Tsukuba"
+# pair's size (384 x 288, 16 disparity levels) in one bucket, RnBP.
+STEREO = {"height": 288, "width": 384, "n_disp": 16}
+STEREO_FRAMES, STEREO_ROUNDS = 4, 1000
+ZOO_N, ZOO_EPS, ZOO_ROUNDS = 36, 1e-4, 2000    # the zoo stream, LBP
+CHECK_T_STATES = (2, 3, 8, 16, 32, 81)
+CHECK_T_EDGES = (1, 127, 4096, 1_764_352)
+T_SOURCE = "src/repro_torch/kernels/csrc/fused_update_t.cu"
+T_REPLACES = "src/repro/kernels/message_update.py:59"
+RESULT_FIELDS = ("logm", "beliefs", "rounds", "updates", "converged",
+                 "max_residual", "unconverged_history", "sched_state")
 
 
 def log(msg: str) -> None:
@@ -333,19 +355,21 @@ def phase_timing(pgm, device, bw, f32, protein):
     return out
 
 
-def phase_trace(pgm, device, warm=64, rounds=32):
-    """Device time by kernel over ``rounds`` main-path rounds (after
-    ``warm`` rounds), from a ``torch.profiler`` trace, and the device's
-    busy share against the same window timed without the profiler."""
+def phase_trace(graph, device, warm=64, rounds=32, config=None, rng=None):
+    """Device time by kernel over ``rounds`` rounds of ``graph`` (one graph
+    or a bucket) after ``warm`` rounds, from a ``torch.profiler`` trace,
+    and the device's busy share against the same window timed without the
+    profiler. ``config`` defaults to the one-graph main path's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import BPConfig, BPEngine
-    eng = BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs=MAIN_KW,
-                            eps=1e-3, max_rounds=2000, backend="triton"),
-                   device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    state = eng.step(eng.init(pgm, gen), chunk_rounds=warm)
+    eng = BPEngine(config or BPConfig(
+        scheduler="rnbp", scheduler_kwargs=MAIN_KW, eps=1e-3,
+        max_rounds=2000, backend="triton"), device=device)
+    if rng is None:
+        rng = torch.Generator(device=device).manual_seed(0)
+    state = eng.step(eng.init(graph, rng), chunk_rounds=warm)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -371,6 +395,316 @@ def phase_trace(pgm, device, warm=64, rounds=32):
                 busy_share=device_ms / wall_ms,
                 kernels_per_round=n_kernels / rounds,
                 top_ms_per_round={k: v / rounds for k, v in top})
+
+
+def phase_kernels_t(device, states=CHECK_T_STATES, edges=CHECK_T_EDGES,
+                    table_bytes=CHECK_TABLE_BYTES):
+    """The TPU-layout kernel ``fused_update_t`` vs its plain version over
+    S x E, operands transposed from ``random_operands``."""
+    import torch
+    from repro_torch.kernels.message_update import fused_update_t
+    from repro_torch.kernels.ref import fused_update_t_ref
+    gen = torch.Generator(device=device).manual_seed(1)
+    worst = 0.0
+    for s in states:
+        for e_want in edges:
+            e = min(e_want, max(1, table_bytes // (4 * s * s)))
+            logpsi, pre, logm, dmask = random_operands(e, s, gen, device)
+            ops = (logpsi.permute(1, 2, 0).contiguous(), pre.t().contiguous(),
+                   logm.t().contiguous(), dmask.t().contiguous())
+            del logpsi, pre, logm, dmask
+            kern = fused_update_t(*ops)
+            plain = fused_update_t_ref(*ops)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            err = compare("sum", kern, plain)
+            worst = max(worst, err)
+            log(f"  S={s:3d} E={e:9d} sum: max_abs_err={err:.3g}"
+                + ("" if e == e_want else f" (E cut from {e_want})"))
+            del ops, kern, plain
+    return worst
+
+
+def batched_config(max_rounds=STEREO_ROUNDS):
+    """The batched main path's config: RnBP through both ``"pallas"``
+    backends."""
+    from repro_torch.core import BPConfig
+    return BPConfig(scheduler="rnbp", scheduler_kwargs=MAIN_KW, eps=1e-3,
+                    max_rounds=max_rounds, backend="pallas",
+                    batch_backend="pallas")
+
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def instrument(engine, counts):
+    """Shadow ``engine.run`` and ``engine.step`` so that every ``run`` --
+    one per bucket under ``run_many`` -- appends a record to the returned
+    list: the bucket's shape, its loop iterations (rounds in which some
+    graph was active), its largest round count, the kernel launches it
+    added to ``counts["sum"]`` and its seconds on the host clock, the card
+    synchronized at both ends. ``del engine.run, engine.step`` undoes it."""
+    records, iters = [], []
+    run, step = engine.run, engine.step
+
+    def counted_step(state, **kw):
+        out = step(state, **kw)
+        iters.append(int(out.chunk_iters))
+        return out
+
+    def counted_run(graph, rng=None, **kw):
+        sync(graph.device)
+        iters.clear()
+        before, t0 = counts["sum"], time.perf_counter()
+        res = run(graph, rng, **kw)
+        sync(graph.device)
+        records.append(dict(
+            size=graph.size, edges=graph.n_edges, states=graph.n_states_max,
+            seconds=time.perf_counter() - t0, iterations=sum(iters),
+            rounds=int(res.rounds.max()), launches=counts["sum"] - before))
+        return res
+
+    engine.run, engine.step = counted_run, counted_step
+    return records
+
+
+def check_bucket_launches(label, records) -> None:
+    """Each bucket's kernel launches cover its loop iterations, which
+    cover its rounds."""
+    for b in records:
+        if b["launches"] < max(b["iterations"], 1) or \
+                b["iterations"] < b["rounds"]:
+            raise AssertionError(f"{label}: bucket {b} bypassed the kernel")
+
+
+def same_result(a, b, i=None) -> bool:
+    """Every field of result ``b`` bitwise equal to ``a`` (row ``i`` of a
+    bucket's result when given)."""
+    import torch
+    for f in RESULT_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if not isinstance(x, torch.Tensor):
+            continue
+        if not torch.equal(x if i is None else x[i], y):
+            return False
+    return True
+
+
+def phase_batched(device, frames=STEREO_FRAMES, scene=STEREO,
+                  max_rounds=STEREO_ROUNDS):
+    """The batched main path: ``run_many`` over ``frames`` stereo scenes
+    (one bucket) through the ``"pallas"`` backends, launch counts reset
+    just before and read just after; then slot 0 against a solo run of
+    ``batch.graph(0)`` with its own generator, bitwise."""
+    import torch
+    from repro_torch.core import BPEngine, bucket_pgms, slot_generator
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import stereo_mrf
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    scenes = [stereo_mrf(scene["height"], scene["width"], scene["n_disp"],
+                         seed=s, device=device) for s in range(frames)]
+    pgms = [sc.pgm for sc in scenes]
+    build_s = time.perf_counter() - t0
+    eng = BPEngine(batched_config(max_rounds), device=device)
+    records = instrument(eng, MU.LAUNCHES)
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    MU.reset_launch_counts()
+    TT.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.run_many(pgms, 0)
+    sync(device)
+    run_s = time.perf_counter() - t0
+    launches, other = MU.LAUNCHES["sum"], dict(TT.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del eng.run, eng.step
+    if len(records) != 1:
+        raise AssertionError(f"{len(records)} buckets, expected one")
+    check_bucket_launches("stereo", records)
+    loop = records[0]
+    frames_out = []
+    for sc, pgm, res in zip(scenes, pgms, results):
+        check_beliefs(pgm, res)
+        n = pgm.n_real_vertices
+        labels = res.beliefs[:n, :sc.n_disp].argmax(dim=1).cpu().numpy()
+        frames_out.append(dict(rounds=int(res.rounds),
+                               converged=bool(res.converged),
+                               max_residual=float(res.max_residual),
+                               within_1_of_truth=sc.accuracy(labels)))
+    bucket, = bucket_pgms(pgms)
+    gi = bucket.indices[0]
+    solo = eng.run(bucket.batch.graph(0), slot_generator(0, gi, device))
+    if not same_result(solo, results[gi]):
+        raise AssertionError("slot 0 of the stereo bucket differs from its "
+                             "solo run")
+    out = dict(graph=f"{frames} x stereo_mrf({scene['height']}, "
+               f"{scene['width']}, {scene['n_disp']}, seed=0..{frames - 1})",
+               batch=bucket.batch.size, n_edges=bucket.batch.n_edges,
+               n_vertices=bucket.batch.n_vertices,
+               n_states=bucket.batch.n_states_max, graph_build_s=build_s,
+               run_many_s=run_s, loop_s=loop["seconds"],
+               bucketing_s=run_s - loop["seconds"],
+               iterations=loop["iterations"],
+               ms_per_iteration=loop["seconds"] * 1e3
+               / max(loop["iterations"], 1),
+               launches=launches, other_launches=other,
+               peak_memory_bytes=peak, frames=frames_out,
+               slot0_bitwise_solo=True, solo_rounds=int(solo.rounds))
+    return bucket.batch, out
+
+
+def phase_zoo(device, n=ZOO_N, eps=ZOO_EPS, max_rounds=ZOO_ROUNDS):
+    """``run_many`` over ``zoo_stream(n)`` with LBP on the card, through the
+    fold path (``backend="pallas"``) and through ``batch_backend="triton"``,
+    against the CPU's plain path: a request that converges on the CPU
+    converges on the card in as many rounds with beliefs within 1e-4; one
+    that does not, does not. Each bucket's kernel launches cover its loop
+    iterations."""
+    import torch
+    from repro_torch.core import BPConfig, BPEngine
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import zoo_stream
+    cpu = torch.device("cpu")
+    cfg = BPConfig(scheduler="lbp", eps=eps, max_rounds=max_rounds)
+    kinds = [k for k, _ in zoo_stream(n, seed=0, device=cpu)]
+    ref = BPEngine(cfg, device=cpu).run_many(
+        [p for _, p in zoo_stream(n, seed=0, device=cpu)], 0)
+    pgms = [p for _, p in zoo_stream(n, seed=0, device=device)]
+    out = {}
+    for label, over, counts in (
+            ("fold/pallas", dict(backend="pallas"), MU.LAUNCHES),
+            ("batch/triton", dict(batch_backend="triton"), TT.LAUNCHES)):
+        eng = BPEngine(dataclasses.replace(cfg, **over), device=device)
+        per_bucket = instrument(eng, counts)
+        MU.reset_launch_counts()
+        TT.reset_launch_counts()
+        res = eng.run_many(pgms, 0)
+        del eng.run, eng.step
+        check_bucket_launches(label, per_bucket)
+        worst, unconverged = 0.0, []
+        for i, (r_card, r_cpu) in enumerate(zip(res, ref)):
+            if not bool(r_cpu.converged):
+                unconverged.append(i)
+                if bool(r_card.converged):
+                    raise AssertionError(f"{label}: request {i} converged on "
+                                         "the card, not on the CPU")
+                continue
+            diff = float((r_card.beliefs.cpu().exp()
+                          - r_cpu.beliefs.exp()).abs().max())
+            if not bool(r_card.converged) or not diff <= 1e-4 or \
+                    int(r_card.rounds) != int(r_cpu.rounds):
+                raise AssertionError(
+                    f"{label}: request {i} ({kinds[i]}) rounds "
+                    f"{int(r_card.rounds)} vs {int(r_cpu.rounds)} on the CPU, "
+                    f"converged {bool(r_card.converged)}, belief diff {diff}")
+            worst = max(worst, diff)
+        out[label] = dict(buckets=per_bucket, max_prob_diff=worst,
+                          not_converged_on_cpu=unconverged,
+                          rounds=[int(r.rounds) for r in res])
+        log(f"  {label}: {len(pgms)} requests in {len(per_bucket)} buckets, "
+            f"rounds equal to the CPU's, max belief diff {worst:.3g}, "
+            f"not converged on the CPU: {unconverged or 'none'}")
+    out["kinds"] = kinds
+    return out
+
+
+def widest_bucket(device, n=ZOO_N):
+    """The zoo stream's bucket with the most states."""
+    from repro_torch.core import bucket_pgms
+    from repro_torch.pgm import zoo_stream
+    buckets = bucket_pgms([p for _, p in zoo_stream(n, seed=0,
+                                                    device=device)])
+    return max(buckets, key=lambda b: b.batch.n_states_max).batch
+
+
+def phase_timing_batched(batch, others, device, bw, f32):
+    """``fused_update_t`` held against its plain version on a bucket's
+    union -- the operands the batched main path gives it -- and CUDA-event
+    times of both (and, beside them, of ``fused_update_e``), at the stereo
+    bucket's shape and at each of ``others`` (name -> bucket); then the
+    parts of one batched round of the stereo bucket."""
+    import torch
+    from repro_torch.core import messages as M
+    from repro_torch.core.batch import batch_generators
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels.message_update import fused_update_t
+    from repro_torch.kernels.ref import fused_update_t_ref
+    from repro_torch.kernels.triton_update import fused_update_e
+    out = {}
+    for name, b in (("stereo", batch), *others.items()):
+        union = b.folded()
+        logm = M.init_messages(union)
+        pre = M.edge_prelude(union, logm)
+        logpsi_t, dmask_t = union.operands_t
+        ops_t = (logpsi_t, pre.t().contiguous(), logm.t().contiguous(),
+                 dmask_t)
+        e, s = union.n_edges, union.n_states_max
+        kern, plain = fused_update_t(*ops_t), fused_update_t_ref(*ops_t)
+        sync(device)
+        err = compare("sum", kern, plain)
+        del kern, plain
+        b_ms, b_by = bound(e, s, "sum", bw, f32)
+        row = dict(B=b.size, E=e, S=s, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by,
+                   ms=time_ms(lambda: fused_update_t(*ops_t), 50),
+                   plain_ms=time_ms(lambda: fused_update_t_ref(*ops_t), 10),
+                   e_ms=time_ms(lambda: fused_update_e(
+                       union.log_psi_e, pre, logm, union.dst_mask), 50))
+        out[name] = row
+        log(f"  {name:6s} B={b.size} E={e} S={s}: max_abs_err={err:.3g}, "
+            f"fused_update_t {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, "
+            f"fused_update_e {row['e_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del ops_t, pre, logm
+    # One batched round of the stereo bucket, part by part.
+    union = batch.folded()
+    bsz, e_b, s = batch.size, batch.n_edges, batch.n_states_max
+    logm = M.init_messages(union)
+    pre = M.edge_prelude(union, logm)
+    logpsi_t, dmask_t = union.operands_t
+    pre_t, logm_t = pre.t().contiguous(), logm.t().contiguous()
+    new_t, resid = fused_update_t(logpsi_t, pre_t, logm_t, dmask_t)
+    cand = new_t.t().contiguous().reshape(bsz, e_b, s)
+    r = resid.reshape(bsz, e_b)
+    sched = RnBP(**MAIN_KW)
+    st = sched.init_batch(batch)
+    gens = batch_generators(1, bsz, device)
+    unc = ((r >= 1e-3) & batch.pgm.edge_mask).sum(dim=1).to(torch.int32)
+    frontier, _ = sched.select_batch(batch, r, 1e-3, gens, st, unc)
+    lm = logm.reshape(bsz, e_b, s)
+    vsum = M.vertex_logprod(union, logm)
+    src, rev = union.edge_src, union.edge_rev
+    parts = {
+        "edge_prelude": lambda: M.edge_prelude(union, logm),
+        "  vertex_logprod": lambda: M.vertex_logprod(union, logm),
+        "  gather logm[in_edges]": lambda: logm[union.in_edges],
+        "  gather vsum[edge_src]": lambda: vsum[src],
+        "  gather logm[edge_rev]": lambda: logm[rev],
+        "  gather log_psi_v[edge_src]": lambda: union.log_psi_v[src],
+        "  gather state_mask[edge_src]": lambda: union.state_mask[src],
+        "transposes (pre, logm in; new out)": lambda: (
+            pre.t().contiguous(), logm.t().contiguous(),
+            new_t.t().contiguous()),
+        "fused_update_t": lambda: fused_update_t(logpsi_t, pre_t, logm_t,
+                                                 dmask_t),
+        "unconverged_count": lambda: ((r >= 1e-3) & batch.pgm.edge_mask).sum(
+            dim=1),
+        "rnbp_select_batch (B draws)": lambda: sched.select_batch(
+            batch, r, 1e-3, gens, st, unc),
+        "apply_frontier": lambda: M.apply_frontier(lm, cand, frontier),
+    }
+    out["round_parts_ms"] = {k: time_ms(f, 20) for k, f in parts.items()}
+    for k, v in out["round_parts_ms"].items():
+        log(f"  round part {k}: {v:.4f} ms")
+    return out
 
 
 def main() -> int:
@@ -444,6 +778,49 @@ def main() -> int:
     for name, ms in trace["top_ms_per_round"].items():
         log(f"  {ms:.4f} ms/round  {name[:110]}")
 
+    del pgm, res
+
+    log("== 9. TPU-layout kernel vs plain version on the card")
+    worst_t = phase_kernels_t(device)
+
+    log("== 10. batched main path at full size (run_many, stereo bucket)")
+    batch, bmain = phase_batched(device)
+    log(f"  {bmain['graph']}: B={bmain['batch']} E={bmain['n_edges']} per "
+        f"graph S={bmain['n_states']}: run_many {bmain['run_many_s']:.3f} s "
+        f"= bucketing {bmain['bucketing_s']:.3f} s + loop "
+        f"{bmain['loop_s']:.3f} s; {bmain['iterations']} iterations, "
+        f"{bmain['ms_per_iteration']:.3f} ms/iteration, "
+        f"launches={bmain['launches']}, peak memory "
+        f"{bmain['peak_memory_bytes'] / 2**30:.2f} GiB")
+    for i, f in enumerate(bmain["frames"]):
+        log(f"  frame {i}: rounds={f['rounds']} converged={f['converged']} "
+            f"max_residual={f['max_residual']:.3g} argmax within 1 of truth "
+            f"{f['within_1_of_truth']:.4f}")
+    log(f"  slot 0 bitwise equal to its solo run ({bmain['solo_rounds']} "
+        "rounds)")
+
+    log("== 11. zoo stream: both bucket paths vs the CPU's plain path")
+    zoo = phase_zoo(device)
+
+    log("== 12. TPU-layout kernel vs plain version at the buckets' shapes; "
+        "batched timing (CUDA events, warm)")
+    from repro_torch.core import BatchedPGM
+    btiming = phase_timing_batched(batch, {
+        "zoo": widest_bucket(device),
+        "protein": BatchedPGM.from_pgms([protein_like_graph(
+            seed=0, device=device)])}, device, bw, f32)
+
+    log("== 13. device trace of the batched path (torch.profiler)")
+    btrace = phase_trace(batch, device, warm=16, config=batched_config(),
+                         rng=0)
+    log(f"  {btrace['rounds']} rounds: {btrace['wall_ms_per_round']:.3f} "
+        f"ms/round wall (no profiler), device busy "
+        f"{btrace['device_ms_per_round']:.3f} ms/round = share "
+        f"{btrace['busy_share']:.3f}, {btrace['kernels_per_round']:.1f} "
+        "kernels/round")
+    for name, ms in btrace["top_ms_per_round"].items():
+        log(f"  {ms:.4f} ms/round  {name[:110]}")
+
     launches = {"sum": main["launches"]["sum"], "max": mapd["launches"]}
     kernels = []
     for semiring in ("sum", "max"):
@@ -454,17 +831,27 @@ def main() -> int:
             launches=launches[semiring], max_abs_err=worst[semiring],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
+    t = btiming["stereo"]
+    worst_t = max([worst_t] + [r["max_abs_err"] for r in btiming.values()
+                               if "max_abs_err" in r])
+    kernels.append(dict(
+        name="fused_update_t/sum", route="cuda", source=T_SOURCE,
+        replaces=T_REPLACES, launches=bmain["launches"],
+        max_abs_err=worst_t, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernel_check=worst, main=main, paper=paper, map=mapd,
                   card_vs_cpu=cpu, timing=timing, trace=trace,
+                  kernel_check_t=worst_t, batched=bmain, zoo=zoo,
+                  batched_timing=btiming, batched_trace=btrace,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
-    log(f"== done in {report['total_s']:.1f} s")
+    log(f"== done in {report['total_s']:.1f} s (total_s)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""Resumable BP engine on one graph: config-driven entry, chunked stepping.
+"""Resumable BP engine: config-driven entry, chunked stepping, buckets.
 
-The port of ``repro.core.engine``'s single-graph path. The scheduling
-policy (LBP/RBP/RS/RnBP) and everything else is one frozen, serializable
-``BPConfig`` behind one inference loop:
+The port of ``repro.core.engine``. The scheduling policy (LBP/RBP/RS/RnBP)
+and everything else is one frozen, serializable ``BPConfig`` behind one
+inference loop:
 
     engine = BPEngine(BPConfig(scheduler="rnbp",
                                scheduler_kwargs={"low_p": 0.4},
                                eps=1e-3, max_rounds=2000), device="cuda")
     res = engine.run(pgm, torch.Generator("cuda").manual_seed(0))
+    results = engine.run_many(pgms, 0)      # bucketed stream, base seed 0
 
 Chunked resume:
 
@@ -20,31 +21,42 @@ Chunked resume:
 generator's state, round/update counters, history), so N rounds through
 repeated ``step`` are bitwise N rounds in one ``run``.
 
+Every method also takes a ``BatchedPGM`` bucket: then every counter has a
+leading (B,) axis, each graph draws from its own generator, and the message
+update runs once per round on the bucket's disjoint union (the
+``batch_backend``, or the single-graph ``backend`` on ``folded()``).
+
 The reference runs a chunk as one ``lax.while_loop`` with ``done`` on the
 device. Here the loop is Python over device tensors: counters stay on the
 device, every round's effects are gated on a device-side ``active`` flag
-(as the reference's batched ``_chunk_batch`` gates each graph), and the
-host reads ``done`` once per chunk start and then once every
-``SYNC_ROUNDS`` rounds. Rounds run after convergence inside a window are
-inert: they commit nothing and advance no counter. A window never runs
-past the chunk's round limit, so every chunk boundary sees exactly the
-generator state a monolithic run has there.
+(per graph on a bucket, as the reference's ``_chunk_batch`` gates them),
+and the host reads ``done`` once per chunk start and then once every
+``SYNC_ROUNDS`` rounds. Each graph's iteration budget for the chunk comes
+from its rounds at chunk start and the chunk's limit, both known to the
+host, so a graph never runs past its limit and every chunk boundary sees
+exactly the generator state a monolithic run has there. Rounds run after
+convergence inside a window are inert: they commit nothing and advance no
+counter. A graph's trajectory in a bucket is therefore bitwise its solo
+run on ``batch.graph(i)`` with the same generator.
 
 ``BPConfig`` keeps every field of the reference, serving-only ones
 (``admission``, ``admission_kwargs``) included, so ``to_dict`` output is
-identical across the two packages. Batched buckets and the host-serial
-``"srbp"`` baseline are not ported yet (ROADMAP queue 1, items 8 and 6).
+identical across the two packages. The serving driver ``serve`` and the
+host-serial ``"srbp"`` baseline are not ported yet (ROADMAP queue 1, items
+9 and 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Tuple
+from typing import Any, Callable, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import messages as M
+from repro_torch.core.batch import (BatchedPGM, batch_generators, bucket_pgms,
+                                    slot_generator)
 from repro_torch.core.graph import PGM, resolve_device
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.core.schedulers.base import Scheduler
@@ -64,7 +76,7 @@ class BPResult:
     ``converged`` is True iff every real edge's residual fell below the
     config's ``eps`` within ``max_rounds`` sweeps; ``beliefs`` are valid
     either way (the best marginals at exit). Counters are 0-d tensors on
-    the graph's device.
+    the graph's device; on a bucket every field has a leading (B,) axis.
     """
 
     beliefs: torch.Tensor       # (V, S) log-marginals
@@ -94,13 +106,17 @@ class BPConfig:
     the other. ``scheduler`` is a registry spec string ("lbp"/"rbp"/"rs"/
     "rnbp") or a prebuilt ``Scheduler``; ``scheduler_kwargs`` feed its
     constructor. ``backend`` names the message update ("ref" | "maxprod" |
-    "triton", through ``repro_torch.kernels.ops.UPDATE_BACKENDS``) or is a
-    ``(pgm, logm) -> (cand, resid)`` callable. ``chunk_rounds`` bounds
-    rounds per ``step`` (None = to ``max_rounds`` in one chunk);
-    ``history`` sizes the per-round unconverged-count buffer.
-    ``batch_backend``, ``admission`` and ``admission_kwargs`` belong to the
-    batched and serving paths, which the port does not have yet; they ride
-    the config for interchange only.
+    "triton" | "pallas", through ``repro_torch.kernels.ops.UPDATE_BACKENDS``)
+    or is a ``(pgm, logm) -> (cand, resid)`` callable. A bucket folds into
+    its disjoint union and runs ``backend`` there; ``batch_backend``
+    optionally names another backend for that fold ("pallas" | "triton",
+    the reference's batched names, through ``ops.get_batch_update_fn``) or
+    is a natively batched ``(batch, logm) -> (cand, resid)`` callable.
+    ``chunk_rounds`` bounds rounds per ``step`` (None = to ``max_rounds``
+    in one chunk); ``history`` sizes the per-round unconverged-count
+    buffer. ``admission`` and
+    ``admission_kwargs`` belong to the serving path, which the port does
+    not have yet; they ride the config for interchange only.
     """
 
     scheduler: Any = "lbp"
@@ -164,22 +180,29 @@ class BPConfig:
 class BPState:
     """Resumable trajectory state -- everything a chunk boundary carries.
 
-    Counters are 0-d tensors on the graph's device; ``rng`` is the state of
-    the run's ``torch.Generator`` (``Generator.get_state()``), so a resumed
-    state draws exactly what an uninterrupted run would. ``chunk_iters`` is
-    bookkeeping (active rounds of the last ``step``), not trajectory.
+    Counters are 0-d tensors on the graph's device, (B,) on a bucket;
+    ``rng`` is the state of the run's ``torch.Generator``
+    (``Generator.get_state()``), a tuple of B such states on a bucket, so a
+    resumed state draws exactly what an uninterrupted run would.
+    ``chunk_iters`` is bookkeeping (rounds of the last ``step`` in which
+    some graph was active), not trajectory.
     """
 
-    graph: PGM
-    logm: torch.Tensor          # (E, S) current messages
+    graph: Any                  # PGM | BatchedPGM
+    logm: torch.Tensor          # (E, S) / (B, E, S) current messages
     sched_state: Any            # scheduler carry
-    rng: torch.Tensor           # generator state (uint8, on the host)
-    rounds: torch.Tensor        # () int32 cumulative rounds
-    done: torch.Tensor          # () bool convergence
-    updates: torch.Tensor       # () int64 committed messages
-    unconverged_history: torch.Tensor  # (H,) int32
-    max_residual: torch.Tensor  # () f32
+    rng: Any                    # generator state (uint8, host) / B of them
+    rounds: torch.Tensor        # () / (B,) int32 cumulative rounds
+    done: torch.Tensor          # () / (B,) bool convergence
+    updates: torch.Tensor       # () / (B,) int64 committed messages
+    unconverged_history: torch.Tensor  # (H,) / (B, H) int32
+    max_residual: torch.Tensor  # () / (B,) f32
     chunk_iters: torch.Tensor   # () int32, diagnostics only
+
+    @property
+    def batched(self) -> bool:
+        """True for a bucket's state."""
+        return isinstance(self.graph, BatchedPGM)
 
     def messages_numpy(self) -> np.ndarray:
         """The current (E, S) messages as a host numpy array -- with
@@ -196,12 +219,25 @@ def _where_tree(active: torch.Tensor, new, old):
 
 # ---------------------------------------------------------------- engine --
 
-class BPEngine:
-    """The BP inference engine on one graph (see module docstring).
+def _put(full: torch.Tensor, j: int, value) -> torch.Tensor:
+    """A copy of ``full`` with row ``j`` set to ``value``."""
+    out = full.clone()
+    out[j] = value
+    return out
 
-    One engine = one resolved (scheduler, backend) pair on one device.
-    ``device`` defaults to ``"cuda"``; with no GPU the constructor raises
-    unless the caller passes ``device="cpu"``.
+
+def _row(x, j: int):
+    return x[j] if isinstance(x, torch.Tensor) else x
+
+
+class BPEngine:
+    """The BP inference engine (see module docstring).
+
+    One engine = one resolved (scheduler, backend, batch backend) triple on
+    one device. Every method takes a ``PGM`` or a ``BatchedPGM`` bucket;
+    ``run_many`` takes a heterogeneous graph list. ``device`` defaults to
+    ``"cuda"``; with no GPU the constructor raises unless the caller passes
+    ``device="cpu"``.
     """
 
     def __init__(self, config: BPConfig | None = None, *, device="cuda",
@@ -216,26 +252,23 @@ class BPEngine:
             raise NotImplementedError(
                 "scheduler='srbp' (the host-serial baseline) is not ported "
                 "to repro_torch yet: ROADMAP queue 1, item 6")
-        if config.batch_backend is not None:
-            raise NotImplementedError(
-                "batch_backend belongs to the batched path, not ported to "
-                "repro_torch yet: ROADMAP queue 1, item 8")
         self.scheduler: Scheduler = config.make_scheduler()
-        self.update_fn = self._resolve_backend(config.backend)
+        from repro_torch.kernels.ops import get_batch_update_fn, get_update_fn
+        backend, batch_backend = config.backend, config.batch_backend
+        self.update_fn = (backend if callable(backend)
+                          else get_update_fn(backend))
+        if batch_backend is None:
+            self.batch_update_fn = lambda batch, logm: batch.folded_update(
+                self.update_fn, logm)
+        elif callable(batch_backend):
+            self.batch_update_fn = batch_backend
+        else:
+            self.batch_update_fn = get_batch_update_fn(batch_backend)
 
-    @staticmethod
-    def _resolve_backend(backend) -> Callable:
-        if callable(backend):
-            return backend
-        from repro_torch.kernels.ops import get_update_fn
-        return get_update_fn(backend)
-
-    def _check_graph(self, graph) -> PGM:
-        if not isinstance(graph, PGM):
-            raise NotImplementedError(
-                f"repro_torch's BPEngine runs one PGM, got "
-                f"{type(graph).__name__}; batched buckets (BatchedPGM) are "
-                "ROADMAP queue 1, item 8")
+    def _check_graph(self, graph):
+        if not isinstance(graph, (PGM, BatchedPGM)):
+            raise TypeError(f"BPEngine runs a PGM or a BatchedPGM, got "
+                            f"{type(graph).__name__}")
         dev = graph.device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev != self.device):
@@ -253,111 +286,189 @@ class BPEngine:
                              f"{device}")
         return rng
 
+    def _update(self, graph) -> Callable:
+        """``logm -> (cand, resid)`` for one graph or a whole bucket."""
+        if not isinstance(graph, BatchedPGM):
+            return lambda logm: self.update_fn(graph, logm)
+        return lambda logm: self.batch_update_fn(graph, logm)
+
     # -- lifecycle ---------------------------------------------------------
 
-    def init(self, graph: PGM, rng, *, logm=None) -> BPState:
+    def init(self, graph: PGM | BatchedPGM, rng, *, logm=None) -> BPState:
         """Fresh trajectory state for ``graph``. ``rng`` is a
         ``torch.Generator`` on the graph's device; its state is copied, not
-        advanced. ``logm`` optionally replaces the uniform
-        initial messages ((E, S) numpy array or tensor), e.g. to resume a
-        trajectory that the reference package started."""
-        pgm = self._check_graph(graph)
-        dev = pgm.device
-        gen = self._check_generator(rng, dev)
+        advanced. For a bucket it is one generator per graph, or one
+        generator (or int) as the base seed of per-slot generators
+        (``batch.batch_generators``). ``logm`` optionally replaces the
+        uniform initial messages ((E, S) or (B, E, S) numpy array or
+        tensor), e.g. to resume a trajectory that the reference package
+        started."""
+        g = self._check_graph(graph)
+        dev = g.device
+        batched = isinstance(g, BatchedPGM)
+        if batched:
+            gens = [self._check_generator(r, dev)
+                    for r in batch_generators(rng, g.size, dev)]
+            lead = (g.size,)
+            init_logm = lambda: M.init_messages(g.folded()).reshape(
+                g.size, g.n_edges, g.n_states_max)
+            sstate = self.scheduler.init_batch(g)
+            rng_state = tuple(r.get_state().clone() for r in gens)
+        else:
+            lead = ()
+            init_logm = lambda: M.init_messages(g)
+            sstate = self.scheduler.init(g)
+            rng_state = self._check_generator(rng, dev).get_state().clone()
         if logm is None:
-            logm = M.init_messages(pgm)
+            logm = init_logm()
         else:
             if not isinstance(logm, torch.Tensor):
                 logm = torch.tensor(np.asarray(logm))      # a copy
             logm = logm.to(device=dev, dtype=torch.float32).contiguous()
-            shape = (pgm.n_edges, pgm.n_states_max)
+            shape = lead + (g.n_edges, g.n_states_max)
             if tuple(logm.shape) != shape:
                 raise ValueError(f"logm must be {shape}, got "
                                  f"{tuple(logm.shape)}")
         hist_len = self.config.max_rounds if self.config.history else 1
         return BPState(
-            graph=pgm, logm=logm, sched_state=self.scheduler.init(pgm),
-            rng=gen.get_state().clone(),
-            rounds=torch.zeros((), dtype=torch.int32, device=dev),
-            done=torch.zeros((), dtype=torch.bool, device=dev),
-            updates=torch.zeros((), dtype=torch.int64, device=dev),
-            unconverged_history=torch.full((hist_len,), -1, dtype=torch.int32,
-                                           device=dev),
-            max_residual=torch.full((), float("inf"), dtype=torch.float32,
+            graph=g, logm=logm, sched_state=sstate, rng=rng_state,
+            rounds=torch.zeros(lead, dtype=torch.int32, device=dev),
+            done=torch.zeros(lead, dtype=torch.bool, device=dev),
+            updates=torch.zeros(lead, dtype=torch.int64, device=dev),
+            unconverged_history=torch.full(lead + (hist_len,), -1,
+                                           dtype=torch.int32, device=dev),
+            max_residual=torch.full(lead, float("inf"), dtype=torch.float32,
                                     device=dev),
             chunk_iters=torch.zeros((), dtype=torch.int32, device=dev))
 
     def step(self, state: BPState, *,
              chunk_rounds: int | None = None) -> BPState:
-        """Advance one chunk: at most ``chunk_rounds`` further rounds,
-        stopping early on convergence. A finished state is a no-op.
+        """Advance one chunk: at most ``chunk_rounds`` further rounds per
+        graph, stopping early on convergence. A finished state is a no-op.
         Bitwise equal to running the same total rounds in one chunk."""
         cfg, sched = self.config, self.scheduler
-        pgm = self._check_graph(state.graph)
+        graph = self._check_graph(state.graph)
+        batched = isinstance(graph, BatchedPGM)
         chunk = chunk_rounds or cfg.chunk_rounds or cfg.max_rounds
-        rounds0, done0 = int(state.rounds), bool(state.done)   # host reads
-        limit = min(rounds0 + chunk, cfg.max_rounds)
-        if done0 or rounds0 >= limit:
+        inner = sched.inner_sweeps
+        # Host reads at chunk start: each graph's iteration budget.
+        budgets = []
+        for r0, d0 in zip(state.rounds.reshape(-1).tolist(),
+                          state.done.reshape(-1).tolist()):
+            limit = min(r0 + chunk, cfg.max_rounds)
+            budgets.append(0 if d0 or r0 >= limit
+                           else -(-(limit - r0) // inner))
+        n_iters = max(budgets)
+        if n_iters == 0:
             return dataclasses.replace(state, chunk_iters=torch.zeros_like(
                 state.chunk_iters))
-        inner = sched.inner_sweeps
-        n_iters = -(-(limit - rounds0) // inner)     # rounds < limit, exact
-        gen = torch.Generator(device=pgm.device)
-        gen.set_state(state.rng)
+        dev = graph.device
+        states = state.rng if batched else (state.rng,)
+        gens = [torch.Generator(device=dev) for _ in states]
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        budget = torch.tensor(budgets, dtype=torch.int32, device=dev)
+        if not batched:
+            budget = budget[0]
+        update = self._update(graph)
+        edge_mask = graph.pgm.edge_mask if batched else graph.edge_mask
+        eps = cfg.eps
 
         logm, sstate = state.logm, state.sched_state
         rounds, done, updates = state.rounds, state.done, state.updates
         hist, max_r = state.unconverged_history, state.max_residual
         iters = torch.zeros_like(state.chunk_iters)
-        hist_last = hist.shape[0] - 1
+        hist_last = hist.shape[-1] - 1
         for it in range(n_iters):
-            active = ~done
-            cand, r = self.update_fn(pgm, logm)
-            unconverged = ((r >= cfg.eps) & pgm.edge_mask).sum().to(
+            active = ~done & (budget > it)
+            cand, r = update(logm)
+            unconverged = ((r >= eps) & edge_mask).sum(dim=-1).to(
                 torch.int32)
-            frontier, new_sstate = sched.select(pgm, r, cfg.eps, gen, sstate,
-                                                unconverged)
+            if batched:
+                live = [g if it < b else None for g, b in zip(gens, budgets)]
+                frontier, new_sstate = sched.select_batch(
+                    graph, r, eps, live, sstate, unconverged)
+            else:
+                frontier, new_sstate = sched.select(graph, r, eps, gens[0],
+                                                    sstate, unconverged)
             sstate = _where_tree(active, new_sstate, sstate)
             # Converged -> commit nothing (IsConverged precedes Update).
             newly_done = (unconverged == 0) & active
-            frontier = frontier & active & ~newly_done
+            frontier = frontier & (active & ~newly_done)[..., None]
             logm = M.apply_frontier(logm, cand, frontier, cfg.damping)
             for _ in range(inner - 1):     # Residual Splash's extra sweeps
-                cand, _ = self.update_fn(pgm, logm)
+                cand, _ = update(logm)
                 logm = M.apply_frontier(logm, cand, frontier, cfg.damping)
-            updates = updates + frontier.sum() * inner
+            updates = updates + frontier.sum(dim=-1) * inner
             if cfg.history:
-                idx = torch.clamp(rounds, max=hist_last).long().reshape(1)
-                hist = hist.scatter(0, idx, torch.where(
-                    active, unconverged, hist.gather(0, idx)[0]).reshape(1))
+                idx = torch.clamp(rounds, max=hist_last).long()[..., None]
+                hist = hist.scatter(-1, idx, torch.where(
+                    active, unconverged, hist.gather(-1, idx)[..., 0]
+                )[..., None])
             rounds = rounds + torch.where(
                 newly_done | ~active, 0, inner).to(torch.int32)
-            max_r = torch.where(active, r.amax(), max_r)
-            iters = iters + active.to(torch.int32)
+            max_r = torch.where(active, r.amax(dim=-1), max_r)
+            iters = iters + active.any().to(torch.int32)
             done = done | newly_done
-            if (it + 1) % SYNC_ROUNDS == 0 and it + 1 < n_iters and bool(done):
+            if (it + 1) % SYNC_ROUNDS == 0 and it + 1 < n_iters and \
+                    bool((done | (budget <= it + 1)).all()):
                 break
+        rng = tuple(g.get_state() for g in gens)
         return dataclasses.replace(
-            state, logm=logm, sched_state=sstate, rng=gen.get_state(),
-            rounds=rounds, done=done, updates=updates,
-            unconverged_history=hist, max_residual=max_r, chunk_iters=iters)
+            state, logm=logm, sched_state=sstate,
+            rng=rng if batched else rng[0], rounds=rounds, done=done,
+            updates=updates, unconverged_history=hist, max_residual=max_r,
+            chunk_iters=iters)
 
     def finished(self, state: BPState) -> bool:
-        """True when the graph converged or exhausted ``max_rounds``."""
-        return bool(state.done) or int(state.rounds) >= self.config.max_rounds
+        """True when every graph converged or exhausted ``max_rounds``."""
+        return bool((state.done | (state.rounds >= self.config.max_rounds))
+                    .all())
 
     def result(self, state: BPState) -> BPResult:
         """Finalize a state into a ``BPResult`` (computes beliefs)."""
-        return BPResult(beliefs=M.beliefs(state.graph, state.logm),
+        g = state.graph
+        if isinstance(g, BatchedPGM):
+            beliefs = M.beliefs(g.folded(), state.logm.reshape(
+                -1, g.n_states_max)).reshape(g.size, g.n_vertices, -1)
+        else:
+            beliefs = M.beliefs(g, state.logm)
+        return BPResult(beliefs=beliefs,
                         logm=state.logm, rounds=state.rounds,
                         updates=state.updates, converged=state.done,
                         max_residual=state.max_residual,
                         unconverged_history=state.unconverged_history,
                         sched_state=state.sched_state)
 
+    def load_slot(self, state: BPState, j: int, graph: PGM,
+                  rng: torch.Generator) -> BPState:
+        """Replace slot ``j`` of a bucket's state with a fresh ``graph``
+        (padded to the bucket's shape; its counts must fit the bucket's
+        ceilings) and reset that slot's trajectory -- messages, scheduler
+        state, counters, generator -- exactly as ``init`` would for a solo
+        run of ``new_batch.graph(j)`` with ``rng``. The other slots carry
+        on unchanged. (The reference's ``_load_slot``.)"""
+        if not state.batched:
+            raise TypeError("load_slot needs a bucket's state (BatchedPGM)")
+        batch = state.graph.with_graph(j, graph)
+        elem = batch.graph(j)
+        gen = self._check_generator(rng, batch.device)
+        sstate = self.scheduler.init(elem)
+        return dataclasses.replace(
+            state, graph=batch,
+            logm=_put(state.logm, j, M.init_messages(elem)),
+            sched_state=(_put(state.sched_state, j, sstate)
+                         if isinstance(sstate, torch.Tensor)
+                         else state.sched_state),
+            rng=state.rng[:j] + (gen.get_state().clone(),) + state.rng[j + 1:],
+            rounds=_put(state.rounds, j, 0), done=_put(state.done, j, False),
+            updates=_put(state.updates, j, 0),
+            unconverged_history=_put(state.unconverged_history, j, -1),
+            max_residual=_put(state.max_residual, j, float("inf")))
+
     # -- one-shot ----------------------------------------------------------
 
-    def run(self, graph: PGM, rng=None, *,
+    def run(self, graph: PGM | BatchedPGM, rng=None, *,
             state: BPState | None = None) -> BPResult:
         """One-shot inference, chunk by chunk when ``chunk_rounds`` is set
         (same trajectory either way). ``state`` resumes an existing
@@ -370,3 +481,33 @@ class BPEngine:
         while not self.finished(state):
             state = self.step(state)
         return self.result(state)
+
+    def run_many(self, pgms: Sequence[PGM], rng, *, growth: float = 2.0,
+                 max_batch: int | None = None) -> List[BPResult]:
+        """Bucket ``pgms`` (shape-homogeneous padded batches), run each
+        bucket, return per-graph results in input order. ``rng`` is a base
+        seed (an int, or a ``torch.Generator`` whose ``initial_seed()`` is
+        taken); graph ``i`` draws from ``slot_generator(base, i)``, so the
+        results do not depend on ``growth``/``max_batch`` beyond the padded
+        shape each graph gets. (RnBP draws over the *padded* edge axis, so
+        a bucketing change that re-pads a graph can change its trajectory
+        -- the fixed point reached, not the answer quality. The draws are
+        not JAX's threefry: ROADMAP queue 1, item 4.)"""
+        base = rng.initial_seed() if isinstance(rng, torch.Generator) \
+            else int(rng)
+        results: List[BPResult | None] = [None] * len(pgms)
+        for bucket in bucket_pgms(pgms, growth=growth, max_batch=max_batch):
+            gens = [slot_generator(base, i, bucket.batch.device)
+                    for i in bucket.indices]
+            res = self.run(bucket.batch, gens)
+            for j, gi in enumerate(bucket.indices):
+                results[gi] = BPResult(**{
+                    f.name: _row(getattr(res, f.name), j)
+                    for f in dataclasses.fields(BPResult)})
+        return results  # type: ignore[return-value]
+
+    def serve(self, *args, **kwargs):
+        """Not ported yet: the serving driver is ROADMAP queue 1, item 9."""
+        raise NotImplementedError(
+            "BPEngine.serve (the evacuating serving driver) is not ported "
+            "to repro_torch yet: ROADMAP queue 1, item 9")

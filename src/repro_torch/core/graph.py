@@ -13,7 +13,7 @@ structure-of-arrays* layout with the same field names and dtypes --
   ``VERTEX_PAD``, and padded edges point at one dummy sink vertex.
 
 Builders run on the host in numpy and move the finished arrays to
-``device`` once. Beside the reference fields, a ``PGM`` carries two static
+``device`` once. Beside the reference fields, a ``PGM`` carries static
 per-graph operands the round loop would otherwise rebuild every round:
 
 - the **incoming-edge table** ``in_edges`` (V, D) int32 with ``in_mask``
@@ -22,7 +22,15 @@ per-graph operands the round loop would otherwise rebuild every round:
   order, so the per-vertex sum is deterministic on CUDA (``index_add_``
   and ``scatter_add_`` use float atomics there and change from run to run);
 - the **int8 destination-state mask** ``dst_mask = state_mask[edge_dst]``
-  (E, S), the operand the fused update kernel takes.
+  (E, S), the operand the fused update kernels take;
+- the **TPU-layout operands** ``operands_t`` = (log_psi_e as (S, S, E),
+  dst_mask as (S, E)) of the ``"pallas"`` backend, built at first use and
+  kept with the graph (a second copy of the pairwise table, so only graphs
+  that run that backend pay for it).
+
+Bucketing (``pad_pgm``) raises the static ``n_real_*`` counts to a
+bucket's ceiling; ``edge_count``/``vertex_count`` keep the graph's own
+real counts, which the schedulers size their frontiers from.
 
 ``device`` defaults to ``"cuda"``: with no GPU, a builder called without
 ``device="cpu"`` raises instead of carrying on quietly on the CPU.
@@ -31,13 +39,14 @@ per-graph operands the round loop would otherwise rebuild every round:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["NEG_INF", "EDGE_PAD", "VERTEX_PAD", "PGM", "build_pgm",
-           "build_pgm_uniform", "resolve_device"]
+           "build_pgm_uniform", "pad_pgm", "pad_pgm_arrays", "resolve_device"]
 
 # Large-negative stand-in for log(0): summing ~1e2 of them in float32 stays
 # far from -inf/NaN while exp() underflows to exactly 0.
@@ -109,7 +118,12 @@ class PGM:
       n_states                     : (V,)  int32
       in_edges, in_mask            : (V, D) int32 / bool  incoming real edges
       dst_mask                     : (E, S) int8   state_mask[edge_dst]
-    ``n_real_vertices``/``n_real_edges`` are the real (directed) counts.
+    ``n_real_vertices``/``n_real_edges`` are the real (directed) counts,
+    or a bucket's ceilings after ``pad_pgm``; ``vertex_count``/
+    ``edge_count`` are always the graph's own (host ints, as the
+    reference's traced counts). On a ``BatchedPGM``'s stacked ``pgm``
+    every tensor has a leading batch axis and the two counts are (B,)
+    tuples.
     """
 
     edge_src: torch.Tensor
@@ -125,6 +139,8 @@ class PGM:
     in_edges: torch.Tensor
     in_mask: torch.Tensor
     dst_mask: torch.Tensor
+    edge_count: int
+    vertex_count: int
 
     @property
     def n_edges(self) -> int:
@@ -146,6 +162,14 @@ class PGM:
         """The device every tensor of the graph lives on."""
         return self.log_psi_e.device
 
+    @functools.cached_property
+    def operands_t(self):
+        """``(log_psi_e as (S, S, E), dst_mask as (S, E))``, contiguous: the
+        TPU-layout kernel's static operands, transposed once per graph and
+        kept (the reference transposes them on every call)."""
+        return (self.log_psi_e.permute(1, 2, 0).contiguous(),
+                self.dst_mask.t().contiguous())
+
     def degree(self) -> torch.Tensor:
         """(V,) int64 in-degree per vertex (== out-degree; graph is
         symmetric)."""
@@ -153,12 +177,16 @@ class PGM:
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray], n_real_vertices: int,
-                   n_real_edges: int, device="cuda") -> "PGM":
+                   n_real_edges: int, device="cuda", *,
+                   edge_count: int | None = None,
+                   vertex_count: int | None = None) -> "PGM":
         """Build the port's ``PGM`` from the reference ``PGM``'s fields as
         numpy arrays (``{name: np.asarray(getattr(ref_pgm, name))}``; extra
         keys are ignored). This carries a graph across the two packages --
         the tests hand identical graphs to both -- and derives the static
         operands (incoming-edge table, int8 destination mask) on the host.
+        ``edge_count``/``vertex_count`` are the graph's own real counts
+        (the reference's traced counts); ``None`` means ``n_real_*``.
         """
         dev = resolve_device(device)
         host = {k: np.asarray(arrays[k]) for k in _ARRAY_FIELDS}
@@ -172,7 +200,11 @@ class PGM:
                    n_real_edges=int(n_real_edges),
                    in_edges=torch.from_numpy(in_edges).to(dev),
                    in_mask=torch.from_numpy(in_mask).to(dev),
-                   dst_mask=torch.from_numpy(dst_mask).to(dev))
+                   dst_mask=torch.from_numpy(dst_mask).to(dev),
+                   edge_count=int(n_real_edges if edge_count is None
+                                  else edge_count),
+                   vertex_count=int(n_real_vertices if vertex_count is None
+                                    else vertex_count))
 
     def to_numpy(self) -> dict:
         """The reference fields as host numpy arrays (inverse of
@@ -292,3 +324,63 @@ def build_pgm(n_vertices: int, edges: np.ndarray,
         edge_mask=edge_mask, log_psi_e=log_psi_e, log_psi_v=log_psi_v,
         state_mask=state_mask, n_states=n_states),
         n_vertices, e_dir, dev)
+
+
+def pad_pgm_arrays(pgm: PGM, *, n_edges: int, n_vertices: int,
+                   n_states: int) -> dict:
+    """Host-side (numpy) re-padding of a PGM's reference fields to larger
+    shapes; bitwise the reference's ``pad_pgm_arrays``, including its
+    ``edge_count``/``vertex_count`` entries (from the static ``n_real_*``).
+    Returns a field dict; ``pad_pgm``/``BatchedPGM.from_pgms`` move it to
+    the device once."""
+    e0, v0, s0 = pgm.n_edges, pgm.n_vertices, pgm.n_states_max
+    if not (n_edges >= e0 and n_vertices >= v0 and n_states >= s0):
+        raise ValueError(f"cannot shrink ({e0},{v0},{s0}) -> "
+                         f"({n_edges},{n_vertices},{n_states})")
+    de, dv, ds = n_edges - e0, n_vertices - v0, n_states - s0
+    dummy = pgm.n_real_vertices
+    host = pgm.to_numpy()
+
+    log_psi_v = np.pad(host["log_psi_v"], ((0, dv), (0, ds)),
+                       constant_values=NEG_INF)
+    state_mask = np.pad(host["state_mask"], ((0, dv), (0, ds)))
+    if dv:
+        # new padding vertices: one valid zero-potential state (like dummy)
+        log_psi_v[v0:, 0] = 0.0
+        state_mask[v0:, 0] = True
+    return dict(
+        edge_src=np.pad(host["edge_src"], (0, de), constant_values=dummy),
+        edge_dst=np.pad(host["edge_dst"], (0, de), constant_values=dummy),
+        edge_rev=np.concatenate([host["edge_rev"],
+                                 np.arange(e0, n_edges, dtype=np.int32)]),
+        edge_mask=np.pad(host["edge_mask"], (0, de)),
+        log_psi_e=np.pad(host["log_psi_e"], ((0, de), (0, ds), (0, ds))),
+        log_psi_v=log_psi_v,
+        state_mask=state_mask,
+        n_states=np.pad(host["n_states"], (0, dv), constant_values=1),
+        edge_count=np.int32(pgm.n_real_edges),
+        vertex_count=np.int32(pgm.n_real_vertices),
+    )
+
+
+def pad_pgm(pgm: PGM, *, n_edges: int, n_vertices: int, n_states: int,
+            n_real_edges: int | None = None,
+            n_real_vertices: int | None = None) -> PGM:
+    """Re-pad a PGM to larger shared shapes (the bucketing primitive), on
+    the graph's device.
+
+    Extra edges point at the graph's own dummy vertex with ``edge_mask``
+    False (so they are not in the incoming-edge table); extra vertices get
+    a single valid zero-potential state; extra state columns are masked
+    out -- all inert, so BP on the padded graph commits the same messages
+    on real edges. ``n_real_*`` raise the static counts to a bucket
+    ceiling; the graph's own ``edge_count``/``vertex_count`` are kept.
+    """
+    arrs = pad_pgm_arrays(pgm, n_edges=n_edges, n_vertices=n_vertices,
+                          n_states=n_states)
+    return PGM.from_numpy(
+        arrs, pgm.n_real_vertices if n_real_vertices is None
+        else n_real_vertices,
+        pgm.n_real_edges if n_real_edges is None else n_real_edges,
+        pgm.device, edge_count=pgm.edge_count,
+        vertex_count=pgm.vertex_count)

@@ -148,8 +148,9 @@ def map_assignment(pgm: PGM, logm: torch.Tensor) -> torch.Tensor:
 def apply_frontier(logm: torch.Tensor, cand: torch.Tensor,
                    frontier: torch.Tensor, damping: float = 0.0
                    ) -> torch.Tensor:
-    """Commit candidate messages on frontier edges. Optional geometric
-    damping: new = (1-d)*cand + d*old, in log space."""
+    """Commit candidate messages on frontier edges (``frontier`` (E,) for
+    (E, S) messages, or (B, E) for a bucket's (B, E, S)). Optional
+    geometric damping: new = (1-d)*cand + d*old, in log space."""
     if damping > 0.0:
         cand = (1.0 - damping) * cand + damping * logm
-    return torch.where(frontier[:, None], cand, logm)
+    return torch.where(frontier[..., None], cand, logm)

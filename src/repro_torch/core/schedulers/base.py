@@ -10,18 +10,26 @@ engine's round loop does not synchronize with the card every round.
 residual >= eps this round) because RnBP's dynamic-p controller consumes
 it, and a ``torch.Generator`` on the graph's device for schedulers that
 draw random numbers; the others ignore both.
+
+``init_batch``/``select_batch`` are the bucket's versions (the reference
+vmaps ``init``/``select``): residuals ``(B, E)``, state and ``unconverged``
+``(B,)``, one generator per graph (``None`` for a graph whose iteration
+budget is spent: it draws nothing). One set of launches serves the whole
+bucket, and ``select`` is the B-less case of the same code. Frontier sizes
+come from each graph's own ``edge_count``/``vertex_count``; the static
+``n_real_*`` are the bucket's ceilings and only bound ``k``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Protocol, Tuple
+from typing import Any, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import PGM
 
-__all__ = ["Scheduler", "frontier_size"]
+__all__ = ["Scheduler", "frontier_size", "kth_largest"]
 
 
 class Scheduler(Protocol):
@@ -39,9 +47,31 @@ class Scheduler(Protocol):
         """Return ``(frontier_mask (E,) bool, new_state)``."""
         ...
 
+    def init_batch(self, batch) -> Any:
+        """Initial carried state of a ``BatchedPGM`` ((B,) tensor or ())."""
+        ...
+
+    def select_batch(self, batch, residuals: torch.Tensor, eps: float,
+                     generators: Sequence[torch.Generator | None], state: Any,
+                     unconverged: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """Return ``(frontier_mask (B, E) bool, new_state)``."""
+        ...
+
 
 def frontier_size(p: float, count: int, k_max: int) -> int:
     """``clip(round(p * count), 1, k_max)`` computed as the reference
     computes it: the product in float32, rounded half to even."""
     k = np.round(np.float32(p) * np.float32(count))
     return int(np.clip(k, 1, k_max))
+
+
+def kth_largest(values: torch.Tensor, k_max: int, k) -> torch.Tensor:
+    """The ``k``-th largest entry (1-based) along the last axis, shape
+    ``(..., 1)``: one ``torch.topk`` of width ``k_max``, then ``k`` is a host
+    int (one graph) or a (B,) int64 tensor with one ``k`` per row (a
+    bucket). ``topk`` returns exact values, so every row gives what its
+    graph gives alone."""
+    top = torch.topk(values, k_max, dim=-1).values
+    if isinstance(k, int):
+        return top[..., k - 1:k]
+    return top.gather(-1, (k - 1)[:, None])

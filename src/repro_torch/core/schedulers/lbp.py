@@ -26,3 +26,10 @@ class LBP:
     def select(self, pgm: PGM, residuals: torch.Tensor, eps: float,
                generator: torch.Generator, state, unconverged: torch.Tensor):
         return pgm.edge_mask, state
+
+    def init_batch(self, batch):
+        return ()
+
+    def select_batch(self, batch, residuals, eps, generators, state,
+                     unconverged):
+        return batch.pgm.edge_mask, state

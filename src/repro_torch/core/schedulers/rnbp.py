@@ -10,9 +10,10 @@ edges between consecutive rounds. EdgeRatio > 0.9 means the run is stalling
 -> LowP (convergence mode); otherwise HighP (speed mode).
 
 The draw is one (E,) float32 uniform per round from the engine's
-``torch.Generator``. torch's generators give other numbers than JAX's
-threefry, so ``select_with`` takes the draw as an argument: tests feed both
-packages the same uniforms and compare masks bitwise.
+``torch.Generator`` (on a bucket, one row per graph from that graph's own
+generator). torch's generators give other numbers than JAX's threefry, so
+``select_with`` takes the draw as an argument: tests feed both packages
+the same uniforms and compare masks bitwise.
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ class RnBP:
 
     ``select`` keeps each unconverged real edge (residual >= eps) with
     probability ``p``. The carried state is the previous round's
-    unconverged count (0-d f32): when the ratio new/old exceeds
-    ``ratio_threshold`` the run is stalling and ``low_p`` is used,
-    otherwise ``high_p``. Draws one (E,) uniform per round from the
-    engine's generator. Registry spec ``"rnbp"``.
+    unconverged count (0-d f32, starting at the graph's own
+    ``edge_count``): when the ratio new/old exceeds ``ratio_threshold``
+    the run is stalling and ``low_p`` is used, otherwise ``high_p``. Draws
+    one (E,) uniform per round from the engine's generator. Registry spec
+    ``"rnbp"``.
     """
 
     low_p: float = 0.7
@@ -44,7 +46,7 @@ class RnBP:
 
     def init(self, pgm: PGM):
         # OldEdgeCount starts at "everything unconverged".
-        return torch.tensor(float(pgm.n_real_edges), dtype=torch.float32,
+        return torch.tensor(float(pgm.edge_count), dtype=torch.float32,
                             device=pgm.device)
 
     def select(self, pgm: PGM, residuals: torch.Tensor, eps: float,
@@ -54,14 +56,29 @@ class RnBP:
         return self.select_with(pgm, residuals, eps, uniforms, state,
                                 unconverged)
 
+    def init_batch(self, batch):
+        return torch.tensor([float(c) for c in batch.pgm.edge_count],
+                            dtype=torch.float32, device=batch.device)
+
+    def select_batch(self, batch, residuals, eps, generators, state,
+                     unconverged):
+        # One (E,) draw per graph into its own row, in place: what
+        # ``select`` draws for the graph alone. A spent graph draws nothing.
+        uniforms = torch.ones_like(residuals)
+        for row, gen in zip(uniforms, generators):
+            if gen is not None:
+                row.uniform_(generator=gen)
+        return self.select_with(batch.pgm, residuals, eps, uniforms, state,
+                                unconverged)
+
     def select_with(self, pgm: PGM, residuals: torch.Tensor, eps: float,
                     uniforms: torch.Tensor, state, unconverged: torch.Tensor):
-        """``select`` given the round's (E,) uniform draw: pure, so the
-        same draw gives the same frontier and controller state as the
-        reference's ``select``."""
+        """``select`` given the round's uniform draw ((E,), or (B, E) with
+        (B,) state on a bucket): pure, so the same draw gives the same
+        frontier and controller state as the reference's ``select``."""
         new_count = unconverged.to(torch.float32)
         edge_ratio = new_count / torch.clamp(state, min=1.0)
         p = torch.where(edge_ratio > self.ratio_threshold, self.low_p,
                         self.high_p)
         candidates = (residuals >= eps) & pgm.edge_mask
-        return candidates & (uniforms < p), new_count
+        return candidates & (uniforms < p[..., None]), new_count

@@ -31,7 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_update_e_ref
 
 __all__ = ["fused_update_e", "LAUNCHES", "reset_launch_counts", "MAX_STATES",
-           "SEMIRINGS"]
+           "SEMIRINGS", "check_operands"]
 
 #: semiring name -> the kernel's semiring code
 SEMIRINGS = {"sum": 0, "max": 1}
@@ -61,6 +61,20 @@ def _kernel():
     return _lib.fused_update_e_launch
 
 
+def check_operands(want, device) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` of ``want`` has
+    that shape and dtype, lies on ``device`` and is contiguous."""
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check(logpsi, pre, logm, dmask, semiring):
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}; "
@@ -68,19 +82,10 @@ def _check(logpsi, pre, logm, dmask, semiring):
     if pre.dim() != 2:
         raise ValueError(f"pre must be (E, S), got {tuple(pre.shape)}")
     e, s = pre.shape
-    want = {"logpsi": (logpsi, (e, s, s), torch.float32),
-            "pre": (pre, (e, s), torch.float32),
-            "logm": (logm, (e, s), torch.float32),
-            "dmask": (dmask, (e, s), torch.int8)}
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != pre.device:
-            raise ValueError(f"{name} is on {t.device}, pre on {pre.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_operands({"logpsi": (logpsi, (e, s, s), torch.float32),
+                    "pre": (pre, (e, s), torch.float32),
+                    "logm": (logm, (e, s), torch.float32),
+                    "dmask": (dmask, (e, s), torch.int8)}, pre.device)
 
 
 def fused_update_e(logpsi: torch.Tensor,   # (E, S, S) f32 [e, x_src, x_dst]

@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import ops
 from repro_torch.kernels import triton_update as TT
 from repro_torch.pgm import protein_like_graph
@@ -25,14 +26,20 @@ CPU = torch.device("cpu")
 
 @pytest.fixture
 def counted(monkeypatch):
-    """Count calls of the kernel wrapper on the engine's path as launches."""
-    real = ops.fused_update_e
+    """Count calls of the kernel wrappers on the engine's paths as
+    launches."""
+    real, real_t = ops.fused_update_e, ops.fused_update_t
 
     def counting(*args, semiring="sum"):
         TT.LAUNCHES[semiring] += 1
         return real(*args, semiring=semiring)
 
+    def counting_t(*args):
+        MU.LAUNCHES["sum"] += 1
+        return real_t(*args)
+
     monkeypatch.setattr(ops, "fused_update_e", counting)
+    monkeypatch.setattr(ops, "fused_update_t", counting_t)
     monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=3:
                         (fn(), 0.0)[1])
 
@@ -83,3 +90,40 @@ def test_path_phases_on_cpu(counted):
                            "protein/max", "round_parts_ms"}
     trace = cs.phase_trace(pgm, CPU, warm=4, rounds=4)
     assert trace["kernels_per_round"] == 0 and trace["wall_ms_per_round"] > 0
+
+
+def test_batched_phases_on_cpu(counted):
+    assert cs.phase_kernels_t(CPU, states=(2, 9), edges=(1, 50),
+                              table_bytes=1 << 20) == 0.0
+    batch, out = cs.phase_batched(CPU, frames=2, scene={
+        "height": 6, "width": 8, "n_disp": 4}, max_rounds=300)
+    assert out["launches"] >= out["iterations"] >= \
+        max(f["rounds"] for f in out["frames"]) > 0
+    assert out["slot0_bitwise_solo"] and out["batch"] == batch.size == 2
+    assert out["other_launches"] == {"sum": 0, "max": 0}
+    assert all(f["converged"] and 0 <= f["within_1_of_truth"] <= 1
+               for f in out["frames"])
+    zoo = cs.phase_zoo(CPU, n=9)
+    for label in ("fold/pallas", "batch/triton"):
+        # the TPU-layout plain version sums in another order than "ref"
+        assert zoo[label]["max_prob_diff"] <= 1e-6
+        assert sum(b["size"] for b in zoo[label]["buckets"]) == 9
+        assert all(b["launches"] >= b["rounds"] > 0
+                   for b in zoo[label]["buckets"])
+    widest = cs.widest_bucket(CPU, n=9)
+    assert widest.n_states_max == max(
+        p.n_states_max for _, p in cs_zoo(9))
+    timing = cs.phase_timing_batched(batch, {"zoo": widest}, CPU, 3.35e12,
+                                     67e12)
+    assert set(timing) == {"stereo", "zoo", "round_parts_ms"}
+    assert timing["stereo"]["bound_by"] == "bytes"
+    assert timing["stereo"]["max_abs_err"] == timing["zoo"]["max_abs_err"] \
+        == 0.0
+    trace = cs.phase_trace(batch, CPU, warm=4, rounds=4,
+                           config=cs.batched_config(), rng=0)
+    assert trace["kernels_per_round"] == 0
+
+
+def cs_zoo(n):
+    from repro_torch.pgm import zoo_stream
+    return zoo_stream(n, seed=0, device="cpu")

@@ -6,21 +6,24 @@ no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-- The kernel matches its plain version on the card: sum-product within
+- Both kernels match their plain versions on the card: sum-product within
   1e-4 absolute, max-product bitwise, identical NEG_INF entries.
 - The engine on the card is deterministic: two runs and a chunked run give
   bitwise-equal results (the vertex sum uses no float atomics, and equals
   the CPU's bit for bit).
+- On a bucket, every slot is bitwise its solo run with the same generator,
+  through both kernels, and two bucket runs are bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BPConfig, BPEngine
+from repro_torch.core import BatchedPGM, BPConfig, BPEngine, slot_generator
 from repro_torch.core import messages as M
+from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import triton_update as TT
-from repro_torch.kernels.ref import fused_update_e_ref
+from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
 from repro_torch.pgm import datasets as TD
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +104,48 @@ def test_vertex_sum_is_deterministic_on_card(cuda):
     for _ in range(5):
         assert torch.equal(M.vertex_logprod(pgm, logm), first)
     assert torch.equal(first.cpu(), M.vertex_logprod(host, logm.cpu()))
+
+
+@pytest.mark.parametrize("e", [1, 1000, 5000])
+@pytest.mark.parametrize("s", [2, 16, 32, 81])
+def test_transposed_kernel_matches_plain_version(cuda, s, e):
+    logpsi, pre, logm, dmask = operands(e, s, seed=s, device=cuda)
+    ops = (logpsi.permute(1, 2, 0).contiguous(), pre.t().contiguous(),
+           logm.t().contiguous(), dmask.t().contiguous())
+    before = MU.LAUNCHES["sum"]
+    new, resid = MU.fused_update_t(*ops)
+    torch.cuda.synchronize()
+    assert MU.LAUNCHES["sum"] == before + 1
+    pnew, presid = fused_update_t_ref(*ops)
+    assert torch.equal(new == NEG_INF, pnew == NEG_INF)
+    assert float((new - pnew).abs().max()) <= 1e-4
+    assert float((resid - presid).abs().max()) <= 1e-4
+    # the transposed kernel computes the edge-major kernel's update
+    enew, eresid = TT.fused_update_e(logpsi, pre, logm, dmask)
+    assert float((new.t() - enew).abs().max()) <= 1e-4
+    assert float((resid - eresid).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("backend,batch_backend", [
+    ("pallas", "pallas"), ("triton", "triton"), ("pallas", None)])
+@pytest.mark.parametrize("sched,kw", [
+    ("rnbp", {"low_p": 0.4, "high_p": 0.9}), ("rs", {}), ("rbp", {"p": 1 / 16}),
+    ("lbp", {})])
+def test_bucket_on_card_is_deterministic_and_bitwise_solo(
+        cuda, sched, kw, backend, batch_backend):
+    pgms = ([TD.ising_grid_fast(n, 2.5, seed=n, device=cuda)
+             for n in (12, 16, 20)]
+            + [TD.protein_like_graph(30, seed=1, device=cuda)])
+    batch = BatchedPGM.from_pgms(pgms)
+    eng = BPEngine(BPConfig(scheduler=sched, scheduler_kwargs=kw, eps=1e-3,
+                            max_rounds=300, backend=backend,
+                            batch_backend=batch_backend), device=cuda)
+    gens = lambda: [slot_generator(7, i, cuda) for i in range(batch.size)]
+    a = eng.run(batch, gens())
+    b = eng.run(batch, gens())
+    for x, y in zip(_result_tensors(a), _result_tensors(b)):
+        assert torch.equal(x, y)
+    for i in range(batch.size):
+        solo = eng.run(batch.graph(i), slot_generator(7, i, cuda))
+        for x, y in zip(_result_tensors(a), _result_tensors(solo)):
+            assert torch.equal(x[i], y), i

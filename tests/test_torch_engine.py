@@ -225,14 +225,17 @@ def test_unported_paths_raise():
     tpgm = bridge(JD.ising_grid(3, 2.0))
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         TEngine(TConfig(scheduler="srbp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        TEngine(TConfig(batch_backend="triton"), device="cpu")
-    eng = TEngine(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="BatchedPGM"):
+    eng = TEngine(TConfig(batch_backend="triton"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        eng.serve([tpgm], 0)
+    with pytest.raises(TypeError, match="BatchedPGM"):
         eng.init([tpgm, tpgm], gen())
     with pytest.raises(ValueError, match="rng"):
         eng.run(tpgm)
     with pytest.raises(TypeError, match="torch.Generator"):
         eng.run(tpgm, 0)
-    with pytest.raises(KeyError, match="unknown update backend 'pallas'"):
-        TEngine(TConfig(backend="pallas"), device="cpu")
+    with pytest.raises(KeyError, match="unknown update backend 'sharded'"):
+        TEngine(TConfig(backend="sharded"), device="cpu")
+    with pytest.raises(KeyError,
+                       match="unknown batched update backend 'ref'"):
+        TEngine(TConfig(batch_backend="ref"), device="cpu")

@@ -12,11 +12,14 @@ import torch
 from repro.core import graph as JG
 from repro.core.registry import Registry as JRegistry
 from repro.core.schedulers import SCHEDULERS as J_SCHEDULERS
+from repro.kernels.ops import BATCH_UPDATE_BACKENDS as J_BATCH_BACKENDS
 from repro.kernels.ops import UPDATE_BACKENDS as J_BACKENDS
 from repro.pgm import datasets as JD
 from repro_torch.core import graph as TG
 from repro_torch.core.registry import Registry as TRegistry
 from repro_torch.core.schedulers import SCHEDULERS as T_SCHEDULERS
+from repro_torch.kernels.ops import BATCH_BACKEND_NAMES as T_BATCH_NAMES
+from repro_torch.kernels.ops import get_batch_update_fn as t_batch_update_fn
 from repro_torch.kernels.ops import UPDATE_BACKENDS as T_BACKENDS
 from repro_torch.pgm import datasets as TD
 
@@ -36,6 +39,13 @@ GENERATORS = {
     "protein_like_graph": (lambda: JD.protein_like_graph(40, seed=0),
                            lambda: TD.protein_like_graph(40, seed=0,
                                                          device="cpu")),
+    "loop_graph": (lambda: JD.loop_graph(24, seed=5),
+                   lambda: TD.loop_graph(24, seed=5, device="cpu")),
+    "ldpc_graph": (lambda: JD.ldpc_graph(3, n=24, dv=2, dc=4),
+                   lambda: TD.ldpc_graph(3, n=24, dv=2, dc=4, device="cpu")),
+    "stereo_graph": (lambda: JD.stereo_graph(2, height=6, width=8, n_disp=5),
+                     lambda: TD.stereo_graph(2, height=6, width=8, n_disp=5,
+                                             device="cpu")),
 }
 
 
@@ -167,13 +177,17 @@ def test_family_errors_match_reference():
         "\"unknown scheduler 'nope'"
     assert T_SCHEDULERS.names() == ["lbp", "rbp", "rnbp", "rs"]
     assert set(T_SCHEDULERS.names()) < set(J_SCHEDULERS.names())
-    for name in ("pallas", "sharded"):
-        kind, msg = _error_text(lambda: T_BACKENDS.lookup(name))
-        assert kind is KeyError
-        assert msg == repr(f"unknown update backend {name!r}; registered: "
-                           "['maxprod', 'ref', 'triton']")
-        assert name in J_BACKENDS
-    assert T_BACKENDS.names() == ["maxprod", "ref", "triton"]
+    kind, msg = _error_text(lambda: T_BACKENDS.lookup("sharded"))
+    assert kind is KeyError
+    assert msg == repr("unknown update backend 'sharded'; registered: "
+                       "['maxprod', 'pallas', 'ref', 'triton']")
+    assert "sharded" in J_BACKENDS
+    assert T_BACKENDS.names() == ["maxprod", "pallas", "ref", "triton"]
+    assert set(T_BACKENDS.names()) < set(J_BACKENDS.names())
+    assert list(T_BATCH_NAMES) == J_BATCH_BACKENDS.names() == \
+        ["pallas", "triton"]
+    assert _error_text(lambda: t_batch_update_fn("ref")) == \
+        _error_text(lambda: J_BATCH_BACKENDS.lookup("ref"))
 
 
 def test_resolve_device_refuses_missing_gpu(monkeypatch):
@@ -181,3 +195,73 @@ def test_resolve_device_refuses_missing_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TG.resolve_device("cuda")
     assert TG.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_zoo_instances_match_reference():
+    """The LDPC and stereo instances carry the reference's scene, code and
+    potentials, and score a labeling the same way."""
+    jl = JD.ldpc_code(48, dv=3, dc=6, snr_db=1.5, seed=4)
+    tl = TD.ldpc_code(48, dv=3, dc=6, snr_db=1.5, seed=4, device="cpu")
+    assert_same_graph(jl.pgm, tl.pgm)
+    assert tl.checks == jl.checks and tl.n_vertices == jl.n_vertices
+    assert (tl.sigma, tl.snr_db, tl.uncoded_errors) == \
+        (jl.sigma, jl.snr_db, jl.uncoded_errors)
+    for f in ("y", "llr", "edges"):
+        assert np.array_equal(getattr(tl, f), getattr(jl, f)), f
+    assert all(np.array_equal(a, b) for a, b in zip(tl.unary, jl.unary))
+    assert all(np.array_equal(a, b) for a, b in zip(tl.pairwise, jl.pairwise))
+    bits = np.random.default_rng(0).integers(0, 2, 48)
+    assert tl.coded_errors(bits) == jl.coded_errors(bits)
+    js = JD.stereo_mrf(9, 12, 6, seed=3)
+    ts = TD.stereo_mrf(9, 12, 6, seed=3, device="cpu")
+    assert_same_graph(js.pgm, ts.pgm)
+    for f in ("truth", "obs", "edges", "unary", "pairwise"):
+        assert np.array_equal(getattr(ts, f), getattr(js, f)), f
+    labels = np.random.default_rng(1).integers(0, 6, 9 * 12)
+    assert ts.energy(labels) == js.energy(labels)
+    assert ts.accuracy(labels) == js.accuracy(labels)
+
+
+def test_zoo_stream_matches_reference():
+    jstream = list(JD.zoo_stream(18, seed=1))
+    tstream = list(TD.zoo_stream(18, seed=1, device="cpu"))
+    assert [k for k, _ in tstream] == [k for k, _ in jstream]
+    for (_, jp), (_, tp) in zip(jstream, tstream):
+        assert_same_graph(jp, tp)
+        assert (tp.edge_count, tp.vertex_count) == \
+            (int(jp.edge_count), int(jp.vertex_count))
+    assert TD.list_workloads() == JD.list_workloads()
+    sub = [(k, slo) for k, _, slo in TD.zoo_stream(
+        6, kinds=["chain", "ldpc"], slos={"chain": 0.5}, device="cpu")]
+    assert sub == [(k, slo) for k, _, slo in JD.zoo_stream(
+        6, kinds=["chain", "ldpc"], slos={"chain": 0.5})]
+    assert _error_text(lambda: TD.get_workload("nope")) == \
+        _error_text(lambda: JD.get_workload("nope"))
+
+
+@pytest.mark.parametrize("grow", [(0, 0, 0), (256, 16, 3), (128, 8, 0)])
+def test_pad_pgm_bitwise_equal(grow):
+    de, dv, ds = grow
+    jpgm = JD.protein_like_graph(20, seed=4)
+    tpgm = TG.PGM.from_numpy(vars(jpgm), jpgm.n_real_vertices,
+                             jpgm.n_real_edges, device="cpu")
+    kw = dict(n_edges=jpgm.n_edges + de, n_vertices=jpgm.n_vertices + dv,
+              n_states=jpgm.n_states_max + ds)
+    jarr = JG.pad_pgm_arrays(jpgm, **kw)
+    tarr = TG.pad_pgm_arrays(tpgm, **kw)
+    assert set(tarr) == set(jarr)
+    for k in jarr:
+        assert tarr[k].dtype == jarr[k].dtype and \
+            np.array_equal(tarr[k], jarr[k]), k
+    ceil = dict(n_real_edges=4096, n_real_vertices=512)
+    jpad, tpad = JG.pad_pgm(jpgm, **kw, **ceil), TG.pad_pgm(tpgm, **kw, **ceil)
+    assert_same_graph(jpad, tpad)
+    check_static_operands(tpad)
+    assert (tpad.edge_count, tpad.vertex_count) == \
+        (int(jpad.edge_count), int(jpad.vertex_count)) == \
+        (jpgm.n_real_edges, jpgm.n_real_vertices)
+    if de:        # padded edges are not in the incoming-edge table
+        assert torch.equal(tpad.in_edges[tpad.in_mask].sort().values,
+                           tpgm.in_edges[tpgm.in_mask].sort().values)
+    with pytest.raises(ValueError, match="cannot shrink"):
+        TG.pad_pgm(tpgm, n_edges=1, n_vertices=1, n_states=1)

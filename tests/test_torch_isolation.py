@@ -48,7 +48,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert report["main"]
     for mod in ("repro_torch.core.engine", "repro_torch.core.messages",
                 "repro_torch.kernels.triton_update", "repro_torch.kernels._build",
-                "repro_torch.core.schedulers.rnbp", "repro_torch.pgm.datasets"):
+                "repro_torch.core.schedulers.rnbp", "repro_torch.pgm.datasets",
+                "repro_torch.core.batch", "repro_torch.kernels.message_update",
+                "repro_torch.kernels.ops"):
         assert mod in report["modules"]
 
 
@@ -83,9 +85,15 @@ def no_gpu(monkeypatch):
                               torch.ones(1, 2, 2).numpy()),
     lambda: BPEngine(BPConfig()),
     lambda: BPEngine(),
+    lambda: TD.loop_graph(8),
+    lambda: TD.ldpc_graph(0, n=12, dv=2, dc=4),
+    lambda: TD.stereo_mrf(3, 4, 2),
+    lambda: next(TD.zoo_stream(1)),
+    lambda: BPEngine(BPConfig(backend="pallas", batch_backend="pallas")),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
-        "engine_default_config"])
+        "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
+        "zoo_stream", "engine_batched"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -95,3 +103,12 @@ def test_cpu_is_explicit(no_gpu):
     pgm = TD.ising_grid(3, 2.0, device="cpu")
     res = BPEngine(BPConfig(), device="cpu").run(pgm, torch.Generator())
     assert res.beliefs.device.type == "cpu" and bool(res.converged)
+
+
+def test_bucket_on_cpu_stays_on_cpu(no_gpu):
+    pgms = [TD.ising_grid(3, 2.0, device="cpu"), TD.chain_graph(9,
+                                                                 device="cpu")]
+    res = BPEngine(BPConfig(batch_backend="pallas"), device="cpu").run_many(
+        pgms, 0)
+    assert all(r.beliefs.device.type == "cpu" and bool(r.converged)
+               for r in res)

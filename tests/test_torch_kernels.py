@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ref as JR
 from repro.kernels import triton_update as JT
 from repro_torch.kernels import _build
+from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import triton_update as TT
 from repro_torch.kernels.ref import fused_update_e_ref
 
@@ -122,6 +123,29 @@ def test_cuda_tensor_without_gpu_raises(monkeypatch):
     assert TT.LAUNCHES == before
 
 
+def test_transposed_kernel_cuda_tensor_without_gpu_raises(monkeypatch):
+    """``fused_update_t`` on CUDA tensors builds its kernel or raises; with
+    no CUDA toolkit it raises and counts no launch."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; test_torch_cuda.py covers it")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(MU, "_lib", None)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: _build._BUILD_DIR / "absent.so")
+    before = dict(MU.LAUNCHES)
+    with FakeTensorMode():
+        ops = (torch.empty(3, 3, 5, device="cuda"),
+               torch.empty(3, 5, device="cuda"),
+               torch.empty(3, 5, device="cuda"),
+               torch.empty(3, 5, dtype=torch.int8, device="cuda"))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            MU.fused_update_t(*ops)
+    assert MU.LAUNCHES == before
+
+
 def test_build_flags_target_hopper_without_fast_math():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
@@ -129,3 +153,5 @@ def test_build_flags_target_hopper_without_fast_math():
     p = _build.library_path("fused_update_e")
     assert p.parent.name == "kernels" and p.parent.parent.name == "build"
     assert p == _build.library_path("fused_update_e")     # stable key
+    assert _build.SOURCES == ("fused_update_e", "fused_update_t")
+    assert all((_build._CSRC / f"{n}.cu").is_file() for n in _build.SOURCES)

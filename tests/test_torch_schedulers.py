@@ -5,6 +5,11 @@ frontier masks. RnBP draws random numbers, and torch's generators differ
 from JAX's threefry, so it is compared through ``select_with``: the port
 gets the very uniforms the reference draws from its key, and masks and
 controller state must then be bitwise equal.
+
+Frontier sizes come from a graph's own real counts, not the static
+ceilings a bucket raises: on a graph padded with ``pad_pgm(...,
+n_real_edges=ceiling, n_real_vertices=ceiling)`` and on a whole bucket
+(the reference vmaps ``select``), the masks are still the reference's.
 """
 
 import jax
@@ -14,8 +19,11 @@ import pytest
 import torch
 
 from repro.core import schedulers as JS
+from repro.core.batch import BatchedPGM as JBatch
+from repro.core.graph import pad_pgm as j_pad_pgm
 from repro.pgm import datasets as JD
 from repro_torch.core import schedulers as TS
+from repro_torch.core.batch import BatchedPGM as TBatch
 from repro_torch.core.graph import PGM
 from repro_torch.core.schedulers.base import frontier_size
 
@@ -23,9 +31,12 @@ EPS = 1e-3
 
 
 def bridge(jpgm):
-    """The reference graph's arrays, carried into the port."""
+    """The reference graph's arrays and its own counts, carried into the
+    port."""
     return PGM.from_numpy(vars(jpgm), jpgm.n_real_vertices,
-                          jpgm.n_real_edges, device="cpu")
+                          jpgm.n_real_edges, device="cpu",
+                          edge_count=int(jpgm.traced_edge_count()),
+                          vertex_count=int(jpgm.traced_vertex_count()))
 
 
 @pytest.fixture(scope="module", params=["ising", "protein", "chain"])
@@ -128,3 +139,125 @@ def test_registry_surface():
     assert TS.get_scheduler(inst) is inst
     with pytest.raises(ValueError):
         TS.get_scheduler(inst, p=0.2)
+
+
+def padded_to_ceiling(jpgm, ceiling=4096):
+    """The graph re-padded as a bucket pads it: 2x the edges, 64 more
+    vertices, and static ceilings far above its own counts."""
+    jpad = j_pad_pgm(jpgm, n_edges=2 * jpgm.n_edges,
+                     n_vertices=jpgm.n_vertices + 64,
+                     n_states=jpgm.n_states_max, n_real_edges=ceiling,
+                     n_real_vertices=ceiling)
+    return jpad, bridge(jpad)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("rbp", {"p": 0.05}), ("rbp", {"p": 0.3}), ("rs", {"p": 0.05}),
+    ("rs", {"p": 0.2, "h": 1, "inner_sweeps": 1})])
+def test_padded_graph_frontiers_follow_own_counts(graphs, name, kwargs):
+    jpad, tpad = padded_to_ceiling(graphs[0])
+    assert (tpad.edge_count, tpad.vertex_count) == \
+        (int(jpad.edge_count), int(jpad.vertex_count))
+    assert tpad.n_real_edges == tpad.n_real_vertices == 4096
+    js, ts = JS.get_scheduler(name, **kwargs), TS.get_scheduler(name, **kwargs)
+    for r in residual_sets(jpad.n_edges, seed=2):
+        u = unconverged(jpad, r)
+        jf, _ = js.select(jpad, jnp.asarray(r), EPS, jax.random.key(0), (),
+                          jnp.int32(u))
+        tf, _ = ts.select(tpad, torch.from_numpy(r), EPS, None, (),
+                          torch.tensor(u, dtype=torch.int32))
+        assert np.array_equal(np.asarray(jf), tf.numpy())
+
+
+def test_padded_graph_rnbp_follows_own_counts(graphs):
+    jpad, tpad = padded_to_ceiling(graphs[0])
+    js, ts = JS.RnBP(low_p=0.4, high_p=0.9), TS.RnBP(low_p=0.4, high_p=0.9)
+    jstate, tstate = js.init(jpad), ts.init(tpad)
+    assert np.float32(jstate) == tstate.item() == float(jpad.edge_count)
+    for i, r in enumerate(residual_sets(jpad.n_edges, seed=4)):
+        key = jax.random.key(i)
+        draws = np.array(jax.random.uniform(key, (jpad.n_edges,)))
+        u = unconverged(jpad, r)
+        jf, jstate = js.select(jpad, jnp.asarray(r), EPS, key, jstate,
+                               jnp.int32(u))
+        tf, tstate = ts.select_with(tpad, torch.from_numpy(r), EPS,
+                                    torch.from_numpy(draws), tstate,
+                                    torch.tensor(u, dtype=torch.int32))
+        assert np.array_equal(np.asarray(jf), tf.numpy())
+        assert np.float32(jstate) == tstate.item()
+
+
+@pytest.fixture(scope="module")
+def buckets():
+    """One bucket of graphs of different sizes (own counts below the
+    bucket's ceilings), in both packages."""
+    jpgms = [JD.ising_grid(n, 2.0, seed=n) for n in (4, 9)] + \
+        [JD.chain_graph(90, seed=1), JD.protein_like_graph(12, seed=3)]
+    jb = JBatch.from_pgms(jpgms)
+    tb = TBatch.from_pgms([bridge(p) for p in jpgms])
+    return jb, tb
+
+
+def batch_residuals(jb, seed):
+    rows = [residual_sets(jb.n_edges, seed=seed + i)[i % 4]
+            for i in range(jb.size)]
+    r = np.stack(rows)
+    u = np.sum((r >= EPS) & np.asarray(jb.pgm.edge_mask), axis=1)
+    return r, u.astype(np.int32)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("lbp", {}), ("rbp", {"p": 0.05}), ("rbp", {"p": 0.3}),
+    ("rs", {"p": 0.05}), ("rs", {"p": 0.2, "h": 3, "inner_sweeps": 3})])
+def test_batched_select_matches_vmapped_reference(buckets, name, kwargs):
+    jb, tb = buckets
+    js, ts = JS.get_scheduler(name, **kwargs), TS.get_scheduler(name, **kwargs)
+    vselect = jax.vmap(lambda p, r, u: js.select(p, r, EPS, jax.random.key(0),
+                                                 (), u)[0])
+    for seed in (0, 10):
+        r, u = batch_residuals(jb, seed)
+        jf = vselect(jb.pgm, jnp.asarray(r), jnp.asarray(u))
+        tf, _ = ts.select_batch(tb, torch.from_numpy(r), EPS,
+                                [None] * tb.size, ts.init_batch(tb),
+                                torch.from_numpy(u))
+        assert tf.shape == (tb.size, tb.n_edges)
+        assert np.array_equal(np.asarray(jf), tf.numpy())
+
+
+def test_batched_rnbp_matches_vmapped_reference(buckets):
+    jb, tb = buckets
+    js, ts = JS.RnBP(low_p=0.4, high_p=0.9), TS.RnBP(low_p=0.4, high_p=0.9)
+    jstate = jax.vmap(js.init)(jb.pgm)
+    tstate = ts.init_batch(tb)
+    assert np.array_equal(np.asarray(jstate), tstate.numpy())
+    vselect = jax.vmap(lambda p, r, k, st, u: js.select(p, r, EPS, k, st, u))
+    for i in range(4):
+        r, u = batch_residuals(jb, 20 + i)
+        keys = jax.random.split(jax.random.key(i), jb.size)
+        draws = np.stack([np.array(jax.random.uniform(k, (jb.n_edges,)))
+                          for k in keys])
+        jf, jstate = vselect(jb.pgm, jnp.asarray(r), keys, jstate,
+                             jnp.asarray(u))
+        tf, tstate = ts.select_with(tb.pgm, torch.from_numpy(r), EPS,
+                                    torch.from_numpy(draws), tstate,
+                                    torch.from_numpy(u))
+        assert np.array_equal(np.asarray(jf), tf.numpy())
+        assert np.array_equal(np.asarray(jstate), tstate.numpy())
+
+
+def test_batched_rnbp_draws_one_row_per_live_graph(buckets):
+    """Row b of a bucket's draw is what graph b's generator gives alone; a
+    graph with no generator (budget spent) draws nothing."""
+    _, tb = buckets
+    s = TS.RnBP(low_p=0.5, high_p=0.5)
+    r = torch.ones(tb.size, tb.n_edges)
+    unc = torch.tensor(tb.pgm.edge_count, dtype=torch.int32)
+    gens = [torch.Generator().manual_seed(i) for i in range(tb.size)]
+    gens[1] = None
+    f, _ = s.select_batch(tb, r, EPS, gens, s.init_batch(tb), unc)
+    for b in (0, 2, 3):
+        solo, _ = s.select(tb.graph(b), r[b], EPS,
+                           torch.Generator().manual_seed(b),
+                           s.init(tb.graph(b)), unc[b])
+        assert torch.equal(f[b], solo)
+    assert not bool(f[1].any())
