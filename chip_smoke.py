@@ -19,13 +19,21 @@ main paths at full size and measures them:
   stream through both bucket paths against the CPU's plain path; then the
   same timings and trace for a batched round.
 
+Both kernels are held against their plain versions at every state count
+on a boundary of their launch plans (phases 3 and 9, with the first edges
+launched alone against the full launch, bitwise) and on the buckets' own
+operands (phase 12); both are timed at every measured shape (the one-graph
+S = 2 path, the protein MRF, the stereo bucket, the zoo's widest bucket;
+phases 7 and 12).
+
 Every phase raises on failure; nothing is caught. Output:
 
-- progress lines per phase;
+- progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path,
   its largest difference from the plain version, its time, the plain
-  version's time and the least time the card could take (``bound_ms``);
+  version's time and the least time the card could take (``bound_ms``) at
+  the main path's shape, and ``shapes``, the same per measured shape;
 - last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``. The script
@@ -51,8 +59,10 @@ MAIN_N, MAIN_C = 1000, 2.5           # the main path's Ising grid
 MAIN_KW = {"low_p": 0.4, "high_p": 0.9}   # the main path's RnBP
 PAPER_N = 200                        # the paper's Ising benchmark size
 CPU_N, CPU_C = 100, 2.0              # card-vs-CPU agreement graph
-CHECK_STATES = (2, 3, 8, 32, 81)
+# S on both sides of every boundary of the kernels' launch plans
+CHECK_STATES = (1, 2, 3, 8, 9, 15, 16, 17, 31, 32, 33, 51, 64, 81, 127, 128)
 CHECK_EDGES = (1, 127, 4096, 3_996_032)
+SUB_EDGES = 37                       # the sub-launch check's first edges
 CHECK_TABLE_BYTES = 1 << 30          # cap E so one (E, S, S) table <= 1 GiB
 
 # Published peaks (NVIDIA data sheets): device memory bytes/s and float32
@@ -72,7 +82,7 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_update_e.cu"
 STEREO = {"height": 288, "width": 384, "n_disp": 16}
 STEREO_FRAMES, STEREO_ROUNDS = 4, 1000
 ZOO_N, ZOO_EPS, ZOO_ROUNDS = 36, 1e-4, 2000    # the zoo stream, LBP
-CHECK_T_STATES = (2, 3, 8, 16, 32, 81)
+CHECK_T_STATES = CHECK_STATES + (200, 300)   # 300: the walk variant
 CHECK_T_EDGES = (1, 127, 4096, 1_764_352)
 T_SOURCE = "src/repro_torch/kernels/csrc/fused_update_t.cu"
 T_REPLACES = "src/repro/kernels/message_update.py:59"
@@ -119,6 +129,27 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of the CUDA kernels ``fn`` launches, from
+    a ``torch.profiler`` trace of ``iters`` warm calls: the kernel's own
+    time, without the host's launch overhead that CUDA events around
+    back-to-back calls include when a call is short. 0.0 off the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        return 0.0
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA)
+    return total / iters / 1e3
+
+
 def random_operands(e: int, s: int, gen, device):
     """Kernel inputs with NEG_INF invalid states, all-masked rows (every
     7th edge) and source rows with no valid state (every 11th edge)."""
@@ -157,9 +188,34 @@ def compare(semiring: str, kern, plain) -> float:
     return err
 
 
+def first_edges(t, k: int, edges_last: bool):
+    """The first ``k`` edges of an operand or output, as a new contiguous
+    tensor: rows of an edge-major tensor, columns (the last axis) of a
+    transposed one; a 1-D tensor is always per edge."""
+    if edges_last and t.dim() > 1:
+        return t[..., :k].contiguous()
+    return t[:k].contiguous()
+
+
+def check_sub_launch(name, fn, ops, kern, k, edges_last=False) -> None:
+    """The first ``k`` edges launched alone give bitwise the output they
+    have inside the full launch ``kern = fn(*ops)``; raises otherwise. An
+    edge's arithmetic must not depend on E or on its place in the launch.
+    The phases run it on the card only: the plain versions on the CPU are
+    vectorized over edges and may round an edge's last bit by its place."""
+    import torch
+    k = min(k, int(ops[1].shape[-1 if edges_last else 0]))
+    part = fn(*(first_edges(t, k, edges_last) for t in ops))
+    if not all(torch.equal(p, first_edges(f, k, edges_last))
+               for p, f in zip(part, kern)):
+        raise AssertionError(f"{name}: the first {k} edges launched alone "
+                             "differ from the same edges in the full launch")
+
+
 def phase_kernels(device, states=CHECK_STATES, edges=CHECK_EDGES,
-                  table_bytes=CHECK_TABLE_BYTES):
-    """Kernel vs plain version for both semirings over S x E."""
+                  table_bytes=CHECK_TABLE_BYTES, sub=SUB_EDGES):
+    """Kernel vs plain version for both semirings over S x E, and the first
+    ``sub`` edges alone against the full launch, bitwise."""
     import torch
     from repro_torch.kernels.ref import fused_update_e_ref
     from repro_torch.kernels.triton_update import fused_update_e
@@ -170,13 +226,18 @@ def phase_kernels(device, states=CHECK_STATES, edges=CHECK_EDGES,
             e = min(e_want, max(1, table_bytes // (4 * s * s)))
             ops = random_operands(e, s, gen, device)
             for semiring in ("sum", "max"):
-                kern = fused_update_e(*ops, semiring=semiring)
+                def fn(*o, semiring=semiring):
+                    return fused_update_e(*o, semiring=semiring)
+                kern = fn(*ops)
                 plain = fused_update_e_ref(*ops, semiring=semiring)
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
+                sync(device)
                 err = compare(semiring, kern, plain)
+                if device.type == "cuda":
+                    check_sub_launch(f"fused_update_e/{semiring} S={s} "
+                                     f"E={e}", fn, ops, kern, sub)
                 worst[semiring] = max(worst[semiring], err)
-                log(f"  S={s:3d} E={e:9d} {semiring}: max_abs_err={err:.3g}"
+                log(f"  S={s:3d} E={e:9d} {semiring}: max_abs_err={err:.3g}, "
+                    f"first {min(sub, e)} edges alone: bitwise"
                     + ("" if e == e_want else f" (E cut from {e_want})"))
             del ops, kern, plain
     return worst
@@ -318,6 +379,8 @@ def phase_timing(pgm, device, bw, f32, protein):
     from repro_torch.core.schedulers import RnBP
     from repro_torch.kernels.ref import fused_update_e_ref
     from repro_torch.kernels.triton_update import fused_update_e
+    from repro_torch.kernels.message_update import fused_update_t
+    from repro_torch.kernels.ref import fused_update_t_ref
     out = {}
     for name, g in (("main", pgm), ("protein", protein)):
         logm = M.init_messages(g)
@@ -325,14 +388,38 @@ def phase_timing(pgm, device, bw, f32, protein):
         ops = (g.log_psi_e, pre, logm, g.dst_mask)
         e, s = g.n_edges, g.n_states_max
         for semiring in ("sum", "max"):
-            k_ms = time_ms(lambda: fused_update_e(*ops, semiring=semiring), 50)
+            def kern(semiring=semiring):
+                return fused_update_e(*ops, semiring=semiring)
+            k_ms = time_ms(kern, 50)
             p_ms = time_ms(lambda: fused_update_e_ref(*ops, semiring=semiring),
                            10)
             b_ms, b_by = bound(e, s, semiring, bw, f32)
             out[f"{name}/{semiring}"] = dict(E=e, S=s, ms=k_ms, plain_ms=p_ms,
+                                             device_ms=device_ms(kern),
                                              bound_ms=b_ms, bound_by=b_by)
-            log(f"  {name:7s} {semiring}: E={e} S={s} kernel {k_ms:.4f} ms, "
+            log(f"  {name:7s} {semiring}: E={e} S={s} kernel {k_ms:.4f} ms "
+                f"(device {out[f'{name}/{semiring}']['device_ms']:.4f}), "
                 f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # fused_update_t at the one-graph shape (the protein shape is phase 12's)
+    logm = M.init_messages(pgm)
+    logpsi_t, dmask_t = pgm.operands_t
+    ops_t = (logpsi_t, M.edge_prelude(pgm, logm).t().contiguous(),
+             logm.t().contiguous(), dmask_t)
+    err = compare("sum", fused_update_t(*ops_t), fused_update_t_ref(*ops_t))
+    e, s = pgm.n_edges, pgm.n_states_max
+    b_ms, b_by = bound(e, s, "sum", bw, f32)
+    out["main/t"] = dict(E=e, S=s, max_abs_err=err, bound_ms=b_ms,
+                         bound_by=b_by,
+                         ms=time_ms(lambda: fused_update_t(*ops_t), 50),
+                         device_ms=device_ms(lambda: fused_update_t(*ops_t)),
+                         plain_ms=time_ms(lambda: fused_update_t_ref(*ops_t),
+                                          10))
+    log(f"  main    fused_update_t: E={e} S={s} kernel "
+        f"{out['main/t']['ms']:.4f} ms (device "
+        f"{out['main/t']['device_ms']:.4f}), plain "
+        f"{out['main/t']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"max_abs_err={err:.3g}")
+    del ops_t, logpsi_t, dmask_t
     # One main-path round, part by part.
     logm = M.init_messages(pgm)
     cand, r = fused_update_e(pgm.log_psi_e, M.edge_prelude(pgm, logm), logm,
@@ -398,9 +485,10 @@ def phase_trace(graph, device, warm=64, rounds=32, config=None, rng=None):
 
 
 def phase_kernels_t(device, states=CHECK_T_STATES, edges=CHECK_T_EDGES,
-                    table_bytes=CHECK_TABLE_BYTES):
+                    table_bytes=CHECK_TABLE_BYTES, sub=SUB_EDGES):
     """The TPU-layout kernel ``fused_update_t`` vs its plain version over
-    S x E, operands transposed from ``random_operands``."""
+    S x E, operands transposed from ``random_operands``, and the first
+    ``sub`` edges alone against the full launch, bitwise."""
     import torch
     from repro_torch.kernels.message_update import fused_update_t
     from repro_torch.kernels.ref import fused_update_t_ref
@@ -415,11 +503,15 @@ def phase_kernels_t(device, states=CHECK_T_STATES, edges=CHECK_T_EDGES,
             del logpsi, pre, logm, dmask
             kern = fused_update_t(*ops)
             plain = fused_update_t_ref(*ops)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
+            sync(device)
             err = compare("sum", kern, plain)
+            if device.type == "cuda":
+                check_sub_launch(f"fused_update_t S={s} E={e}",
+                                 fused_update_t, ops, kern, sub,
+                                 edges_last=True)
             worst = max(worst, err)
-            log(f"  S={s:3d} E={e:9d} sum: max_abs_err={err:.3g}"
+            log(f"  S={s:3d} E={e:9d} sum: max_abs_err={err:.3g}, first "
+                f"{min(sub, e)} edges alone: bitwise"
                 + ("" if e == e_want else f" (E cut from {e_want})"))
             del ops, kern, plain
     return worst
@@ -611,8 +703,31 @@ def phase_zoo(device, n=ZOO_N, eps=ZOO_EPS, max_rounds=ZOO_ROUNDS):
         log(f"  {label}: {len(pgms)} requests in {len(per_bucket)} buckets, "
             f"rounds equal to the CPU's, max belief diff {worst:.3g}, "
             f"not converged on the CPU: {unconverged or 'none'}")
+        for rec in per_bucket:
+            log(f"    bucket B={rec['size']} E={rec['edges']} "
+                f"S={rec['states']}: {rec['iterations']} iterations, "
+                f"{rec['launches']} launches")
     out["kinds"] = kinds
     return out
+
+
+def phase_protein_pallas(device, protein_vertices=120):
+    """RnBP on the protein-like MRF (S = 81) through the ``"pallas"``
+    backend: ``fused_update_t``'s launches at that shape, counts reset just
+    before and read just after."""
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.pgm import protein_like_graph
+    pgm = protein_like_graph(protein_vertices, seed=0, device=device)
+    MU.reset_launch_counts()
+    res, secs = run_engine(pgm, device, scheduler="rnbp",
+                           scheduler_kwargs=MAIN_KW, backend="pallas")
+    launches = MU.LAUNCHES["sum"]
+    check_beliefs(pgm, res)
+    if launches < max(int(res.rounds), 1):
+        raise AssertionError("the protein run bypassed fused_update_t")
+    return dict(graph=f"protein_like_graph({protein_vertices}, seed=0)",
+                rounds=int(res.rounds), converged=bool(res.converged),
+                launches=launches, run_s=secs)
 
 
 def widest_bucket(device, n=ZOO_N):
@@ -625,17 +740,18 @@ def widest_bucket(device, n=ZOO_N):
 
 
 def phase_timing_batched(batch, others, device, bw, f32):
-    """``fused_update_t`` held against its plain version on a bucket's
-    union -- the operands the batched main path gives it -- and CUDA-event
-    times of both (and, beside them, of ``fused_update_e``), at the stereo
-    bucket's shape and at each of ``others`` (name -> bucket); then the
-    parts of one batched round of the stereo bucket."""
+    """Both kernels held against their plain versions on a bucket's union
+    -- the operands the batched main path gives them -- and CUDA-event
+    times of each kernel and plain version (``fused_update_e`` in both
+    semirings), at the stereo bucket's shape and at each of ``others``
+    (name -> bucket); then the parts of one batched round of the stereo
+    bucket."""
     import torch
     from repro_torch.core import messages as M
     from repro_torch.core.batch import batch_generators
     from repro_torch.core.schedulers import RnBP
     from repro_torch.kernels.message_update import fused_update_t
-    from repro_torch.kernels.ref import fused_update_t_ref
+    from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
     from repro_torch.kernels.triton_update import fused_update_e
     out = {}
     for name, b in (("stereo", batch), *others.items()):
@@ -645,25 +761,39 @@ def phase_timing_batched(batch, others, device, bw, f32):
         logpsi_t, dmask_t = union.operands_t
         ops_t = (logpsi_t, pre.t().contiguous(), logm.t().contiguous(),
                  dmask_t)
+        ops_e = (union.log_psi_e, pre, logm, union.dst_mask)
         e, s = union.n_edges, union.n_states_max
-        kern, plain = fused_update_t(*ops_t), fused_update_t_ref(*ops_t)
-        sync(device)
-        err = compare("sum", kern, plain)
-        del kern, plain
+        err = compare("sum", fused_update_t(*ops_t), fused_update_t_ref(*ops_t))
         b_ms, b_by = bound(e, s, "sum", bw, f32)
         row = dict(B=b.size, E=e, S=s, max_abs_err=err, bound_ms=b_ms,
                    bound_by=b_by,
                    ms=time_ms(lambda: fused_update_t(*ops_t), 50),
+                   device_ms=device_ms(lambda: fused_update_t(*ops_t)),
                    plain_ms=time_ms(lambda: fused_update_t_ref(*ops_t), 10),
-                   e_ms=time_ms(lambda: fused_update_e(
-                       union.log_psi_e, pre, logm, union.dst_mask), 50))
+                   e={})
+        log(f"  {name:7s} B={b.size} E={e} S={s}: fused_update_t "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), max_abs_err={err:.3g}")
+        for semiring in ("sum", "max"):
+            def kern(semiring=semiring):
+                return fused_update_e(*ops_e, semiring=semiring)
+
+            def plain(semiring=semiring):
+                return fused_update_e_ref(*ops_e, semiring=semiring)
+            e_err = compare(semiring, kern(), plain())
+            eb_ms, eb_by = bound(e, s, semiring, bw, f32)
+            row["e"][semiring] = dict(
+                max_abs_err=e_err, bound_ms=eb_ms, bound_by=eb_by,
+                ms=time_ms(kern, 50), device_ms=device_ms(kern),
+                plain_ms=time_ms(plain, 10))
+            log(f"  {name:7s} fused_update_e/{semiring}: "
+                f"{row['e'][semiring]['ms']:.4f} ms (device "
+                f"{row['e'][semiring]['device_ms']:.4f}), plain "
+                f"{row['e'][semiring]['plain_ms']:.4f} ms, bound "
+                f"{eb_ms:.4f} ms ({eb_by}), max_abs_err={e_err:.3g}")
         out[name] = row
-        log(f"  {name:6s} B={b.size} E={e} S={s}: max_abs_err={err:.3g}, "
-            f"fused_update_t {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, "
-            f"fused_update_e {row['e_ms']:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
-        del ops_t, pre, logm
+        del ops_t, ops_e, pre, logm
     # One batched round of the stereo bucket, part by part.
     union = batch.folded()
     bsz, e_b, s = batch.size, batch.n_edges, batch.n_states_max
@@ -707,6 +837,53 @@ def phase_timing_batched(batch, others, device, bw, f32):
     return out
 
 
+def kernels_line(timing, btiming, worst, worst_t, launches, launches_t):
+    """The ``{"kernels": [...]}`` entries: per kernel its main path's
+    launches, its largest difference from the plain version over phases 3,
+    7, 9 and 12, the main path's shape's times and bound, and ``shapes``,
+    one ``{E, S, ms, device_ms, bound_ms, plain_ms}`` per timed shape
+    (``ms`` from CUDA events around back-to-back calls, ``device_ms`` the
+    kernel's own time from the profiler; the one-graph
+    S = 2 path, the protein MRF, the stereo bucket, the zoo's widest
+    bucket)."""
+    def shape(name, row):
+        return dict(shape=name, E=row["E"], S=row["S"], ms=row["ms"],
+                    device_ms=row["device_ms"], bound_ms=row["bound_ms"],
+                    plain_ms=row["plain_ms"])
+
+    kernels = []
+    for semiring in ("sum", "max"):
+        t = timing[f"main/{semiring}"]
+        shapes = [shape("main", t),
+                  shape("protein", timing[f"protein/{semiring}"])]
+        for name in ("stereo", "zoo"):
+            row = btiming[name]
+            shapes.append(shape(name, dict(row["e"][semiring], E=row["E"],
+                                           S=row["S"])))
+        err = max([worst[semiring]] + [r["e"][semiring]["max_abs_err"]
+                                       for r in btiming.values()
+                                       if "e" in r])
+        kernels.append(dict(
+            name=f"fused_update_e/{semiring}", route="cuda",
+            source=KERNEL_SOURCE, replaces=REPLACES[semiring],
+            launches=launches[semiring], max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None, shapes=shapes))
+    t = btiming["stereo"]
+    err = max([worst_t, timing["main/t"]["max_abs_err"]]
+              + [r["max_abs_err"] for r in btiming.values()
+                 if "max_abs_err" in r])
+    shapes = [shape("main", timing["main/t"]),
+              shape("protein", btiming["protein"]), shape("stereo", t),
+              shape("zoo", btiming["zoo"])]
+    kernels.append(dict(
+        name="fused_update_t/sum", route="cuda", source=T_SOURCE,
+        replaces=T_REPLACES, launches=launches_t, max_abs_err=err,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, shapes=shapes))
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -739,7 +916,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"  {name}: {line.strip()}")
     log(f"  built {sorted(reports) or 'nothing (cached)'} in {build_s:.2f} s")
 
@@ -810,6 +988,11 @@ def main() -> int:
         "protein": BatchedPGM.from_pgms([protein_like_graph(
             seed=0, device=device)])}, device, bw, f32)
 
+    protein_t = phase_protein_pallas(device)
+    log(f"  {protein_t['graph']} RnBP through \"pallas\": rounds="
+        f"{protein_t['rounds']} converged={protein_t['converged']} "
+        f"fused_update_t launches={protein_t['launches']}")
+
     log("== 13. device trace of the batched path (torch.profiler)")
     btrace = phase_trace(batch, device, warm=16, config=batched_config(),
                          rng=0)
@@ -821,30 +1004,17 @@ def main() -> int:
     for name, ms in btrace["top_ms_per_round"].items():
         log(f"  {ms:.4f} ms/round  {name[:110]}")
 
-    launches = {"sum": main["launches"]["sum"], "max": mapd["launches"]}
-    kernels = []
-    for semiring in ("sum", "max"):
-        t = timing[f"main/{semiring}"]
-        kernels.append(dict(
-            name=f"fused_update_e/{semiring}", route="cuda",
-            source=KERNEL_SOURCE, replaces=REPLACES[semiring],
-            launches=launches[semiring], max_abs_err=worst[semiring],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
-    t = btiming["stereo"]
-    worst_t = max([worst_t] + [r["max_abs_err"] for r in btiming.values()
-                               if "max_abs_err" in r])
-    kernels.append(dict(
-        name="fused_update_t/sum", route="cuda", source=T_SOURCE,
-        replaces=T_REPLACES, launches=bmain["launches"],
-        max_abs_err=worst_t, ms=t["ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+    kernels = kernels_line(
+        timing, btiming, worst, worst_t,
+        {"sum": main["launches"]["sum"], "max": mapd["launches"]},
+        bmain["launches"])
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernel_check=worst, main=main, paper=paper, map=mapd,
                   card_vs_cpu=cpu, timing=timing, trace=trace,
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
-                  batched_timing=btiming, batched_trace=btrace,
+                  batched_timing=btiming, protein_pallas=protein_t,
+                  batched_trace=btrace,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

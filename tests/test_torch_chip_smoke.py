@@ -61,9 +61,41 @@ def test_bound_is_the_byte_contract():
 
 
 def test_kernel_phase_on_cpu():
-    worst = cs.phase_kernels(CPU, states=(2, 9), edges=(1, 50),
-                             table_bytes=1 << 20)
+    worst = cs.phase_kernels(CPU, states=(2, 9, 33), edges=(1, 50),
+                             table_bytes=1 << 20, sub=7)
     assert worst == {"sum": 0.0, "max": 0.0}
+
+
+@pytest.mark.parametrize("edges_last", [False, True])
+def test_sub_launch_check_rejects_a_position_dependent_kernel(edges_last):
+    """A kernel whose output depends on where an edge sits in the launch
+    fails the sub-launch check."""
+    ops_ = cs.random_operands(20, 3, torch.Generator().manual_seed(0), CPU)
+    fn = TT.fused_update_e
+    if edges_last:
+        ops_ = (ops_[0].permute(1, 2, 0).contiguous(),
+                *(t.t().contiguous() for t in ops_[1:]))
+        fn = MU.fused_update_t
+    axis = -1 if edges_last else 0
+
+    def per_edge(*o):
+        # edge by edge: no output can depend on the edge's place
+        n = o[1].shape[axis]
+        outs = [fn(*(cs.first_edges(t.narrow(t.dim() - 1 if edges_last
+                                              and t.dim() > 1 else 0, i, 1),
+                                     1, edges_last) for t in o))
+                for i in range(n)]
+        return (torch.cat([x[0] for x in outs], dim=axis),
+                torch.cat([x[1] for x in outs]))
+    cs.check_sub_launch("good", per_edge, ops_, per_edge(*ops_), 5,
+                        edges_last=edges_last)
+
+    def shifted(*o):
+        new, resid = per_edge(*o)
+        return new, resid + 1e-7 * o[1].shape[axis]
+    with pytest.raises(AssertionError, match="alone"):
+        cs.check_sub_launch("bad", shifted, ops_, shifted(*ops_), 5,
+                            edges_last=edges_last)
 
 
 def test_compare_rejects_a_wrong_kernel():
@@ -87,14 +119,15 @@ def test_path_phases_on_cpu(counted):
     timing = cs.phase_timing(pgm, CPU, 3.35e12, 67e12,
                              protein_like_graph(16, device="cpu"))
     assert set(timing) >= {"main/sum", "main/max", "protein/sum",
-                           "protein/max", "round_parts_ms"}
+                           "protein/max", "main/t", "round_parts_ms"}
+    assert timing["main/t"]["max_abs_err"] == 0.0
     trace = cs.phase_trace(pgm, CPU, warm=4, rounds=4)
     assert trace["kernels_per_round"] == 0 and trace["wall_ms_per_round"] > 0
 
 
 def test_batched_phases_on_cpu(counted):
-    assert cs.phase_kernels_t(CPU, states=(2, 9), edges=(1, 50),
-                              table_bytes=1 << 20) == 0.0
+    assert cs.phase_kernels_t(CPU, states=(2, 9, 33), edges=(1, 50),
+                              table_bytes=1 << 20, sub=7) == 0.0
     batch, out = cs.phase_batched(CPU, frames=2, scene={
         "height": 6, "width": 8, "n_disp": 4}, max_rounds=300)
     assert out["launches"] >= out["iterations"] >= \
@@ -113,12 +146,31 @@ def test_batched_phases_on_cpu(counted):
     widest = cs.widest_bucket(CPU, n=9)
     assert widest.n_states_max == max(
         p.n_states_max for _, p in cs_zoo(9))
-    timing = cs.phase_timing_batched(batch, {"zoo": widest}, CPU, 3.35e12,
-                                     67e12)
-    assert set(timing) == {"stereo", "zoo", "round_parts_ms"}
+    from repro_torch.core import BatchedPGM
+    protein = BatchedPGM.from_pgms([protein_like_graph(16, device="cpu")])
+    timing = cs.phase_timing_batched(batch, {"zoo": widest,
+                                             "protein": protein}, CPU,
+                                     3.35e12, 67e12)
+    assert set(timing) == {"stereo", "zoo", "protein", "round_parts_ms"}
     assert timing["stereo"]["bound_by"] == "bytes"
     assert timing["stereo"]["max_abs_err"] == timing["zoo"]["max_abs_err"] \
         == 0.0
+    assert all(timing[k]["e"][sr]["max_abs_err"] == 0.0
+               for k in ("stereo", "zoo", "protein") for sr in ("sum", "max"))
+    one = cs.phase_timing(batch.graph(0), CPU, 3.35e12, 67e12,
+                          protein_like_graph(16, device="cpu"))
+    kernels = cs.kernels_line(one, timing, {"sum": 0.0, "max": 0.0}, 0.0,
+                              {"sum": 5, "max": 6}, 7)
+    assert [k["name"] for k in kernels] == [
+        "fused_update_e/sum", "fused_update_e/max", "fused_update_t/sum"]
+    assert [k["launches"] for k in kernels] == [5, 6, 7]
+    for k in kernels:
+        assert [x["shape"] for x in k["shapes"]] == [
+            "main", "protein", "stereo", "zoo"]
+        assert all(set(x) == {"shape", "E", "S", "ms", "device_ms",
+                              "bound_ms", "plain_ms"} for x in k["shapes"])
+    prot = cs.phase_protein_pallas(CPU, protein_vertices=16)
+    assert prot["launches"] >= prot["rounds"] > 0
     trace = cs.phase_trace(batch, CPU, warm=4, rounds=4,
                            config=cs.batched_config(), rng=0)
     assert trace["kernels_per_round"] == 0

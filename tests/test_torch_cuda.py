@@ -13,6 +13,10 @@ no JAX:
   the CPU's bit for bit).
 - On a bucket, every slot is bitwise its solo run with the same generator,
   through both kernels, and two bucket runs are bitwise equal.
+- At every state count on a boundary of the kernels' launch plans, and at
+  edge counts up to the main paths' (cut so one table stays <= 1 GiB),
+  both kernels match their plain versions; and a graph's edges launched
+  alone give bitwise the output they have inside a larger launch.
 """
 
 import numpy as np
@@ -149,3 +153,79 @@ def test_bucket_on_card_is_deterministic_and_bitwise_solo(
         solo = eng.run(batch.graph(i), slot_generator(7, i, cuda))
         for x, y in zip(_result_tensors(a), _result_tensors(solo)):
             assert torch.equal(x[i], y), i
+
+
+PLAN_STATES = (1, 2, 8, 9, 15, 16, 17, 31, 32, 33, 51, 64, 81, 127, 128)
+PLAN_EDGES = (1, 3, 7, 384, 1_024, 441_088, 1_764_352, 3_996_032)
+TABLE_BYTES = 1 << 30
+
+
+def device_operands(e, s, seed, device):
+    """Large operands made on the card (numpy would take seconds per GiB):
+    NEG_INF states, all-masked rows (every 5th edge), source rows with no
+    valid state (every 7th edge)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    kw = dict(generator=gen, device=device)
+    valid_dst = torch.rand((e, s), **kw) < 0.7
+    valid_dst[::5] = False
+    valid_src = torch.rand((e, s), **kw) < 0.7
+    valid_src[::7] = False
+    return (torch.randn((e, s, s), **kw),
+            torch.where(valid_src, 2.0 * torch.randn((e, s), **kw), NEG_INF),
+            torch.where(valid_dst, torch.randn((e, s), **kw) - 2.0, NEG_INF),
+            valid_dst.to(torch.int8))
+
+
+def transposed(ops):
+    logpsi, pre, logm, dmask = ops
+    return (logpsi.permute(1, 2, 0).contiguous(), pre.t().contiguous(),
+            logm.t().contiguous(), dmask.t().contiguous())
+
+
+def assert_close(semiring, kern, plain):
+    (new, resid), (pnew, presid) = kern, plain
+    assert torch.equal(new == NEG_INF, pnew == NEG_INF)
+    if semiring == "max":
+        assert torch.equal(new, pnew) and torch.equal(resid, presid)
+    else:
+        assert float((new - pnew).abs().max()) <= 1e-4
+        assert float((resid - presid).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("e", PLAN_EDGES)
+@pytest.mark.parametrize("s", PLAN_STATES + (200, 300))
+def test_kernels_match_plain_versions_at_plan_shapes(cuda, s, e):
+    e = min(e, max(1, TABLE_BYTES // (4 * s * s)))
+    ops = device_operands(e, s, seed=s, device=cuda)
+    if s <= TT.MAX_STATES:
+        for semiring in ("sum", "max"):
+            assert_close(semiring, TT.fused_update_e(*ops, semiring=semiring),
+                         fused_update_e_ref(*ops, semiring))
+    ops_t = transposed(ops)
+    del ops
+    assert_close("sum", MU.fused_update_t(*ops_t), fused_update_t_ref(*ops_t))
+
+
+@pytest.mark.parametrize("s", PLAN_STATES + (200, 300))
+def test_edges_bitwise_alone_and_inside_a_larger_launch(cuda, s):
+    """A graph's edges give bitwise the same output launched alone (its
+    solo run) and inside a larger launch (a bucket's fold), wherever they
+    sit in it: an edge's arithmetic depends on S and the semiring only."""
+    e = min(100_003, max(64, TABLE_BYTES // (16 * s * s)))
+    ops = device_operands(e, s, seed=100 + s, device=cuda)
+    ops_t = transposed(ops)
+    spans = ((0, 1), (0, 7), (0, 384), (5, 33), (e - 9, 9), (e // 2, 1024))
+    for lo, n in spans:
+        n = min(n, e - lo)
+        part = tuple(t[lo:lo + n].clone() for t in ops)   # own, aligned
+        part_t = tuple(t[..., lo:lo + n].clone().contiguous() for t in ops_t)
+        if s <= TT.MAX_STATES:
+            for semiring in ("sum", "max"):
+                full = TT.fused_update_e(*ops, semiring=semiring)
+                alone = TT.fused_update_e(*part, semiring=semiring)
+                assert torch.equal(alone[0], full[0][lo:lo + n]), (lo, n)
+                assert torch.equal(alone[1], full[1][lo:lo + n]), (lo, n)
+        full = MU.fused_update_t(*ops_t)
+        alone = MU.fused_update_t(*part_t)
+        assert torch.equal(alone[0], full[0][:, lo:lo + n]), (lo, n)
+        assert torch.equal(alone[1], full[1][lo:lo + n]), (lo, n)
