@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from this checkout with ``nvcc``, holds each
 kernel against its plain torch version on the card, drives the port's two
-main paths at full size and measures them:
+main paths and its serving path at full size and measures them:
 
 - one graph: one RnBP inference on a 1000 x 1000 Ising grid (3,996,032
   directed edges) through ``BPEngine(backend="triton")``, then the
@@ -17,7 +17,14 @@ main paths at full size and measures them:
   1,764,352 directed edges) through the ``"pallas"`` backends, whose
   kernel is ``fused_update_t``; slot 0 against its solo run; the zoo
   stream through both bucket paths against the CPU's plain path; then the
-  same timings and trace for a batched round.
+  same timings and trace for a batched round;
+- serving: ``serve_async`` over an online stream of eight stereo frames
+  of the same size interleaved with the zoo stream (two resident
+  buckets, staging copies ahead of admission, compaction, two feeder
+  threads); two stereo requests against their padded solo runs,
+  ``engine.serve`` against ``run_many``, the cost of one backfill at the
+  stereo shape, and the deadline policy under a ``SweepClock`` on the card
+  against the CPU's plain path (phase 14).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -30,8 +37,9 @@ Every phase raises on failure; nothing is caught. Output:
 
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
-- one JSON line ``{"kernels": [...]}``: per kernel its launches on its path,
-  its largest difference from the plain version, its time, the plain
+- one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
+  and on each of the three paths (``launches_by_path``), its largest
+  difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
 - last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -88,6 +96,15 @@ T_SOURCE = "src/repro_torch/kernels/csrc/fused_update_t.cu"
 T_REPLACES = "src/repro/kernels/message_update.py:59"
 RESULT_FIELDS = ("logm", "beliefs", "rounds", "updates", "converged",
                  "max_residual", "unconverged_history", "sched_state")
+# The serving path: stereo frames at the Tsukuba size interleaved with the
+# zoo stream, online, through serve_async.
+SERVE_FRAMES, SERVE_ZOO = 8, 36
+SERVE_KW = dict(max_batch=4, slots=2, prefetch=8, compact=True,
+                ingest_threads=2)
+# The deadline check: LBP on the zoo stream under a SweepClock, with latency
+# budgets (virtual seconds) that evict requests mid-flight.
+DEADLINE_EPS, DEADLINE_CHUNK = 1e-4, 16
+DEADLINE_SLOS = {"ising": 100.0, "chain": 200.0}
 
 
 def log(msg: str) -> None:
@@ -263,17 +280,22 @@ def run_engine(pgm, device, *, scheduler="lbp", scheduler_kwargs=(),
     return res, time.perf_counter() - t0
 
 
-def check_beliefs(pgm, res) -> None:
+def check_beliefs(pgm, res, padded=False) -> None:
     """Finite log-marginals of shape (V, S) that normalize over the valid
-    states of every real vertex."""
+    states of every real vertex; ``padded``: a result padded to a bucket
+    shape, held over the graph's own (V, S)."""
     import torch
     b = res.beliefs
-    if tuple(b.shape) != (pgm.n_vertices, pgm.n_states_max):
+    shape = (pgm.n_vertices, pgm.n_states_max)
+    if tuple(b.shape) != shape and not (padded and b.shape[0] >= shape[0]
+                                        and b.shape[1] >= shape[1]):
         raise AssertionError(f"beliefs shape {tuple(b.shape)}")
+    b = b[:shape[0], :shape[1]]
     if not bool(torch.isfinite(b).all()):
         raise AssertionError("non-finite beliefs")
     n = pgm.n_real_vertices
-    p = torch.where(pgm.state_mask[:n], b[:n].exp(), 0.0).sum(dim=1)
+    p = torch.where(pgm.state_mask[:n].to(b.device), b[:n].exp(),
+                    0.0).sum(dim=1)
     if not bool(((p - 1.0).abs() < 1e-4).all()):
         raise AssertionError("beliefs do not normalize")
 
@@ -281,16 +303,18 @@ def check_beliefs(pgm, res) -> None:
 def phase_main(device, n=MAIN_N, c=MAIN_C):
     """The port's main path: RnBP on an n x n Ising grid through the
     kernel backend, launch counts reset just before and read just after."""
+    from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as K
     from repro_torch.pgm import ising_grid_fast
     t0 = time.perf_counter()
     pgm = ising_grid_fast(n, c, seed=0, device=device)
     build_s = time.perf_counter() - t0
     K.reset_launch_counts()
+    MU.reset_launch_counts()
     res, secs = run_engine(pgm, device, scheduler="rnbp",
                            scheduler_kwargs=MAIN_KW, eps=1e-3,
                            max_rounds=2000, backend="triton")
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, t=MU.LAUNCHES["sum"])
     rounds = int(res.rounds)
     check_beliefs(pgm, res)
     if launches["sum"] < max(rounds, 1):
@@ -837,15 +861,486 @@ def phase_timing_batched(batch, others, device, bw, f32):
     return out
 
 
-def kernels_line(timing, btiming, worst, worst_t, launches, launches_t):
+def serving_stream(frames, zoo_n, host):
+    """The serving phase's online request stream: the stereo ``frames``
+    (host graphs, made beforehand as set-up), each followed by its share of
+    ``zoo_stream(zoo_n, seed=0)`` built on ``host`` as it is pulled, the
+    rest of the zoo last. ``stereo_rids`` gives the frames' arrival
+    positions."""
+    from repro_torch.pgm import zoo_stream
+    per = zoo_n // len(frames)
+    zoo = (p for _, p in zoo_stream(zoo_n, seed=0, device=host))
+    for frame in frames:
+        yield frame
+        for _ in range(per):
+            yield next(zoo)
+    yield from zoo
+
+
+def stereo_rids(frames, zoo_n):
+    """Arrival positions (auto rids) of the stereo frames in
+    ``serving_stream``."""
+    return [k * (zoo_n // frames + 1) for k in range(frames)]
+
+
+def watch_pipeline(engine, capture=False, timed=False):
+    """Hooks on one serving run; call the returned ``undo`` after it.
+    Always: every backfilled rid (``backfilled``). With ``capture``, per
+    bucket shape (E, S), the input state of the last step of the widest
+    bucket of that shape (``captured``) -- its graph and messages are what
+    the serving path hands the kernels. Only references are kept: nothing
+    is copied or synchronized, but the captured buckets outlive their
+    slots. With ``timed``: the host seconds inside staging,
+    admission, backfill and steps (``seconds``; a step's include its own
+    waits on the card, none is added) and, on the card, a CUDA event pair
+    around each step on the current stream (``events``)."""
+    import torch
+    from repro_torch.core.serving import ServingPipeline as P
+    w = dict(backfilled=[], captured={}, events=[],
+             seconds={"stage": 0.0, "admit": 0.0, "backfill": 0.0,
+                      "step": 0.0})
+    saved = {name: getattr(P, f"_{name}") for name in (
+        ("stage", "admit", "backfill") if timed else ("backfill",))}
+    step = engine.step
+    cuda = engine.device.type == "cuda"
+
+    def hooked(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            w["seconds"][name] += time.perf_counter() - t0
+            if name == "backfill":
+                _, slot, j = args
+                w["backfilled"].append(slot.live[j])
+            return out
+        return wrapper
+
+    def stepped(state, **kw):
+        g = state.graph
+        key = (g.n_edges, g.n_states_max)
+        have = w["captured"].get(key)
+        if capture and (have is None or g.size >= have.graph.size):
+            w["captured"][key] = state
+        if not timed:
+            return step(state, **kw)
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        t0 = time.perf_counter()
+        out = step(state, **kw)
+        w["seconds"]["step"] += time.perf_counter() - t0
+        if cuda:
+            ev[1].record()
+            w["events"].append(ev)
+        return out
+
+    for name, fn in saved.items():
+        setattr(P, f"_{name}", hooked(name, fn))
+    engine.step = stepped
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(P, f"_{name}", fn)
+        del engine.step
+    return w, undo
+
+
+def check_captured(captured, kernel):
+    """Each captured serving state's kernel operands -- its bucket's union,
+    messages and edge prelude, as the ``"pallas"`` (``kernel="t"``) or
+    ``"triton"`` (``"e"``) batch backend builds them -- through the kernel
+    and its plain version (sum-product, ``SUM_TOL``). Returns one row per
+    shape: B, E, S, the largest round count reached, the error."""
+    from repro_torch.core import messages as M
+    from repro_torch.kernels.message_update import fused_update_t
+    from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
+    from repro_torch.kernels.triton_update import fused_update_e
+    rows = []
+    for (e, s), state in sorted(captured.items()):
+        union = state.graph.folded()
+        logm = state.logm.reshape(-1, s)
+        pre = M.edge_prelude(union, logm)
+        if kernel == "t":
+            logpsi_t, dmask_t = union.operands_t
+            ops = (logpsi_t, pre.t().contiguous(), logm.t().contiguous(),
+                   dmask_t)
+            err = compare("sum", fused_update_t(*ops), fused_update_t_ref(*ops))
+        else:
+            ops = (union.log_psi_e, pre, logm, union.dst_mask)
+            err = compare("sum", fused_update_e(*ops), fused_update_e_ref(*ops))
+        rows.append(dict(B=state.graph.size, E=e, S=s,
+                         rounds=int(state.rounds.max()), max_abs_err=err))
+        del ops, pre, logm, union
+    return rows
+
+
+def busy_seconds(prof):
+    """Seconds in which the card ran anything (kernels, copies, memsets)
+    in a ``torch.profiler`` trace: the union of its device intervals, so
+    work overlapping on two streams counts once. Also the event count."""
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6, len(spans)
+
+
+def backfill_cost(eng, scenes, device):
+    """One backfill at the serving path's own shape: four frames staged as
+    ``serve_async`` stages them (padded to their ``bucket_shape``),
+    admitted into one bucket that steps a round, then a fifth loaded into
+    slot 1 (``load_slot``; fewer frames make a narrower bucket), and the rebuild of the bucket's fold and
+    transposed table that the next chunk pays. Milliseconds on the host
+    clock, the card synchronized around each part."""
+    from repro_torch.core.serving import ServingPipeline
+    width = min(4, len(scenes) - 1)
+    with ServingPipeline(eng, 0, max_batch=width) as pipe:
+        for rid, pgm in enumerate(scenes[:width + 1]):
+            pipe._stage(rid, pgm, 0.0)
+        group, = pipe._groups.values()
+        slot = pipe._admit(group)
+        state = eng.step(slot.state, chunk_rounds=1)
+        state.graph.folded().operands_t
+        staged = pipe.policy.take(group, 1)[0]
+        elem = pipe._ready(staged)
+        sync(device)
+        t0 = time.perf_counter()
+        state = eng.load_slot(state, min(1, width - 1), elem, staged.key)
+        sync(device)
+        t1 = time.perf_counter()
+        state.graph.folded().operands_t
+        sync(device)
+        g = state.graph
+        return dict(B=g.size, E=g.n_edges, S=g.n_states_max,
+                    load_slot=(t1 - t0) * 1e3,
+                    fold_rebuild=(time.perf_counter() - t1) * 1e3)
+
+
+def padded_solo(eng, pgm, rid):
+    """A solo run on the engine's device of ``pgm`` padded to its
+    ``bucket_shape``, drawing from ``slot_generator(0, rid)``: what the
+    online pipeline must reproduce bitwise for request ``rid``."""
+    from repro_torch.core import PGM, bucket_shape, slot_generator
+    from repro_torch.core.graph import pad_pgm_arrays
+    e, v, s, re_, rv = bucket_shape(pgm)
+    padded = PGM.from_numpy(
+        pad_pgm_arrays(pgm, n_edges=e, n_vertices=v, n_states=s), rv, re_,
+        eng.device, edge_count=pgm.edge_count, vertex_count=pgm.vertex_count)
+    return eng.run(padded, slot_generator(0, rid, eng.device))
+
+
+def deadline_run(device, zoo_n, slos):
+    """LBP at ``DEADLINE_EPS`` over ``zoo_stream(zoo_n, slos=slos)`` with
+    ``admission="deadline"`` and a ``SweepClock``: the record list, the
+    timeline (rid, status, t_enqueue, t_admit, t_done, rounds) and the
+    states ``watch_pipeline`` captured. ``batch_backend="triton"``: the
+    buckets run ``fused_update_e``."""
+    from repro_torch.core import BPConfig, BPEngine, SweepClock, serve_async
+    from repro_torch.pgm import zoo_stream
+    eng = BPEngine(BPConfig(scheduler="lbp", eps=DEADLINE_EPS,
+                            max_rounds=ZOO_ROUNDS, backend="pallas",
+                            batch_backend="triton"), device=device)
+    items = ((None, p, slo) for _, p, slo in
+             zoo_stream(zoo_n, seed=0, slos=slos, device=device))
+    watch, undo = watch_pipeline(eng, capture=True)
+    try:
+        rep = serve_async(eng, items, 0, admission="deadline",
+                          clock=SweepClock(), chunk_rounds=DEADLINE_CHUNK,
+                          **{k: v for k, v in SERVE_KW.items()
+                             if k != "ingest_threads"})
+    finally:
+        undo()
+    line = [(r.rid, r.status, r.t_enqueue, r.t_admit, r.t_done,
+             int(r.result.rounds)) for r in rep.records]
+    return rep, line, watch["captured"]
+
+
+def serve_once(eng, scenes, zoo_n, device, timed=False):
+    """One ``serve_async`` run of ``serving_stream`` with ``SERVE_KW``:
+    ``(report, wall seconds, launches by kernel, watch)``, the launch
+    counts and the peak-memory counter reset just before. With ``timed``
+    the run is traced by ``torch.profiler`` on the card, and timed and
+    its chunks captured by ``watch_pipeline``; ``watch["busy"]`` is then
+    the card's busy seconds and trace event count."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import serve_async
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    cuda = device.type == "cuda"
+    host = torch.device("cpu")
+    watch, undo = watch_pipeline(eng, capture=timed, timed=timed)
+    trace = (profile(activities=[ProfilerActivity.CUDA])
+             if timed and cuda else contextlib.nullcontext())
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    MU.reset_launch_counts()
+    TT.reset_launch_counts()
+    try:
+        with trace as prof:
+            t0 = time.perf_counter()
+            rep = serve_async(eng, serving_stream(scenes, zoo_n, host), 0,
+                              **SERVE_KW)
+            sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                "fused_update_e/sum": TT.LAUNCHES["sum"],
+                "fused_update_e/max": TT.LAUNCHES["max"]}
+    if prof is not None:
+        watch["busy"] = busy_seconds(prof)
+    return rep, wall, launches, watch
+
+
+def serve_stats(st):
+    return dict(chunks=st.chunks, device_sweeps=st.device_sweeps,
+                useful_sweeps=st.useful_sweeps,
+                wasted_sweeps=st.wasted_sweeps, evacuated=st.evacuated,
+                backfilled=st.backfilled, compactions=st.compactions,
+                buckets_opened=st.buckets_opened,
+                admission_widths=st.admission_widths)
+
+
+def phase_serving(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
+                  max_rounds=STEREO_ROUNDS, slos=DEADLINE_SLOS):
+    """The serving path: ``serve_async`` over an online stream of
+    ``frames`` stereo scenes interleaved with the zoo stream (RnBP through
+    the ``"pallas"`` backends, ``SERVE_KW``), launch counts reset just
+    before and read just after. A first run, traced by the profiler and
+    timed part by part, gives the card's busy share and where the host's
+    time went, and ``fused_update_t`` is held against its plain version on
+    one captured chunk of each bucket shape it stepped. The second run
+    carries no timer and no added synchronization: its wall time gives
+    requests/s, and on it every rid is released once, stereo beliefs are
+    finite and normalized, and the first admitted and the last backfilled
+    stereo request are bitwise their padded solo runs. Then ``engine.serve`` against ``run_many`` over
+    4 frames (bitwise), the cost of one backfill at the serving shape, and
+    the deadline policy under a ``SweepClock`` on the card against the
+    CPU's plain path (same timeline and stats, completed beliefs within
+    1e-4), with ``fused_update_e`` against its plain version on the
+    card run's captured chunks."""
+    import torch
+    from repro_torch.core import BPEngine
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import stereo_mrf
+    cuda = device.type == "cuda"
+    host = torch.device("cpu")
+    eng = BPEngine(batched_config(max_rounds), device=device)
+    rids = stereo_rids(frames, zoo_n)
+    t0 = time.perf_counter()
+    scenes = [stereo_mrf(scene["height"], scene["width"], scene["n_disp"],
+                         seed=k, device=host).pgm for k in range(frames)]
+    build_s = time.perf_counter() - t0
+
+    # First the traced and timed run, which also warms the caching
+    # allocators (device and pinned host memory) as a serving process
+    # would be: the card's busy share, the host's parts, and
+    # fused_update_t against its plain version on its captured chunks.
+    rep, wall_t, _, watch = serve_once(eng, scenes, zoo_n, device,
+                                       timed=True)
+    busy, n_events = watch.get("busy", (0.0, 0))
+    sync(device)
+    kernel_check = {"fused_update_t/sum": check_captured(
+        watch.pop("captured"), "t")}
+    traced = dict(
+        wall_s=wall_t, requests=len(rep.records),
+        stats=serve_stats(rep.stats), host_seconds=watch["seconds"],
+        step_device_s=sum(a.elapsed_time(b) for a, b in watch["events"])
+        / 1e3, busy_s=busy, device_events=n_events,
+        idle_share=1.0 - busy / wall_t)
+    del rep, watch
+
+    # The measured run: no timer, no added synchronization.
+    rep, wall, launches, watch = serve_once(eng, scenes, zoo_n, device)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    n = frames + zoo_n
+    got = sorted(r.rid for r in rep.records)
+    if got != list(range(n)):
+        raise AssertionError(f"released rids {got}, expected 0..{n - 1} "
+                             "once each")
+    if launches["fused_update_t/sum"] < rep.stats.chunks:
+        raise AssertionError("the serving path bypassed fused_update_t")
+    backfilled = watch["backfilled"]
+    by_rid = {r.rid: r for r in rep.records}
+    stereo = [r for r in rep.records if r.rid in rids]
+    first = min(stereo, key=lambda r: (r.t_admit, r.rid)).rid
+    late = [rid for rid in backfilled if rid in rids]
+    last = late[-1] if late else max(stereo, key=lambda r: r.t_admit).rid
+    checked = {}
+    for rid in sorted({first, last}):
+        pgm = scenes[rids.index(rid)]
+        check_beliefs(pgm, by_rid[rid].result, padded=True)
+        solo = padded_solo(eng, pgm, rid)
+        if not same_result(solo, by_rid[rid].result):
+            raise AssertionError(f"stereo request {rid} differs from its "
+                                 "padded solo run")
+        checked[rid] = "backfilled" if rid in backfilled else "admitted"
+    frames_out = []
+    for k, rid in enumerate(rids):
+        res = by_rid[rid].result
+        check_beliefs(scenes[k], res, padded=True)
+        frames_out.append(dict(rid=rid, rounds=int(res.rounds),
+                               converged=bool(res.converged),
+                               t_admit=by_rid[rid].t_admit,
+                               latency_s=by_rid[rid].latency_s))
+    pct = {f: rep.latency_percentiles((50, 90, 99), field=f,
+                                      status="completed")
+           for f in ("latency", "admission", "service")}
+    out = dict(requests=n, frames_build_s=build_s, wall_s=wall,
+               requests_per_s=n / wall, latency_ms=pct,
+               stats=serve_stats(rep.stats), launches=launches,
+               peak_memory_bytes=peak, frames=frames_out,
+               bitwise_solo=checked, kernel_check=kernel_check,
+               traced=traced, host_seconds=traced["host_seconds"])
+    del rep, stereo, by_rid
+
+    out["traced"]["busy_over_untraced_wall"] = out["traced"]["busy_s"] / wall
+    out["backfill_ms"] = backfill_cost(eng, scenes, device)
+    del scenes
+
+    # engine.serve == run_many over 4 frames (one same-shape group).
+    pgms = [stereo_mrf(scene["height"], scene["width"], scene["n_disp"],
+                       seed=k, device=device).pgm for k in range(4)]
+    served = eng.serve(pgms, 0).results
+    many = eng.run_many(pgms, 0)
+    for k, (a, b) in enumerate(zip(served, many)):
+        if not same_result(a, b):
+            raise AssertionError(f"engine.serve differs from run_many on "
+                                 f"frame {k}")
+    out["serve_equals_run_many"] = [int(r.rounds) for r in served]
+    del served, many, pgms
+
+    # The deadline policy on the card and on the CPU's plain path.
+    MU.reset_launch_counts()
+    TT.reset_launch_counts()
+    card, line, captured = deadline_run(device, zoo_n, slos)
+    for k, v in (("fused_update_t/sum", MU.LAUNCHES["sum"]),
+                 ("fused_update_e/sum", TT.LAUNCHES["sum"]),
+                 ("fused_update_e/max", TT.LAUNCHES["max"])):
+        launches[k] += v
+    if TT.LAUNCHES["sum"] < card.stats.chunks:
+        raise AssertionError("the deadline run bypassed fused_update_e")
+    kernel_check["fused_update_e/sum"] = check_captured(captured, "e")
+    del captured
+    cpu, cpu_line, _ = deadline_run(host, zoo_n, slos)
+    if line != cpu_line:
+        raise AssertionError(f"deadline timeline on the card {line} differs "
+                             f"from the CPU's {cpu_line}")
+    if dataclasses.asdict(card.stats) != dataclasses.asdict(cpu.stats):
+        raise AssertionError(f"deadline stats on the card {card.stats} "
+                             f"differ from the CPU's {cpu.stats}")
+    mid = [r for r in card.records if r.evicted and int(r.result.rounds) > 0]
+    if not mid:
+        raise AssertionError("no request was evicted mid-flight")
+    worst = 0.0
+    for a, b in zip(card.records, cpu.records):
+        if a.status == "completed":
+            worst = max(worst, float((a.result.beliefs.cpu().exp()
+                                      - b.result.beliefs.exp()).abs().max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"deadline beliefs differ by {worst} > 1e-4")
+    out["deadline"] = dict(
+        requests=len(line), evictions=card.stats.evictions,
+        midflight=[(r.rid, r.t_done, int(r.result.rounds)) for r in mid],
+        chunks=card.stats.chunks, device_sweeps=card.stats.device_sweeps,
+        max_prob_diff=worst, timeline_equal=True, stats_equal=True)
+    return out
+
+
+def launches_by_path(main, mapd, bmain, serving):
+    """Each kernel's launches on each path, as the phases counted them:
+    the one-graph path (phase 4; max-product: the MAP path of phase 5),
+    the batched path (phase 10) and the serving path (phase 14)."""
+    srv = serving["launches"]
+    return {
+        "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
+                                   batched=bmain["other_launches"]["sum"],
+                                   serving=srv["fused_update_e/sum"]),
+        "fused_update_e/max": dict(one_graph=mapd["launches"],
+                                   batched=bmain["other_launches"]["max"],
+                                   serving=srv["fused_update_e/max"]),
+        "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
+                                   batched=bmain["launches"],
+                                   serving=srv["fused_update_t/sum"])}
+
+
+def log_serving(out) -> None:
+    """Phase 14's progress lines."""
+    st, lat, tr = out["stats"], out["latency_ms"], out["traced"]
+    log(f"  served {out['requests']} requests in {out['wall_s']:.3f} s = "
+        f"{out['requests_per_s']:.2f} requests/s (no timer, no added "
+        f"synchronization); peak memory "
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    for field in ("latency", "admission", "service"):
+        p = lat[field]
+        log(f"  completed {field} ms: p50={p['p50']:.1f} p90={p['p90']:.1f} "
+            f"p99={p['p99']:.1f}")
+    log(f"  sweeps: device={st['device_sweeps']} useful={st['useful_sweeps']}"
+        f" wasted={st['wasted_sweeps']}; chunks={st['chunks']} evacuated="
+        f"{st['evacuated']} backfilled={st['backfilled']} compactions="
+        f"{st['compactions']} buckets={st['buckets_opened']} widths="
+        f"{st['admission_widths']}")
+    log(f"  traced run: {tr['requests']} requests in {tr['wall_s']:.3f} s; "
+        f"card busy {tr['busy_s']:.3f} s ({tr['device_events']} device "
+        f"events) = idle share {tr['idle_share']:.3f}; busy / untraced wall "
+        f"{tr['busy_over_untraced_wall']:.3f}; steps' device spans "
+        f"{tr['step_device_s']:.3f} s; backfilled="
+        f"{tr['stats']['backfilled']} chunks={tr['stats']['chunks']}")
+    log("  traced run, host seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tr["host_seconds"].items()))
+    for name, rows in out["kernel_check"].items():
+        for r in rows:
+            log(f"  {name} vs plain on a served chunk: B={r['B']} E={r['E']} "
+                f"S={r['S']} rounds={r['rounds']} max_abs_err="
+                f"{r['max_abs_err']:.3g}")
+    b = out["backfill_ms"]
+    log(f"  one backfill at the serving shape (B={b['B']} E={b['E']} "
+        f"S={b['S']}): load_slot {b['load_slot']:.3f} ms + fold/transposed "
+        f"table rebuild {b['fold_rebuild']:.3f} ms")
+    for f in out["frames"]:
+        log(f"  stereo rid {f['rid']}: rounds={f['rounds']} converged="
+            f"{f['converged']} latency {f['latency_s'] * 1e3:.1f} ms")
+    log(f"  bitwise equal to padded solo runs: {out['bitwise_solo']}; "
+        f"engine.serve == run_many bitwise over 4 frames (rounds "
+        f"{out['serve_equals_run_many']})")
+    d = out["deadline"]
+    log(f"  deadline/SweepClock LBP over the zoo: {d['requests']} requests, "
+        f"{d['evictions']} evicted (mid-flight (rid, t_done, rounds): "
+        f"{d['midflight']}); timeline and stats equal on card and CPU, "
+        f"completed beliefs within {d['max_prob_diff']:.3g}")
+    log(f"  kernel launches on the serving path: {out['launches']}")
+
+
+def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
+                 by_path, served=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
-    launches, its largest difference from the plain version over phases 3,
-    7, 9 and 12, the main path's shape's times and bound, and ``shapes``,
+    launches, ``launches_by_path`` (``by_path[name]``: its launches on the
+    one-graph, batched and serving paths, each counted from 0 just before
+    the path ran), its largest difference from the plain version over
+    phases 3, 7, 9 and 12 and the serving path's captured chunks
+    (``served``: phase 14's ``kernel_check``), the main path's shape's
+    times and bound, and
+    ``shapes``,
     one ``{E, S, ms, device_ms, bound_ms, plain_ms}`` per timed shape
     (``ms`` from CUDA events around back-to-back calls, ``device_ms`` the
     kernel's own time from the profiler; the one-graph
     S = 2 path, the protein MRF, the stereo bucket, the zoo's widest
     bucket)."""
+    served = served or {}
+
+    def serving_err(name):
+        return [r["max_abs_err"] for r in served.get(name, ())]
+
     def shape(name, row):
         return dict(shape=name, E=row["E"], S=row["S"], ms=row["ms"],
                     device_ms=row["device_ms"], bound_ms=row["bound_ms"],
@@ -862,23 +1357,27 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t):
                                            S=row["S"])))
         err = max([worst[semiring]] + [r["e"][semiring]["max_abs_err"]
                                        for r in btiming.values()
-                                       if "e" in r])
+                                       if "e" in r]
+                  + serving_err(f"fused_update_e/{semiring}"))
         kernels.append(dict(
             name=f"fused_update_e/{semiring}", route="cuda",
             source=KERNEL_SOURCE, replaces=REPLACES[semiring],
-            launches=launches[semiring], max_abs_err=err,
+            launches=launches[semiring],
+            launches_by_path=by_path[f"fused_update_e/{semiring}"],
+            max_abs_err=err,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None, shapes=shapes))
     t = btiming["stereo"]
     err = max([worst_t, timing["main/t"]["max_abs_err"]]
               + [r["max_abs_err"] for r in btiming.values()
-                 if "max_abs_err" in r])
+                 if "max_abs_err" in r] + serving_err("fused_update_t/sum"))
     shapes = [shape("main", timing["main/t"]),
               shape("protein", btiming["protein"]), shape("stereo", t),
               shape("zoo", btiming["zoo"])]
     kernels.append(dict(
         name="fused_update_t/sum", route="cuda", source=T_SOURCE,
-        replaces=T_REPLACES, launches=launches_t, max_abs_err=err,
+        replaces=T_REPLACES, launches=launches_t,
+        launches_by_path=by_path["fused_update_t/sum"], max_abs_err=err,
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, shapes=shapes))
     return kernels
@@ -1004,17 +1503,23 @@ def main() -> int:
     for name, ms in btrace["top_ms_per_round"].items():
         log(f"  {ms:.4f} ms/round  {name[:110]}")
 
+    log("== 14. serving path at full size (serve_async: stereo frames and "
+        "the zoo stream, online)")
+    serving = phase_serving(device)
+    log_serving(serving)
+
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
-        bmain["launches"])
+        bmain["launches"], launches_by_path(main, mapd, bmain, serving),
+        serving["kernel_check"])
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernel_check=worst, main=main, paper=paper, map=mapd,
                   card_vs_cpu=cpu, timing=timing, trace=trace,
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
                   batched_timing=btiming, protein_pallas=protein_t,
-                  batched_trace=btrace,
+                  batched_trace=btrace, serving=serving,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import (_ARRAY_FIELDS, _DTYPES, EDGE_PAD, PGM,
-                                    VERTEX_PAD, _in_edge_table,
+                                    VERTEX_PAD, host_operands,
                                     pad_pgm_arrays)
 
 __all__ = ["BatchedPGM", "Bucket", "RidgeEffort", "RoundsHistory",
@@ -49,8 +49,7 @@ __all__ = ["BatchedPGM", "Bucket", "RidgeEffort", "RoundsHistory",
 
 #: every tensor field of a ``PGM``, stacked along the batch axis
 _TENSOR_FIELDS = _ARRAY_FIELDS + ("in_edges", "in_mask", "dst_mask")
-_DERIVED_DTYPES = {"in_edges": torch.int32, "in_mask": torch.bool,
-                   "dst_mask": torch.int8}
+_IN_FIELDS = ("in_edges", "in_mask")
 _MASK64 = (1 << 64) - 1
 
 
@@ -62,24 +61,30 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _stack_arrays(padded: Sequence[Mapping[str, np.ndarray]], n_vertices: int,
-                  device) -> Dict[str, torch.Tensor]:
-    """Stack padded per-graph reference fields and derive the port's
-    operands: the in-edge tables (columns padded to the widest in-degree,
-    ``in_mask`` False there) and the int8 destination masks."""
-    host = {k: np.stack([d[k] for d in padded]) for k in _ARRAY_FIELDS}
-    tables = [_in_edge_table(d["edge_dst"], d["edge_mask"], n_vertices)
-              for d in padded]
-    width = max(t.shape[1] for t, _ in tables)
-    host["in_edges"] = np.stack([np.pad(t, ((0, 0), (0, width - t.shape[1])))
-                                 for t, _ in tables])
-    host["in_mask"] = np.stack([np.pad(m, ((0, 0), (0, width - m.shape[1])))
-                                for _, m in tables])
-    host["dst_mask"] = np.stack([d["state_mask"][d["edge_dst"]]
-                                 for d in padded]).astype(np.int8)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-        device=device, dtype=_DTYPES.get(k, _DERIVED_DTYPES.get(k)))
-        for k, v in host.items()}
+def _widen(t: torch.Tensor, width: int) -> torch.Tensor:
+    """An in-edge table (``in_edges``/``in_mask``, columns last) padded to
+    ``width`` columns: 0, and ``in_mask`` False, there. Always a new
+    tensor."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _stack_rows(rows: Sequence[Mapping[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """Stack per-graph tensor fields of one padded (E, V, S) shape along a
+    new batch axis; the in-edge tables are widened to the widest."""
+    width = max(r["in_edges"].shape[-1] for r in rows)
+    return {k: torch.stack([_widen(r[k], width) if k in _IN_FIELDS else r[k]
+                            for r in rows]) for k in _TENSOR_FIELDS}
+
+
+def _host_rows(padded: Sequence[Mapping[str, np.ndarray]],
+               device) -> List[Dict[str, torch.Tensor]]:
+    """Padded per-graph reference fields (host numpy) with the port's
+    derived operands (``graph.host_operands``), as tensors on
+    ``device``."""
+    return [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        device=device, dtype=_DTYPES[k]) for k, v in host_operands(d).items()}
+        for d in padded]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +212,9 @@ class BatchedPGM:
     def with_graph(self, j: int, graph: PGM) -> "BatchedPGM":
         """A new bucket with slot ``j`` holding ``graph`` (padded to the
         bucket's shape; its own counts must fit the bucket's ceilings).
-        The other slots are copied unchanged."""
+        The other slots are copied unchanged. A graph that already has the
+        bucket's padded shape is written on the device as it is (the
+        serving path's backfill); any other is padded on the host first."""
         p = self.pgm
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, bucket on "
@@ -218,18 +225,19 @@ class BatchedPGM:
                 f"graph's counts ({graph.edge_count} edges, "
                 f"{graph.vertex_count} vertices) exceed the bucket's "
                 f"ceilings ({p.n_real_edges}, {p.n_real_vertices})")
-        arrs = pad_pgm_arrays(graph, n_edges=self.n_edges,
-                              n_vertices=self.n_vertices,
-                              n_states=self.n_states_max)
-        row = _stack_arrays([arrs], self.n_vertices, self.device)
-        width = max(row["in_edges"].shape[2], p.in_edges.shape[2])
+        if (graph.n_edges, graph.n_vertices, graph.n_states_max) == (
+                self.n_edges, self.n_vertices, self.n_states_max):
+            row = {k: getattr(graph, k) for k in _TENSOR_FIELDS}
+        else:
+            row = _host_rows([pad_pgm_arrays(
+                graph, n_edges=self.n_edges, n_vertices=self.n_vertices,
+                n_states=self.n_states_max)], self.device)[0]
+        width = max(row["in_edges"].shape[1], p.in_edges.shape[2])
         fields = {}
         for k in _TENSOR_FIELDS:
-            full, one = getattr(p, k), row[k][0]
-            if k in ("in_edges", "in_mask"):
-                pad = lambda t: torch.nn.functional.pad(
-                    t, (0, width - t.shape[-1]))
-                full, one = pad(full), pad(one)
+            full, one = getattr(p, k), row[k]
+            if k in _IN_FIELDS:
+                full, one = _widen(full, width), _widen(one, width)
             else:
                 full = full.clone()
             full[j] = one
@@ -249,8 +257,10 @@ class BatchedPGM:
         """Pad ``pgms`` to their joint max (E, V, S) shape -- or the given
         explicit ceilings -- and stack, on the graphs' (common) device.
 
-        Padding and stacking run on the host in numpy (the reference's
-        arrays, bitwise), with one transfer per field at the end."""
+        Graphs that already have that shape (the serving path's staged
+        elements) are stacked on the device as they are; otherwise padding
+        runs on the host in numpy (the reference's arrays, bitwise). Both
+        give the same tensors."""
         if len(pgms) == 0:
             raise ValueError("empty batch")
         dev = pgms[0].device
@@ -259,10 +269,15 @@ class BatchedPGM:
         e_b = n_edges or max(p.n_edges for p in pgms)
         v_b = n_vertices or max(p.n_vertices for p in pgms)
         s_b = n_states or max(p.n_states_max for p in pgms)
-        padded = [pad_pgm_arrays(p, n_edges=e_b, n_vertices=v_b,
-                                 n_states=s_b) for p in pgms]
+        if all((p.n_edges, p.n_vertices, p.n_states_max) == (e_b, v_b, s_b)
+               for p in pgms):
+            rows = [{k: getattr(p, k) for k in _TENSOR_FIELDS} for p in pgms]
+        else:
+            rows = _host_rows([pad_pgm_arrays(p, n_edges=e_b, n_vertices=v_b,
+                                              n_states=s_b) for p in pgms],
+                              dev)
         return cls(pgm=PGM(
-            **_stack_arrays(padded, v_b, dev),
+            **_stack_rows(rows),
             n_real_vertices=(n_real_vertices
                              or max(p.n_real_vertices for p in pgms)),
             n_real_edges=(n_real_edges

@@ -39,11 +39,13 @@ convergence inside a window are inert: they commit nothing and advance no
 counter. A graph's trajectory in a bucket is therefore bitwise its solo
 run on ``batch.graph(i)`` with the same generator.
 
-``BPConfig`` keeps every field of the reference, serving-only ones
-(``admission``, ``admission_kwargs``) included, so ``to_dict`` output is
-identical across the two packages. The serving driver ``serve`` and the
-host-serial ``"srbp"`` baseline are not ported yet (ROADMAP queue 1, items
-9 and 6).
+``BPConfig`` keeps every field of the reference, so ``to_dict`` output is
+identical across the two packages. ``serve`` serves a materialized
+stream synchronously, a thin wrapper over
+``repro_torch.core.serving.serve_async``; the
+config's ``admission``/``admission_kwargs`` pick its admission policy. The
+host-serial ``"srbp"`` baseline is not ported yet (ROADMAP queue 1, item
+6).
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ from repro_torch.core.graph import PGM, resolve_device
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.core.schedulers.base import Scheduler
 
-__all__ = ["BPConfig", "BPEngine", "BPResult", "BPState", "SYNC_ROUNDS"]
+__all__ = ["BPConfig", "BPEngine", "BPResult", "BPState", "ServeResult",
+           "ServeStats", "SYNC_ROUNDS"]
 
 #: rounds between host reads of ``done`` inside a chunk
 SYNC_ROUNDS = 16
@@ -114,9 +117,10 @@ class BPConfig:
     is a natively batched ``(batch, logm) -> (cand, resid)`` callable.
     ``chunk_rounds`` bounds rounds per ``step`` (None = to ``max_rounds``
     in one chunk); ``history`` sizes the per-round unconverged-count
-    buffer. ``admission`` and
-    ``admission_kwargs`` belong to the serving path, which the port does
-    not have yet; they ride the config for interchange only.
+    buffer. ``admission`` names the serving path's admission policy
+    ("fifo" | "residual" | "windowed" | "deadline", through
+    ``repro_torch.core.serving.ADMISSION_POLICIES``) or is a policy
+    instance; ``admission_kwargs`` feed its constructor.
     """
 
     scheduler: Any = "lbp"
@@ -212,9 +216,47 @@ class BPState:
 
 
 def _where_tree(active: torch.Tensor, new, old):
-    if isinstance(new, torch.Tensor):
-        return torch.where(active, new, old)
-    return new          # () carries: nothing to gate
+    if new is old or not isinstance(new, torch.Tensor):
+        return new      # () or unchanged carries: nothing to gate
+    # (B,) flags against a (B,) or (B, E) carry
+    return torch.where(active.reshape(active.shape + (1,) * (
+        new.dim() - active.dim())), new, old)
+
+
+# --------------------------------------------------------- serving loop --
+
+@dataclasses.dataclass
+class ServeStats:
+    """Sweep accounting for ``BPEngine.serve``.
+
+    Sweeps are counted in *masked update passes per graph slot* (one loop
+    iteration of a B-wide bucket = B device sweeps x ``inner_sweeps``);
+    ``useful_sweeps`` counts only rounds advanced on live graphs, so
+    ``wasted_sweeps`` is exactly the straggler/padding overhead evacuation
+    is meant to shrink."""
+
+    chunks: int = 0
+    device_sweeps: int = 0
+    useful_sweeps: int = 0
+    evacuated: int = 0
+    backfilled: int = 0
+    #: (chunk index at evacuation, input graph index) per evacuated graph
+    evacuation_log: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+
+    @property
+    def wasted_sweeps(self) -> int:
+        return self.device_sweeps - self.useful_sweeps
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """``BPEngine.serve`` output: one ``BPResult`` per request (input
+    order, each sliced to single-graph shapes) plus the run's sweep
+    accounting (``ServeStats``)."""
+
+    results: List[BPResult]     # per-request, input order
+    stats: ServeStats
 
 
 # ---------------------------------------------------------------- engine --
@@ -506,8 +548,49 @@ class BPEngine:
                     for f in dataclasses.fields(BPResult)})
         return results  # type: ignore[return-value]
 
-    def serve(self, *args, **kwargs):
-        """Not ported yet: the serving driver is ROADMAP queue 1, item 9."""
-        raise NotImplementedError(
-            "BPEngine.serve (the evacuating serving driver) is not ported "
-            "to repro_torch yet: ROADMAP queue 1, item 9")
+    # -- serving with evacuation ------------------------------------------
+
+    def _slice_result(self, state: BPState, j: int) -> BPResult:
+        """Slot ``j`` of a bucket's state as a single-graph ``BPResult``:
+        beliefs on ``graph.graph(j)``, every field a copy (a released
+        request does not keep the bucket's tensors alive)."""
+        row = lambda x: x[j].clone()                         # noqa: E731
+        logm = row(state.logm)
+        sstate = state.sched_state
+        return BPResult(
+            beliefs=M.beliefs(state.graph.graph(j), logm), logm=logm,
+            rounds=row(state.rounds), updates=row(state.updates),
+            converged=row(state.done), max_residual=row(state.max_residual),
+            unconverged_history=row(state.unconverged_history),
+            sched_state=(row(sstate) if isinstance(sstate, torch.Tensor)
+                         else sstate))
+
+    def serve(self, stream: Sequence[PGM], rng, *, growth: float = 2.0,
+              max_batch: int | None = None, chunk_rounds: int | None = None,
+              evacuate: bool = True) -> ServeResult:
+        """Serve a materialized request stream through rolling, evacuating
+        buckets -- the synchronous wrapper over ``repro_torch.core.serving``
+        (one resident bucket, no compaction, stream staged up front).
+
+        Requests are grouped by bucket shape key and padded to their
+        *group's* joint ceiling; each group runs as one resident batch of
+        width ``min(max_batch, group size)``. After every chunk, converged
+        (or round-exhausted) graphs are evacuated -- their results released
+        -- and their slots backfilled from the group's pending queue.
+        ``evacuate=False`` runs every bucket to completion over the same
+        padded groups.
+
+        ``rng`` is a base seed (an int, or a ``torch.Generator`` whose
+        ``initial_seed()`` is taken); request ``i`` draws from
+        ``slot_generator(base, i)``, as under ``run_many``, so results
+        match ``run_many`` bitwise whenever the padded shapes coincide
+        (always for same-shape groups) and do not depend on ``max_batch``
+        or ``evacuate``. The config's ``admission`` policy applies. For
+        online iterators, two resident buckets, compaction and threaded
+        ingestion use ``serving.serve_async``."""
+        from repro_torch.core.serving import serve_async
+        rep = serve_async(self, list(stream), rng, growth=growth,
+                          max_batch=max_batch, chunk_rounds=chunk_rounds,
+                          evacuate=evacuate, compact=False, slots=1,
+                          prefetch=None)
+        return ServeResult(rep.results, rep.stats)

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 __all__ = ["NEG_INF", "EDGE_PAD", "VERTEX_PAD", "PGM", "build_pgm",
-           "build_pgm_uniform", "pad_pgm", "pad_pgm_arrays", "resolve_device"]
+           "build_pgm_uniform", "host_operands", "pad_pgm", "pad_pgm_arrays",
+           "resolve_device"]
 
 # Large-negative stand-in for log(0): summing ~1e2 of them in float32 stays
 # far from -inf/NaN while exp() underflows to exactly 0.
@@ -63,7 +64,9 @@ _ARRAY_FIELDS = ("edge_src", "edge_dst", "edge_rev", "edge_mask", "log_psi_e",
 _DTYPES = {"edge_src": torch.int32, "edge_dst": torch.int32,
            "edge_rev": torch.int32, "edge_mask": torch.bool,
            "log_psi_e": torch.float32, "log_psi_v": torch.float32,
-           "state_mask": torch.bool, "n_states": torch.int32}
+           "state_mask": torch.bool, "n_states": torch.int32,
+           "in_edges": torch.int32, "in_mask": torch.bool,
+           "dst_mask": torch.int8}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,6 +105,17 @@ def _in_edge_table(edge_dst: np.ndarray, edge_mask: np.ndarray,
     table[dst, slot] = real
     mask[dst, slot] = True
     return table, mask
+
+
+def host_operands(arrays: Mapping[str, np.ndarray]) -> dict:
+    """The reference fields of a graph as host arrays (extra keys dropped)
+    plus the port's derived operands: the in-edge table ``in_edges``/
+    ``in_mask`` and the int8 destination mask ``dst_mask``."""
+    host = {k: np.asarray(arrays[k]) for k in _ARRAY_FIELDS}
+    host["in_edges"], host["in_mask"] = _in_edge_table(
+        host["edge_dst"], host["edge_mask"], host["log_psi_v"].shape[0])
+    host["dst_mask"] = host["state_mask"][host["edge_dst"]].astype(np.int8)
+    return host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,18 +203,11 @@ class PGM:
         (the reference's traced counts); ``None`` means ``n_real_*``.
         """
         dev = resolve_device(device)
-        host = {k: np.asarray(arrays[k]) for k in _ARRAY_FIELDS}
-        in_edges, in_mask = _in_edge_table(host["edge_dst"], host["edge_mask"],
-                                           host["log_psi_v"].shape[0])
-        dst_mask = host["state_mask"][host["edge_dst"]].astype(np.int8)
         # torch.tensor copies: the result never aliases the caller's arrays
         tensors = {k: torch.tensor(v, dtype=_DTYPES[k], device=dev)
-                   for k, v in host.items()}
+                   for k, v in host_operands(arrays).items()}
         return cls(**tensors, n_real_vertices=int(n_real_vertices),
                    n_real_edges=int(n_real_edges),
-                   in_edges=torch.from_numpy(in_edges).to(dev),
-                   in_mask=torch.from_numpy(in_mask).to(dev),
-                   dst_mask=torch.from_numpy(dst_mask).to(dev),
                    edge_count=int(n_real_edges if edge_count is None
                                   else edge_count),
                    vertex_count=int(n_real_vertices if vertex_count is None

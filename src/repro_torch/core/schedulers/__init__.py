@@ -6,12 +6,13 @@
 | RBP        | sort-and-select top-k (edges)   | rbp.py     | "rbp"     |
 | RS         | top-k vertices + depth-h splash | rs.py      | "rs"      |
 | RnBP       | eps-filter + randomized p       | rnbp.py    | "rnbp"    | (paper's contribution)
+| RLX        | per-queue top-k, sampled queues | rlx.py     | "rlx"     |
+| RLXTree    | rlx with dst-ordered queues     | rlxtree.py | "rlxtree" |
 
 The port of ``repro.core.schedulers``. Schedulers are addressable by string
 spec through a :class:`repro_torch.core.registry.Registry` with the
 reference's names, so ``BPConfig`` serializes identically in both packages.
-The relaxed family (``"rlx"``, ``"rlxtree"``) and the host-serial SRBP
-baseline are not ported yet (ROADMAP queue 1, items 5 and 6).
+The host-serial SRBP baseline is not ported yet (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from repro_torch.core.registry import Registry
 from repro_torch.core.schedulers.base import Scheduler
 from repro_torch.core.schedulers.lbp import LBP
 from repro_torch.core.schedulers.rbp import RBP
+from repro_torch.core.schedulers.rlx import RLX
+from repro_torch.core.schedulers.rlxtree import RLXTree
 from repro_torch.core.schedulers.rnbp import RnBP
 from repro_torch.core.schedulers.rs import RS
 
@@ -32,6 +35,8 @@ SCHEDULERS: Registry[Type] = Registry("scheduler", {
     "rbp": RBP,
     "rs": RS,
     "rnbp": RnBP,
+    "rlx": RLX,
+    "rlxtree": RLXTree,
 })
 
 
@@ -72,6 +77,6 @@ def scheduler_spec(sched: Scheduler):
     raise KeyError(f"{type(sched).__name__} is not a registered scheduler")
 
 
-__all__ = ["Scheduler", "LBP", "RBP", "RS", "RnBP", "SCHEDULERS",
-           "get_scheduler", "register_scheduler", "list_schedulers",
-           "scheduler_spec"]
+__all__ = ["Scheduler", "LBP", "RBP", "RS", "RnBP", "RLX", "RLXTree",
+           "SCHEDULERS", "get_scheduler", "register_scheduler",
+           "list_schedulers", "scheduler_spec"]

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.graph import PGM
 
-__all__ = ["Scheduler", "frontier_size", "kth_largest"]
+__all__ = ["Scheduler", "draw_rows", "frontier_size", "kth_largest"]
 
 
 class Scheduler(Protocol):
@@ -75,3 +75,16 @@ def kth_largest(values: torch.Tensor, k_max: int, k) -> torch.Tensor:
     if isinstance(k, int):
         return top[..., k - 1:k]
     return top.gather(-1, (k - 1)[:, None])
+
+
+def draw_rows(shape, generators: Sequence[torch.Generator | None],
+              device) -> torch.Tensor:
+    """A bucket's round of uniform draws, ``shape = (B, n)`` float32: row
+    ``b`` from graph ``b``'s own generator, drawn in place -- what
+    ``select`` draws for the graph alone. A graph with no generator (its
+    budget spent) draws nothing; its row stays 1.0."""
+    uniforms = torch.ones(shape, dtype=torch.float32, device=device)
+    for row, gen in zip(uniforms, generators):
+        if gen is not None:
+            row.uniform_(generator=gen)
+    return uniforms

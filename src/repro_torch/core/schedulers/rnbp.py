@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.graph import PGM
+from repro_torch.core.schedulers.base import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +63,7 @@ class RnBP:
 
     def select_batch(self, batch, residuals, eps, generators, state,
                      unconverged):
-        # One (E,) draw per graph into its own row, in place: what
-        # ``select`` draws for the graph alone. A spent graph draws nothing.
-        uniforms = torch.ones_like(residuals)
-        for row, gen in zip(uniforms, generators):
-            if gen is not None:
-                row.uniform_(generator=gen)
+        uniforms = draw_rows(residuals.shape, generators, residuals.device)
         return self.select_with(batch.pgm, residuals, eps, uniforms, state,
                                 unconverged)
 

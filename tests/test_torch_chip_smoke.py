@@ -159,11 +159,14 @@ def test_batched_phases_on_cpu(counted):
                for k in ("stereo", "zoo", "protein") for sr in ("sum", "max"))
     one = cs.phase_timing(batch.graph(0), CPU, 3.35e12, 67e12,
                           protein_like_graph(16, device="cpu"))
+    by_path = {k: dict(one_graph=1, batched=2, serving=3) for k in (
+        "fused_update_e/sum", "fused_update_e/max", "fused_update_t/sum")}
     kernels = cs.kernels_line(one, timing, {"sum": 0.0, "max": 0.0}, 0.0,
-                              {"sum": 5, "max": 6}, 7)
+                              {"sum": 5, "max": 6}, 7, by_path)
     assert [k["name"] for k in kernels] == [
         "fused_update_e/sum", "fused_update_e/max", "fused_update_t/sum"]
     assert [k["launches"] for k in kernels] == [5, 6, 7]
+    assert all(k["launches_by_path"] == by_path[k["name"]] for k in kernels)
     for k in kernels:
         assert [x["shape"] for x in k["shapes"]] == [
             "main", "protein", "stereo", "zoo"]
@@ -179,3 +182,43 @@ def test_batched_phases_on_cpu(counted):
 def cs_zoo(n):
     from repro_torch.pgm import zoo_stream
     return zoo_stream(n, seed=0, device="cpu")
+
+
+def test_serving_phase_on_cpu(counted):
+    """Phase 14 at a tiny size: the online stream (stereo frames and the
+    zoo) through serve_async, the bitwise checks, engine.serve against
+    run_many, the backfill timing and the deadline run on both devices."""
+    scene = {"height": 6, "width": 8, "n_disp": 4}
+    out = cs.phase_serving(CPU, frames=2, scene=scene, zoo_n=9,
+                           max_rounds=300,
+                           slos={"ising": 30.0, "chain": 60.0})
+    assert out["requests"] == 11 and out["requests_per_s"] > 0
+    assert [f["rid"] for f in out["frames"]] == cs.stereo_rids(2, 9) == [0, 5]
+    assert all(f["converged"] for f in out["frames"])
+    assert set(out["bitwise_solo"].values()) <= {"admitted", "backfilled"}
+    st = out["stats"]
+    assert st["useful_sweeps"] <= st["device_sweeps"]
+    assert st["evacuated"] == 11
+    assert out["launches"]["fused_update_t/sum"] >= st["chunks"] > 0
+    assert out["launches"]["fused_update_e/sum"] > 0
+    assert out["launches"]["fused_update_e/max"] == 0
+    assert set(out["host_seconds"]) == {"stage", "admit", "backfill", "step"}
+    assert out["backfill_ms"]["load_slot"] >= 0
+    assert (out["backfill_ms"]["E"], out["backfill_ms"]["S"]) in {
+        (r["E"], r["S"]) for r in out["kernel_check"]["fused_update_t/sum"]}
+    tr = out["traced"]
+    assert tr["requests"] == 11 and tr["host_seconds"]["stage"] > 0
+    assert tr["busy_s"] == 0.0 and tr["device_events"] == 0     # no card
+    for name in ("fused_update_t/sum", "fused_update_e/sum"):
+        rows = out["kernel_check"][name]
+        assert rows and all(r["max_abs_err"] == 0.0 for r in rows)
+    d = out["deadline"]
+    assert d["timeline_equal"] and d["stats_equal"] and d["midflight"]
+    assert d["max_prob_diff"] <= 1e-6
+    assert set(out["latency_ms"]) == {"latency", "admission", "service"}
+    cs.log_serving(out)
+    by_path = cs.launches_by_path(
+        {"launches": {"sum": 1, "t": 0}}, {"launches": 2},
+        {"launches": 3, "other_launches": {"sum": 0, "max": 0}}, out)
+    assert by_path["fused_update_t/sum"]["serving"] == \
+        out["launches"]["fused_update_t/sum"]

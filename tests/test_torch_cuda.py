@@ -229,3 +229,88 @@ def test_edges_bitwise_alone_and_inside_a_larger_launch(cuda, s):
         alone = MU.fused_update_t(*part_t)
         assert torch.equal(alone[0], full[0][:, lo:lo + n]), (lo, n)
         assert torch.equal(alone[1], full[1][lo:lo + n]), (lo, n)
+
+
+# ----------------------------------------------------------- serving path --
+
+def _serving_timeline(rep):
+    return [(r.rid, r.status, r.t_enqueue, r.t_admit, r.t_done,
+             int(r.result.rounds)) for r in rep.records]
+
+
+@pytest.mark.parametrize("batch_backend", ["pallas", "triton"])
+def test_deadline_serving_on_card_matches_cpu(cuda, batch_backend):
+    """LBP under the deadline policy and a SweepClock: the card's timeline
+    and stats are the CPU plain path's, and the completed beliefs agree
+    within 1e-4."""
+    from repro_torch.core import SweepClock, serve_async
+    cfg = BPConfig(scheduler="lbp", eps=1e-4, max_rounds=2000,
+                   backend="pallas", batch_backend=batch_backend)
+
+    def run(device):
+        items = ((None, p, slo) for _, p, slo in TD.zoo_stream(
+            18, seed=0, slos={"ising": 100.0, "chain": 200.0},
+            device=device))
+        return serve_async(BPEngine(cfg, device=device), items, 0,
+                           admission="deadline", clock=SweepClock(),
+                           chunk_rounds=16, max_batch=4, slots=2, prefetch=8)
+    card, cpu = run(cuda), run("cpu")
+    assert _serving_timeline(card) == _serving_timeline(cpu)
+    assert card.stats == cpu.stats
+    for a, b in zip(card.records, cpu.records):
+        if a.status == "completed":
+            assert float((a.result.beliefs.cpu().exp()
+                          - b.result.beliefs.exp()).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("sched,kw", [
+    ("rnbp", {"low_p": 0.4, "high_p": 0.9}), ("rlx", {"p": 1 / 32}),
+    ("rlxtree", {"p": 1 / 32})])
+def test_serve_on_card_equals_run_many(cuda, sched, kw):
+    from repro_torch.core import serve_async
+    pgms = [TD.ising_grid_fast(16, 2.5, seed=n, device=cuda)
+            for n in range(5)]
+    eng = BPEngine(BPConfig(scheduler=sched, scheduler_kwargs=kw, eps=1e-3,
+                            max_rounds=400, backend="pallas",
+                            batch_backend="pallas"), device=cuda)
+    many = eng.run_many(pgms, 4, max_batch=3)
+    for results in (eng.serve(pgms, 4, max_batch=2).results,
+                    serve_async(eng, pgms, 4, max_batch=3, slots=2,
+                                compact=True).results):
+        for a, b in zip(results, many):
+            for x, y in zip(_result_tensors(a), _result_tensors(b)):
+                assert torch.equal(x, y)
+
+
+def test_element_admitted_after_async_staging_equals_sync_staging(cuda):
+    """A request staged by the non-blocking copy and admitted at once gives
+    bitwise the bucket that synchronous staging gives, and the same run."""
+    from repro_torch.core import ServingPipeline
+    from repro_torch.core.batch import bucket_shape
+    from repro_torch.core.graph import PGM, pad_pgm_arrays
+    pgms = [TD.stereo_mrf(96, 128, 16, seed=k, device="cpu").pgm
+            for k in range(3)]
+    eng = BPEngine(BPConfig(scheduler="rnbp", eps=1e-3, max_rounds=200,
+                            backend="pallas", batch_backend="pallas"),
+                   device=cuda)
+    pipe = ServingPipeline(eng, 0, max_batch=3)
+    for rid, p in enumerate(pgms):
+        pipe._stage(rid, p, 0.0)
+    group, = pipe._groups.values()
+    assert all(s.copy is not None for s in group.queue)
+    slot = pipe._admit(group)               # right after the copies started
+    e, v, s, re_, rv = bucket_shape(pgms[0])
+    sync = BatchedPGM.from_pgms(
+        [PGM.from_numpy(pad_pgm_arrays(p, n_edges=e, n_vertices=v,
+                                       n_states=s), rv, re_, cuda,
+                        edge_count=p.edge_count, vertex_count=p.vertex_count)
+         for p in pgms], n_real_edges=re_, n_real_vertices=rv)
+    for f in ("edge_src", "edge_dst", "edge_rev", "edge_mask", "log_psi_e",
+              "log_psi_v", "state_mask", "n_states", "in_edges", "in_mask",
+              "dst_mask"):
+        assert torch.equal(getattr(slot.state.graph.pgm, f),
+                           getattr(sync.pgm, f)), f
+    got = eng.run(slot.state.graph, state=slot.state)
+    want = eng.run(sync, [slot_generator(0, i, cuda) for i in range(3)])
+    for x, y in zip(_result_tensors(got), _result_tensors(want)):
+        assert torch.equal(x, y)

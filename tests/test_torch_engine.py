@@ -226,8 +226,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         TEngine(TConfig(scheduler="srbp"), device="cpu")
     eng = TEngine(TConfig(batch_backend="triton"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        eng.serve([tpgm], 0)
     with pytest.raises(TypeError, match="BatchedPGM"):
         eng.init([tpgm, tpgm], gen())
     with pytest.raises(ValueError, match="rng"):

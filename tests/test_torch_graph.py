@@ -175,8 +175,9 @@ def test_family_errors_match_reference():
     _, tmsg = _error_text(lambda: T_SCHEDULERS.lookup("nope"))
     assert jmsg.split(";")[0] == tmsg.split(";")[0] == \
         "\"unknown scheduler 'nope'"
-    assert T_SCHEDULERS.names() == ["lbp", "rbp", "rnbp", "rs"]
-    assert set(T_SCHEDULERS.names()) < set(J_SCHEDULERS.names())
+    assert T_SCHEDULERS.names() == J_SCHEDULERS.names() == [
+        "lbp", "rbp", "rlx", "rlxtree", "rnbp", "rs"]
+    assert tmsg == jmsg         # every scheduler is ported: the same text
     kind, msg = _error_text(lambda: T_BACKENDS.lookup("sharded"))
     assert kind is KeyError
     assert msg == repr("unknown update backend 'sharded'; registered: "

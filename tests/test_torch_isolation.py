@@ -50,7 +50,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.kernels.triton_update", "repro_torch.kernels._build",
                 "repro_torch.core.schedulers.rnbp", "repro_torch.pgm.datasets",
                 "repro_torch.core.batch", "repro_torch.kernels.message_update",
-                "repro_torch.kernels.ops"):
+                "repro_torch.kernels.ops", "repro_torch.core.serving",
+                "repro_torch.core.schedulers.rlx",
+                "repro_torch.core.schedulers.rlxtree"):
         assert mod in report["modules"]
 
 

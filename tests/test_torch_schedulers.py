@@ -130,11 +130,18 @@ def test_frontier_size_rounds_like_reference(p, count):
 
 
 def test_registry_surface():
-    assert TS.list_schedulers() == ["lbp", "rbp", "rnbp", "rs"]
+    assert TS.list_schedulers() == JS.list_schedulers() == [
+        "lbp", "rbp", "rlx", "rlxtree", "rnbp", "rs"]
+    for name in ("rlx", "rlxtree"):
+        sched = TS.get_scheduler(name, queues=4, p=0.1)
+        assert TS.scheduler_spec(sched) == JS.scheduler_spec(
+            JS.get_scheduler(name, queues=4, p=0.1))
+        assert TS.get_scheduler(*TS.scheduler_spec(sched)[:1],
+                                **TS.scheduler_spec(sched)[1]) == sched
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         TS.get_scheduler("srbp")
-    with pytest.raises(KeyError, match="unknown scheduler 'rlx'"):
-        TS.get_scheduler("rlx")
+    with pytest.raises(KeyError, match="unknown scheduler 'nope'"):
+        TS.get_scheduler("nope")
     inst = TS.RBP(p=0.1)
     assert TS.get_scheduler(inst) is inst
     with pytest.raises(ValueError):
@@ -261,3 +268,120 @@ def test_batched_rnbp_draws_one_row_per_live_graph(buckets):
                            s.init(tb.graph(b)), unc[b])
         assert torch.equal(f[b], solo)
     assert not bool(f[1].any())
+
+
+# ------------------------------------------------------ relaxed family --
+
+from repro.core.schedulers import rlx as JRLX  # noqa: E402
+from repro_torch.core import BPConfig as TConfig  # noqa: E402
+from repro_torch.core import BPEngine as TEngine  # noqa: E402
+from repro_torch.core.batch import slot_generator  # noqa: E402
+from repro_torch.core.schedulers import rlx as TRLX  # noqa: E402
+
+RELAXED = [("rlx", {}), ("rlx", {"queues": 16, "p": 0.05, "sample": 0.3}),
+           ("rlxtree", {}),
+           ("rlxtree", {"queues": 4, "p": 0.1, "sample": 0.7})]
+
+
+@pytest.mark.parametrize("n_edges,queues", [
+    (256, 8), (384, 5), (1000, 7), (7, 16), (128, 1), (4096, 128)])
+def test_queue_count_matches_reference(n_edges, queues):
+    assert TRLX.queue_count(n_edges, queues) == \
+        JRLX.queue_count(n_edges, queues)
+
+
+@pytest.mark.parametrize("k", [1, 3, 17, 64])
+@pytest.mark.parametrize("seed", range(3))
+def test_queue_threshold_bitwise(seed, k):
+    rng = np.random.default_rng(seed)
+    res2 = rng.exponential(0.01, (8, 64)).astype(np.float32)
+    res2[rng.random(res2.shape) < 0.3] = np.float32(0.02)      # ties
+    res2[rng.random(res2.shape) < 0.2] = 0.0
+    res2[3] = 0.0                                              # empty queue
+    want = np.asarray(JRLX.queue_threshold(jnp.asarray(res2), k))
+    got = TRLX.queue_threshold(torch.from_numpy(res2), k)
+    assert np.array_equal(want, got.numpy())
+    # per-graph k on a (B, Q, L) view: each row is its own graph's
+    ks = torch.tensor([k, 1, 5])
+    rows = np.stack([res2, res2[::-1].copy(), res2 * 3])
+    got_b = TRLX.queue_threshold(torch.from_numpy(rows), ks)
+    for b in range(3):
+        want_b = JRLX.queue_threshold(jnp.asarray(rows[b]), int(ks[b]))
+        assert np.array_equal(np.asarray(want_b), got_b[b].numpy())
+
+
+@pytest.mark.parametrize("name,kwargs", RELAXED)
+def test_relaxed_frontiers_bitwise_given_same_draws(graphs, name, kwargs):
+    jpgm, tpgm = graphs
+    js, ts = JS.get_scheduler(name, **kwargs), TS.get_scheduler(name, **kwargs)
+    jstate, tstate = js.init(jpgm), ts.init(tpgm)
+    if name == "rlxtree":               # the permutation is the reference's
+        assert np.array_equal(np.asarray(jstate), tstate.numpy())
+    q = JRLX.queue_count(jpgm.n_edges, js.queues)
+    for i, r in enumerate(residual_sets(jpgm.n_edges, seed=3)):
+        key = jax.random.key(i)
+        draw = np.array(jax.random.uniform(key, (q,)))
+        jf, jnext = js.select(jpgm, jnp.asarray(r), EPS, key, jstate,
+                              jnp.int32(0))
+        tf, tnext = ts.select_with(tpgm, torch.from_numpy(r.copy()), EPS,
+                                   torch.from_numpy(draw), tstate,
+                                   torch.tensor(0))
+        assert np.array_equal(np.asarray(jf), tf.numpy()), i
+        if name == "rlxtree":
+            assert np.array_equal(np.asarray(jnext), tnext.numpy())
+
+
+@pytest.mark.parametrize("name,kwargs", RELAXED)
+def test_batched_relaxed_matches_vmapped_reference(buckets, name, kwargs):
+    jb, tb = buckets
+    js, ts = JS.get_scheduler(name, **kwargs), TS.get_scheduler(name, **kwargs)
+    jstate = jax.vmap(js.init)(jb.pgm)
+    tstate = ts.init_batch(tb)
+    if name == "rlxtree":
+        assert np.array_equal(np.asarray(jstate), tstate.numpy())
+        for b in range(tb.size):        # a row is the graph's own order
+            assert torch.equal(tstate[b], ts.init(tb.graph(b)))
+    q = JRLX.queue_count(jb.n_edges, js.queues)
+    vselect = jax.vmap(lambda p, r, k, st, u: js.select(p, r, EPS, k, st, u))
+    for i in range(3):
+        r, u = batch_residuals(jb, 30 + i)
+        keys = jax.random.split(jax.random.key(i), jb.size)
+        draws = np.stack([np.array(jax.random.uniform(k, (q,)))
+                          for k in keys])
+        jf, _ = vselect(jb.pgm, jnp.asarray(r), keys, jstate,
+                        jnp.asarray(u))
+        tf, _ = ts.select_with(tb.pgm, torch.from_numpy(r), EPS,
+                               torch.from_numpy(draws), tstate,
+                               torch.from_numpy(u))
+        assert np.array_equal(np.asarray(jf), tf.numpy()), i
+
+
+@pytest.mark.parametrize("name", ["rlx", "rlxtree"])
+def test_relaxed_runs_reach_reference_fixed_point(name):
+    from repro.core import BPConfig as JConfig
+    from repro.core import BPEngine as JEngine
+    jpgm = JD.ising_grid(9, 2.0, seed=0)
+    cfg = dict(scheduler=name, scheduler_kwargs={"p": 1 / 16}, eps=1e-5,
+               max_rounds=3000)
+    jres = JEngine(JConfig(**cfg)).run(jpgm, jax.random.key(0))
+    tres = TEngine(TConfig(**cfg), device="cpu").run(
+        bridge(jpgm), torch.Generator().manual_seed(7))
+    assert bool(jres.converged) and bool(tres.converged)
+    n = jpgm.n_real_vertices
+    np.testing.assert_allclose(np.exp(np.asarray(jres.beliefs)[:n]),
+                               np.exp(tres.beliefs[:n].numpy()), atol=1e-3)
+
+
+@pytest.mark.parametrize("name,kwargs", RELAXED[1:3])
+def test_relaxed_bucket_slots_bitwise_solo(buckets, name, kwargs):
+    _, tb = buckets
+    eng = TEngine(TConfig(scheduler=name, scheduler_kwargs=kwargs, eps=1e-3,
+                          max_rounds=300), device="cpu")
+    res = eng.run(tb, [slot_generator(5, i, "cpu") for i in range(tb.size)])
+    for i in range(tb.size):
+        solo = eng.run(tb.graph(i), slot_generator(5, i, "cpu"))
+        for f in ("logm", "rounds", "updates", "max_residual",
+                  "unconverged_history"):
+            assert torch.equal(getattr(res, f)[i], getattr(solo, f)), (f, i)
+        if name == "rlxtree":
+            assert torch.equal(res.sched_state[i], solo.sched_state)
