@@ -24,7 +24,17 @@ main paths and its serving path at full size and measures them:
   threads); two stereo requests against their padded solo runs,
   ``engine.serve`` against ``run_many``, the cost of one backfill at the
   stereo shape, and the deadline policy under a ``SweepClock`` on the card
-  against the CPU's plain path (phase 14).
+  against the CPU's plain path (phase 14);
+- the router tier: the same stream through ``serve_routed`` with two
+  replicas, each a pipeline on its own thread and its own CUDA stream:
+  traced (busy seconds, the streams the kernels ran on, the replicas'
+  overlap), round robin bitwise each share's solo run, least-loaded with
+  stealing bitwise round robin, the deadline policy routed on card and
+  CPU, and the skewed-stealing scenario (phase 15);
+- resilient runs and the serial baseline: ``run_bp_resilient`` on the
+  one-graph main path, chunked and resumed from a checkpoint, bitwise the
+  engine run; SRBP on the paper's Ising 200 x 200 beside RnBP on the card;
+  a chain's RnBP beliefs against variable elimination (phase 16).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -38,7 +48,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the three paths (``launches_by_path``), its largest
+  and on each of the five paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -105,6 +115,24 @@ SERVE_KW = dict(max_batch=4, slots=2, prefetch=8, compact=True,
 # budgets (virtual seconds) that evict requests mid-flight.
 DEADLINE_EPS, DEADLINE_CHUNK = 1e-4, 16
 DEADLINE_SLOS = {"ising": 100.0, "chain": 200.0}
+# The router tier: the serving path's stream through two replicas on the
+# card, each at the serving path's knobs (a replica always has one feeder).
+ROUTER_REPLICAS = 2
+ROUTER_KW = dict(max_batch=4, slots=2, prefetch=8, compact=True)
+# The router's SLA check: the zoo stream without budgets plus two 6 x 6
+# Ising grids that never converge at DEADLINE_EPS, with budgets far under
+# ZOO_ROUNDS: evicted whatever the replicas' interleaving.
+ROUTER_SLO, ROUTER_IMPOSSIBLE = 40.0, (0, 2)
+# The skewed-stealing scenario of benchmarks/bench_router.py, at its knobs.
+SKEW_EPS, SKEW_ROUNDS, SKEW_FAST, SKEW_HOLD_S = 1e-5, 480, 30, 2.0
+SKEW_KW = dict(max_batch=2, chunk_rounds=16, slots=1, prefetch=2,
+               ingest_queue=1, admission="windowed",
+               admission_kwargs={"window_s": 0.25}, steal_batch=4,
+               low_watermark=2)
+# Resilient runs and the serial baseline.
+RESILIENT_CHUNK = 200
+SRBP_LIMIT_S = 30.0
+KL_BOUND = 1e-6                      # RnBP on a chain vs variable elimination
 
 
 def log(msg: str) -> None:
@@ -980,15 +1008,9 @@ def busy_seconds(prof):
     in a ``torch.profiler`` trace: the union of its device intervals, so
     work overlapping on two streams counts once. Also the event count."""
     from torch.autograd import DeviceType
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e6, len(spans)
+    spans = [(ev.time_range.start, ev.time_range.end)
+             for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return sum(b - a for a, b in merged(spans)) / 1e6, len(spans)
 
 
 def backfill_cost(eng, scenes, device):
@@ -1257,21 +1279,592 @@ def phase_serving(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
     return out
 
 
-def launches_by_path(main, mapd, bmain, serving):
+def merged(spans):
+    """The union of ``(start, end)`` intervals, as sorted disjoint
+    ``[start, end]`` pairs."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap(x, y) -> float:
+    """Length of the intersection of two unions of intervals."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        if hi > lo:
+            total += hi - lo
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def kernel_streams(prof, path):
+    """Per CUDA stream, the union of its kernels' device intervals (us),
+    from the trace's Chrome export (written to ``path``, then removed)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    spans = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "kernel":
+            stream = ev.get("args", {}).get("stream", ev.get("tid"))
+            spans.setdefault(stream, []).append(
+                (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    return {k: merged(v) for k, v in spans.items()}
+
+
+def route_once(engines, stream, device, *, routing, steal, traced=False,
+               **kw):
+    """One ``serve_routed`` run over ``engines`` (one per replica):
+    ``(result, wall seconds, launches by kernel, peak bytes, trace,
+    captured states, routing seconds)``, launch counts and the
+    peak-memory counter reset just before. With ``traced`` the run is
+    traced by ``torch.profiler`` on the card, each engine's chunks are
+    captured by ``watch_pipeline``, and the router thread's seconds in
+    ``Router.loads`` and ``Replica.submit`` are summed."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.serve import serve_routed
+    from repro_torch.serve.replica import Replica
+    from repro_torch.serve.router import Router
+    cuda = device.type == "cuda"
+    hooks = [watch_pipeline(e, capture=True) for e in engines] \
+        if traced else []
+    routing_s = [0.0]
+    saved = (Router.loads, Replica.submit)
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            routing_s[0] += time.perf_counter() - t0
+            return out
+        return wrapper
+    if traced:          # the router thread's placement work
+        Router.loads, Replica.submit = map(timed, saved)
+    trace = (profile(activities=[ProfilerActivity.CUDA])
+             if traced and cuda else contextlib.nullcontext())
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    MU.reset_launch_counts()
+    TT.reset_launch_counts()
+    try:
+        with trace as prof:
+            t0 = time.perf_counter()
+            rep = serve_routed(engines, stream, 0, routing=routing,
+                               steal=steal, **kw)
+            sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        Router.loads, Replica.submit = saved
+        for _, undo in reversed(hooks):
+            undo()
+    launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                "fused_update_e/sum": TT.LAUNCHES["sum"],
+                "fused_update_e/max": TT.LAUNCHES["max"]}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    captured = {}
+    for w, _ in hooks:
+        for key, state in w["captured"].items():
+            have = captured.get(key)
+            if have is None or state.graph.size >= have.graph.size:
+                captured[key] = state
+    return rep, wall, launches, peak, prof, captured, routing_s[0]
+
+
+def routed_numbers(rep, wall, peak):
+    """What each router run reports beside phase 14's single pipeline;
+    ``inbox_wait_ms``: a request's wait between the router's pull and its
+    replica's (``t_enqueue - t_route``), p50/p99."""
+    import numpy as np
+    wait = np.array([r.record.t_enqueue - r.t_route
+                     for r in rep.records]) * 1e3
+    return dict(
+        inbox_wait_ms={"p50": float(np.percentile(wait, 50)),
+                       "p99": float(np.percentile(wait, 99))},
+        requests=len(rep.records), wall_s=wall,
+        requests_per_s=len(rep.records) / wall,
+        latency_ms={f: rep.latency_percentiles((50, 90, 99), field=f,
+                                               status="completed")
+                    for f in ("latency", "admission", "service")},
+        device_sweeps=rep.device_sweeps, useful_sweeps=rep.useful_sweeps,
+        wasted_sweeps=rep.wasted_sweeps, routed=list(rep.stats.routed),
+        steals=rep.stats.steals, stolen=rep.stats.stolen,
+        peak_memory_bytes=peak)
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def router_deadline_run(device, zoo_n):
+    """LBP at ``DEADLINE_EPS`` through ``serve_routed`` with
+    ``admission="deadline"``, ``routing="deadline"`` and one shared
+    ``SweepClock``: ``zoo_stream(zoo_n)`` without budgets, and the
+    ``ROUTER_IMPOSSIBLE`` 6 x 6 Ising grids with ``ROUTER_SLO``, all built
+    on ``device`` as the router pulls them. ``batch_backend="triton"``:
+    the buckets run ``fused_update_e``. Returns the result, the launches,
+    the captured states and the impossible rids."""
+    from repro_torch.core import BPConfig, BPEngine, SweepClock
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import ising_grid, zoo_stream
+    from repro_torch.serve import serve_routed
+    cfg = BPConfig(scheduler="lbp", eps=DEADLINE_EPS, max_rounds=ZOO_ROUNDS,
+                   backend="pallas", batch_backend="triton")
+    engines = [BPEngine(cfg, device=device) for _ in range(ROUTER_REPLICAS)]
+    step = max(1, zoo_n // len(ROUTER_IMPOSSIBLE))
+    at = {k * step: seed for k, seed in enumerate(ROUTER_IMPOSSIBLE)}
+
+    def items():
+        for i, (_, pgm) in enumerate(zoo_stream(zoo_n, seed=0,
+                                                device=device)):
+            if i in at:
+                yield None, ising_grid(6, 3.5, seed=at[i], device=device), \
+                    ROUTER_SLO
+            yield None, pgm, None
+    impossible = [k + i for i, k in enumerate(sorted(at))]
+    hooks = [watch_pipeline(e, capture=True) for e in engines]
+    MU.reset_launch_counts()
+    TT.reset_launch_counts()
+    try:
+        rep = serve_routed(engines, items(), 0, routing="deadline",
+                           admission="deadline", clock=SweepClock(),
+                           chunk_rounds=DEADLINE_CHUNK, **ROUTER_KW)
+    finally:
+        for _, undo in reversed(hooks):
+            undo()
+    launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                "fused_update_e/sum": TT.LAUNCHES["sum"],
+                "fused_update_e/max": TT.LAUNCHES["max"]}
+    captured = {}
+    for w, _ in hooks:
+        captured.update(w["captured"])
+    return rep, launches, captured, impossible
+
+
+def skew_run(device, steal, fast_n=SKEW_FAST, hold_s=SKEW_HOLD_S):
+    """The skewed-stealing scenario of ``benchmarks/bench_router.py``:
+    replica 0 gets a straggler (6 x 6 Ising, C = 3.5) and one fast grid
+    (C = 1.5), replica 1 the ``fast_n`` more; the stream stays open
+    ``hold_s`` after its last request. LBP through ``"triton"``, graphs
+    built on ``device``. ``(result, launches)``."""
+    from repro_torch.core import BPConfig, BPEngine
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import ising_grid
+    from repro_torch.serve import RoutingPolicy, serve_routed
+
+    class Skew(RoutingPolicy):
+        name = "skew"
+
+        def pick(self, rid, kind, loads):
+            return 0 if rid < 2 else 1
+
+    cfg = BPConfig(scheduler="lbp", eps=SKEW_EPS, max_rounds=SKEW_ROUNDS,
+                   history=False, backend="triton")
+    engines = [BPEngine(cfg, device=device) for _ in range(ROUTER_REPLICAS)]
+    fast = ising_grid(6, 1.5, seed=0, device=device)
+    stream = [ising_grid(6, 3.5, seed=100, device=device), fast] + \
+        [fast] * fast_n
+
+    def held():
+        yield from stream
+        time.sleep(hold_s)
+    TT.reset_launch_counts()
+    rep = serve_routed(engines, held(), 0, routing=Skew(), steal=steal,
+                       **SKEW_KW)
+    return rep, {"fused_update_e/sum": TT.LAUNCHES["sum"]}
+
+
+def phase_router(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
+                 max_rounds=STEREO_ROUNDS, skew_fast=SKEW_FAST,
+                 skew_hold=SKEW_HOLD_S):
+    """The router tier: phase 14's online stream through ``serve_routed``
+    with ``ROUTER_REPLICAS`` replicas, each on a CUDA stream of its own.
+    First a traced run (round robin, no stealing; it also warms the
+    allocators) for the card's busy seconds, the CUDA streams the kernels
+    ran on and the replicas' overlap, and ``fused_update_t`` against its
+    plain version on one captured chunk of every bucket shape served. Then
+    two untimed-inside runs: (a) round robin without stealing, every
+    record bitwise the ``serve_async`` run of its replica's share alone;
+    (b) least-loaded with stealing, every result bitwise run (a)'s. Then
+    the SLA check on card and CPU, and the skewed-stealing scenario with
+    stealing off and on."""
+    import torch
+    from repro_torch.core import BPEngine, serve_async
+    from repro_torch.pgm import stereo_mrf
+    host = torch.device("cpu")
+    scenes = [stereo_mrf(scene["height"], scene["width"], scene["n_disp"],
+                         seed=k, device=host).pgm for k in range(frames)]
+    engines = [BPEngine(batched_config(max_rounds), device=device)
+               for _ in range(ROUTER_REPLICAS)]
+    n = frames + zoo_n
+    launches = {}
+
+    rep, wall_t, _, _, prof, captured, routing_s = route_once(
+        engines, serving_stream(scenes, zoo_n, host), device,
+        routing="round_robin", steal=False, traced=True, **ROUTER_KW)
+    traced = dict(wall_s=wall_t, requests=len(rep.records), busy_s=0.0,
+                  idle_share=1.0, kernel_streams=0, overlap_s=0.0,
+                  stream_busy_s=[], routing_s=routing_s)
+    if prof is not None:
+        busy, n_events = busy_seconds(prof)
+        streams = kernel_streams(prof, REPO / "chiprun_out" /
+                                 "router_trace.json")
+        busiest = sorted(streams.values(), key=lambda u: -sum(
+            b - a for a, b in u))
+        traced.update(
+            busy_s=busy, device_events=n_events, idle_share=1.0 - busy / wall_t,
+            kernel_streams=len(streams),
+            stream_busy_s=[sum(b - a for a, b in u) / 1e6 for u in busiest],
+            overlap_s=(overlap(busiest[0], busiest[1]) / 1e6
+                       if len(busiest) > 1 else 0.0))
+        if traced["kernel_streams"] < ROUTER_REPLICAS:
+            raise AssertionError(f"kernels ran on {len(streams)} CUDA "
+                                 "stream(s): the replicas shared one")
+    kernel_check = {"fused_update_t/sum": check_captured(captured, "t")}
+    del rep, prof, captured
+
+    # (a) round robin, no stealing: bitwise each share's solo serve_async.
+    rep_a, wall, got, peak = route_once(
+        engines, serving_stream(scenes, zoo_n, host), device,
+        routing="round_robin", steal=False, **ROUTER_KW)[:4]
+    add_launches(launches, got)
+    if got["fused_update_t/sum"] < sum(
+            s.chunks for s in rep_a.replica_stats):
+        raise AssertionError("the routed path bypassed fused_update_t")
+    by_rid = {r.rid: r for r in rep_a.records}
+    if sorted(by_rid) != list(range(n)):
+        raise AssertionError(f"released rids {sorted(by_rid)}, expected "
+                             f"0..{n - 1} once each")
+    if rep_a.stats.routed != [n // ROUTER_REPLICAS + (k < n % ROUTER_REPLICAS)
+                              for k in range(ROUTER_REPLICAS)]:
+        raise AssertionError(f"round robin routed {rep_a.stats.routed}")
+    rids = stereo_rids(frames, zoo_n)
+    for k, rid in enumerate(rids):
+        check_beliefs(scenes[k], by_rid[rid].result, padded=True)
+    items = list(enumerate(serving_stream(scenes, zoo_n, host)))
+    for k in range(ROUTER_REPLICAS):
+        share = [it for it in items if it[0] % ROUTER_REPLICAS == k]
+        solo = serve_async(engines[0], iter(share), 0, **ROUTER_KW)
+        for rec in solo.records:
+            if not same_result(rec.result, by_rid[rec.rid].result):
+                raise AssertionError(f"routed request {rec.rid} differs from "
+                                     f"its share's solo serve_async run")
+    del items, solo
+    run_a = routed_numbers(rep_a, wall, peak)
+
+    # (b) least-loaded with stealing: bitwise run (a), rid by rid.
+    rep_b, wall, got, peak = route_once(
+        engines, serving_stream(scenes, zoo_n, host), device,
+        routing="least_loaded", steal=True, **ROUTER_KW)[:4]
+    for r in rep_b.records:
+        if not same_result(r.result, by_rid[r.rid].result):
+            raise AssertionError(f"request {r.rid} under least_loaded with "
+                                 "stealing differs from round robin")
+    if len(rep_b.records) != n:
+        raise AssertionError(f"{len(rep_b.records)} records, expected {n}")
+    run_b = routed_numbers(rep_b, wall, peak)
+    del rep_a, rep_b, by_rid, scenes
+
+    # The SLA check: card against the CPU's plain path.
+    card, got, captured, impossible = router_deadline_run(device, zoo_n)
+    add_launches(launches, got)
+    if got["fused_update_e/sum"] < sum(s.chunks for s in card.replica_stats):
+        raise AssertionError("the routed deadline run bypassed fused_update_e")
+    kernel_check["fused_update_e/sum"] = check_captured(captured, "e")
+    del captured
+    cpu = router_deadline_run(host, zoo_n)[0]
+    status = {r.rid: r.status for r in card.records}
+    if status != {r.rid: r.status for r in cpu.records}:
+        raise AssertionError("routed deadline statuses differ between the "
+                             "card and the CPU")
+    evicted = sorted(rid for rid, st in status.items() if st == "evicted")
+    if evicted != impossible:
+        raise AssertionError(f"evicted {evicted}, expected {impossible}")
+    cpu_by = {r.rid: r.result for r in cpu.records}
+    worst = 0.0
+    for r in card.records:
+        if r.status == "completed":
+            b = cpu_by[r.rid]
+            if int(r.result.rounds) != int(b.rounds):
+                raise AssertionError(f"routed deadline rid {r.rid}: rounds "
+                                     f"{int(r.result.rounds)} on the card, "
+                                     f"{int(b.rounds)} on the CPU")
+            worst = max(worst, float((r.result.beliefs.cpu().exp()
+                                      - b.beliefs.exp()).abs().max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"routed deadline beliefs differ by {worst}")
+    deadline = dict(requests=len(status), evicted=evicted,
+                    routed=list(card.stats.routed), max_prob_diff=worst,
+                    statuses_equal=True)
+    del card, cpu, cpu_by
+
+    # Skewed stealing: fewer wasted sweeps with it on, the same results.
+    skew = {}
+    for steal in (False, True):
+        rep, got = skew_run(device, steal, skew_fast, skew_hold)
+        add_launches(launches, got)
+        skew[steal] = (rep, [r.logm.cpu().numpy().tobytes()
+                             for r in rep.results])
+    (off, fp_off), (on, fp_on) = skew[False], skew[True]
+    if fp_on != fp_off:
+        raise AssertionError("stealing changed a result bit")
+    if not (on.stats.stolen > 0 and on.wasted_sweeps < off.wasted_sweeps):
+        raise AssertionError(f"stealing: wasted sweeps {on.wasted_sweeps} "
+                             f"on vs {off.wasted_sweeps} off, stolen "
+                             f"{on.stats.stolen}")
+    stealing = {mode: dict(wasted_sweeps=r.wasted_sweeps,
+                           useful_sweeps=r.useful_sweeps,
+                           device_sweeps=r.device_sweeps,
+                           steals=r.stats.steals, stolen=r.stats.stolen)
+                for mode, r in (("off", off), ("on", on))}
+    stealing["bitwise_on_vs_off"] = True
+    return dict(requests=n, replicas=ROUTER_REPLICAS, traced=traced,
+                round_robin=run_a, least_loaded_steal=run_b,
+                kernel_check=kernel_check, deadline=deadline,
+                stealing=stealing, launches=launches,
+                bitwise=dict(round_robin_vs_solo_shares=True,
+                             least_loaded_steal_vs_round_robin=True))
+
+
+def log_router(out, serving) -> None:
+    """Phase 15's progress lines, phase 14's single pipeline beside."""
+    def row(label, r):
+        lat = r["latency_ms"]
+        log(f"  {label}: {r['requests']} requests in {r['wall_s']:.3f} s = "
+            f"{r['requests_per_s']:.2f} requests/s; completed latency "
+            f"p50/p90/p99 {lat['latency']['p50']:.1f}/"
+            f"{lat['latency']['p90']:.1f}/{lat['latency']['p99']:.1f} ms "
+            f"(admission {lat['admission']['p50']:.1f}/"
+            f"{lat['admission']['p90']:.1f}/{lat['admission']['p99']:.1f}, "
+            f"service {lat['service']['p50']:.1f}/"
+            f"{lat['service']['p90']:.1f}/{lat['service']['p99']:.1f}; "
+            f"inbox wait p50/p99 {r['inbox_wait_ms']['p50']:.1f}/"
+            f"{r['inbox_wait_ms']['p99']:.1f}); "
+            f"wasted sweeps {r['wasted_sweeps']} of {r['device_sweeps']}; "
+            f"routed {r['routed']}; steals {r['steals']} ({r['stolen']} "
+            f"requests); peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB")
+    st = serving["stats"]
+    row("phase 14, one pipeline", dict(
+        inbox_wait_ms={"p50": 0.0, "p99": 0.0},
+        requests=serving["requests"], wall_s=serving["wall_s"],
+        requests_per_s=serving["requests_per_s"],
+        latency_ms=serving["latency_ms"], wasted_sweeps=st["wasted_sweeps"],
+        device_sweeps=st["device_sweeps"], routed=[serving["requests"]],
+        steals=0, stolen=0, peak_memory_bytes=serving["peak_memory_bytes"]))
+    row("(a) round_robin, no stealing", out["round_robin"])
+    row("(b) least_loaded, stealing", out["least_loaded_steal"])
+    tr = out["traced"]
+    log(f"  traced run (a): {tr['requests']} requests in {tr['wall_s']:.3f} "
+        f"s; card busy {tr['busy_s']:.3f} s = idle share "
+        f"{tr['idle_share']:.3f}; kernels on {tr['kernel_streams']} CUDA "
+        f"streams, busy {[round(x, 3) for x in tr['stream_busy_s']]} s; "
+        f"the two replicas' kernels overlap {tr['overlap_s']:.3f} s; "
+        f"router thread's placement (loads + submit) {tr['routing_s']:.4f} "
+        f"s; phase 14's traced run: busy {serving['traced']['busy_s']:.3f} "
+        "s")
+    log("  bitwise: every record of (a) == its share's solo serve_async; "
+        "every result of (b) == (a)'s")
+    for name, rows in out["kernel_check"].items():
+        for r in rows:
+            log(f"  {name} vs plain on a routed chunk: B={r['B']} E={r['E']} "
+                f"S={r['S']} rounds={r['rounds']} max_abs_err="
+                f"{r['max_abs_err']:.3g}")
+    d = out["deadline"]
+    log(f"  routed deadline/SweepClock LBP: {d['requests']} requests, routed "
+        f"{d['routed']}, evicted {d['evicted']} (the budgeted grids that "
+        f"never converge); statuses equal on card and CPU, completed "
+        f"beliefs within {d['max_prob_diff']:.3g}")
+    sk = out["stealing"]
+    log(f"  skewed stealing: wasted sweeps {sk['off']['wasted_sweeps']} off "
+        f"-> {sk['on']['wasted_sweeps']} on ({sk['on']['steals']} steals, "
+        f"{sk['on']['stolen']} requests); results bitwise equal")
+    log(f"  kernel launches on the routed path: {out['launches']}")
+
+
+def chain_model(n=12, states=3, seed=0):
+    """A chain of ``n`` vertices with random positive potentials: BP is
+    exact on it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    edges = np.array([(i, i + 1) for i in range(n - 1)])
+    return (n, edges, rng.uniform(0.5, 2.0, (n, states)),
+            rng.uniform(0.2, 2.0, (n - 1, states, states)))
+
+
+def phase_resilient(device, pgm, res, paper, ckpt_dir,
+                    chunk=RESILIENT_CHUNK, srbp_n=PAPER_N,
+                    srbp_limit=SRBP_LIMIT_S):
+    """``run_bp_resilient`` on the main path's graph (RnBP, ``"triton"``,
+    ``chunk`` rounds a chunk, checkpoints in ``ckpt_dir``) against phase
+    4's engine run ``res``, bitwise; then a second call from a mid-run
+    checkpoint after the later ones are deleted, bitwise too, and
+    ``fused_update_e`` against its plain version on the operands of the
+    run's last messages. Then SRBP on Ising ``srbp_n`` x ``srbp_n`` (C =
+    2.5) with ``srbp_limit`` seconds, beside phase 5's RnBP on the card,
+    and ``kl_divergence`` of the card's RnBP beliefs on a chain against
+    ``ve_marginals``."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import BPConfig, BPEngine, build_pgm_uniform
+    from repro_torch.core import messages as M
+    from repro_torch.core.exact import kl_divergence, ve_marginals
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.ft import resilience as RES
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.kernels.ref import fused_update_e_ref
+    from repro_torch.pgm import ising_grid_fast
+
+    def resilient(seed):
+        return RES.run_bp_resilient(
+            pgm, RnBP(**MAIN_KW), torch.Generator(device=device).manual_seed(
+                seed), eps=1e-3, max_rounds=2000, rounds_per_chunk=chunk,
+            ckpt_dir=ckpt_dir, backend="triton", device=device)
+
+    def same(a, b, rounds):
+        return torch.equal(a.logm, b.logm) and \
+            torch.equal(a.beliefs, b.beliefs) and int(a.rounds) == rounds
+
+    save_s = [0.0]
+    real_save = RES.save_pytree
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kw)
+        save_s[0] += time.perf_counter() - t0
+        return out
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    total = int(res.rounds)
+    try:
+        RES.save_pytree = timed_save
+        TT.reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        got = resilient(0)
+        sync(device)
+        loop_s = time.perf_counter() - t0
+        launches = dict(TT.LAUNCHES)
+        RES.save_pytree = real_save
+        if not same(got, res, total):
+            raise AssertionError("the resilient run differs from phase 4's "
+                                 "engine run")
+        if launches["sum"] < total:
+            raise AssertionError("the resilient run bypassed fused_update_e")
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir))
+        mid = steps[len(steps) // 2]
+        for step in steps:
+            if step > mid:
+                shutil.rmtree(os.path.join(ckpt_dir, f"step_{step:09d}"))
+        resumed = resilient(1)          # the generator comes from the file
+        if not same(resumed, res, total - mid):
+            raise AssertionError(f"the run resumed at round {mid} differs "
+                                 "from phase 4's engine run")
+    finally:
+        RES.save_pytree = real_save
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ops = (pgm.log_psi_e, M.edge_prelude(pgm, got.logm), got.logm,
+           pgm.dst_mask)
+    err = compare("sum", TT.fused_update_e(*ops), fused_update_e_ref(*ops))
+    del ops, resumed
+    resil = dict(rounds=total, chunk=chunk, checkpoints=len(steps),
+                 resumed_from=mid, loop_s=loop_s, save_s=save_s[0],
+                 launches=launches, max_abs_err=err, bitwise=True)
+
+    big = ising_grid_fast(srbp_n, 2.5, seed=0, device=device)
+    t0 = time.perf_counter()
+    srbp = BPEngine(BPConfig(scheduler="srbp", eps=1e-3, scheduler_kwargs={
+        "time_limit_s": srbp_limit}), device=device).run(big)
+    call_s = time.perf_counter() - t0
+    if not np.isfinite(srbp.beliefs[:big.n_real_vertices]).all():
+        raise AssertionError("non-finite SRBP beliefs")
+    rnbp = next(r for r in paper if r["graph"] == f"ising{srbp_n}"
+                and r["scheduler"] == "rnbp")
+    serial = dict(graph=f"ising_grid_fast({srbp_n}, 2.5)",
+                  edges=big.n_real_edges, updates=srbp.updates,
+                  updates_per_s=srbp.updates / max(srbp.wall_time_s, 1e-9),
+                  converged=srbp.converged, max_residual=srbp.max_residual,
+                  wall_s=srbp.wall_time_s, call_s=call_s,
+                  rnbp_card=dict(rounds=rnbp["rounds"],
+                                 converged=rnbp["converged"],
+                                 run_s=rnbp["run_s"]))
+    del big
+
+    n, edges, unary, pairwise = chain_model()
+    chain = build_pgm_uniform(n, edges, unary, pairwise, device=device)
+    out = BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs=MAIN_KW,
+                            eps=1e-5, backend="triton"), device=device).run(
+        chain, torch.Generator(device=device).manual_seed(0))
+    exact = ve_marginals(n, edges, list(unary), list(pairwise))
+    bp = out.beliefs[:n, :unary.shape[1]].exp().cpu().numpy()
+    kl = max(kl_divergence(exact[v], bp[v]) for v in range(n))
+    if not (bool(out.converged) and kl <= KL_BOUND):
+        raise AssertionError(f"chain RnBP vs exact: KL {kl} > {KL_BOUND}")
+    return dict(resilient=resil, srbp=serial,
+                kl=dict(graph=f"chain({n}, {unary.shape[1]} states)",
+                        rounds=int(out.rounds), max_kl=kl, bound=KL_BOUND))
+
+
+def log_resilient(out) -> None:
+    """Phase 16's progress lines."""
+    r = out["resilient"]
+    log(f"  run_bp_resilient: {r['rounds']} rounds in chunks of "
+        f"{r['chunk']}, {r['checkpoints']} checkpoints, bitwise phase 4's "
+        f"run; resumed from round {r['resumed_from']} bitwise too; "
+        f"{r['loop_s']:.3f} s in the loop, of which {r['save_s']:.3f} s "
+        f"writing checkpoints; fused_update_e launches {r['launches']}, "
+        f"vs plain on the last messages {r['max_abs_err']:.3g}")
+    s = out["srbp"]
+    log(f"  SRBP (host) on {s['graph']}: {s['updates']} updates in "
+        f"{s['wall_s']:.3f} s = {s['updates_per_s']:.0f} updates/s, "
+        f"converged={s['converged']} (max residual {s['max_residual']:.3g}; "
+        f"{s['call_s']:.3f} s with the heap's set-up); RnBP on the card "
+        f"(phase 5): {s['rnbp_card']['rounds']} rounds, converged="
+        f"{s['rnbp_card']['converged']}, {s['rnbp_card']['run_s']:.3f} s")
+    k = out["kl"]
+    log(f"  {k['graph']} RnBP on the card vs variable elimination: max KL "
+        f"{k['max_kl']:.3g} <= {k['bound']:g} ({k['rounds']} rounds)")
+
+
+def launches_by_path(main, mapd, bmain, serving, routed, resilient):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
-    the batched path (phase 10) and the serving path (phase 14)."""
-    srv = serving["launches"]
+    the batched path (phase 10), the serving path (phase 14), the routed
+    path (phase 15: run (a), the deadline run, the skewed runs; each
+    counted from 0) and the resilient run (phase 16)."""
+    srv, rt = serving["launches"], routed["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
-                                   serving=srv["fused_update_e/sum"]),
+                                   serving=srv["fused_update_e/sum"],
+                                   routed=rt.get("fused_update_e/sum", 0),
+                                   resilient=resilient["launches"]["sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
-                                   serving=srv["fused_update_e/max"]),
+                                   serving=srv["fused_update_e/max"],
+                                   routed=rt.get("fused_update_e/max", 0),
+                                   resilient=resilient["launches"]["max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
-                                   serving=srv["fused_update_t/sum"])}
+                                   serving=srv["fused_update_t/sum"],
+                                   routed=rt.get("fused_update_t/sum", 0),
+                                   resilient=0)}
 
 
 def log_serving(out) -> None:
@@ -1325,10 +1918,11 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
                  by_path, served=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
     launches, ``launches_by_path`` (``by_path[name]``: its launches on the
-    one-graph, batched and serving paths, each counted from 0 just before
-    the path ran), its largest difference from the plain version over
-    phases 3, 7, 9 and 12 and the serving path's captured chunks
-    (``served``: phase 14's ``kernel_check``), the main path's shape's
+    one-graph, batched, serving, routed and resilient paths, each counted
+    from 0 just before the path ran), its largest difference from the
+    plain version over phases 3, 7, 9 and 12 and the captured chunks of
+    the serving and routed paths and the resilient run (``served``: name
+    -> rows with ``max_abs_err``), the main path's shape's
     times and bound, and
     ``shapes``,
     one ``{E, S, ms, device_ms, bound_ms, plain_ms}`` per timed shape
@@ -1455,6 +2049,7 @@ def main() -> int:
     for name, ms in trace["top_ms_per_round"].items():
         log(f"  {ms:.4f} ms/round  {name[:110]}")
 
+    main_pgm, main_res = pgm, res       # phase 16 runs them again, resilient
     del pgm, res
 
     log("== 9. TPU-layout kernel vs plain version on the card")
@@ -1508,19 +2103,35 @@ def main() -> int:
     serving = phase_serving(device)
     log_serving(serving)
 
+    log("== 15. router tier at full size (serve_routed: two replicas, a "
+        "CUDA stream each)")
+    router = phase_router(device)
+    log_router(router, serving)
+
+    log("== 16. resilient runs and the serial baseline")
+    resil = phase_resilient(device, main_pgm, main_res, paper,
+                            REPO / "chiprun_out" / "resilient_ckpt")
+    log_resilient(resil)
+    del main_pgm, main_res
+
+    checked = {name: list(serving["kernel_check"].get(name, []))
+               + list(router["kernel_check"].get(name, []))
+               for name in ("fused_update_e/sum", "fused_update_t/sum")}
+    checked["fused_update_e/sum"].append(resil["resilient"])
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
-        bmain["launches"], launches_by_path(main, mapd, bmain, serving),
-        serving["kernel_check"])
+        bmain["launches"], launches_by_path(main, mapd, bmain, serving,
+                                            router, resil["resilient"]),
+        checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernel_check=worst, main=main, paper=paper, map=mapd,
                   card_vs_cpu=cpu, timing=timing, trace=trace,
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
                   batched_timing=btiming, protein_pallas=protein_t,
-                  batched_trace=btrace, serving=serving,
-                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                  batched_trace=btrace, serving=serving, router=router,
+                  resilient=resil, peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.ckpt import (latest_step, restore_pytree,
+                                         save_pytree)
+
+__all__ = ["save_pytree", "restore_pytree", "latest_step"]

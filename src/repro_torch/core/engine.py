@@ -43,9 +43,10 @@ run on ``batch.graph(i)`` with the same generator.
 identical across the two packages. ``serve`` serves a materialized
 stream synchronously, a thin wrapper over
 ``repro_torch.core.serving.serve_async``; the
-config's ``admission``/``admission_kwargs`` pick its admission policy. The
-host-serial ``"srbp"`` baseline is not ported yet (ROADMAP queue 1, item
-6).
+config's ``admission``/``admission_kwargs`` pick its admission policy.
+``scheduler="srbp"`` selects the paper's host-serial baseline
+(``repro_torch.core.serial``): ``run`` only, and it returns an
+``SRBPResult``.
 """
 
 from __future__ import annotations
@@ -289,12 +290,10 @@ class BPEngine:
             config = dataclasses.replace(config, **overrides)
         self.config = config
         self.device = resolve_device(device)
-        if isinstance(config.scheduler, str) and \
-                config.scheduler.lower() == "srbp":
-            raise NotImplementedError(
-                "scheduler='srbp' (the host-serial baseline) is not ported "
-                "to repro_torch yet: ROADMAP queue 1, item 6")
-        self.scheduler: Scheduler = config.make_scheduler()
+        self.is_serial = (isinstance(config.scheduler, str)
+                          and config.scheduler.lower() == "srbp")
+        self.scheduler: Scheduler | None = (
+            None if self.is_serial else config.make_scheduler())
         from repro_torch.kernels.ops import get_batch_update_fn, get_update_fn
         backend, batch_backend = config.backend, config.batch_backend
         self.update_fn = (backend if callable(backend)
@@ -328,6 +327,11 @@ class BPEngine:
                              f"{device}")
         return rng
 
+    def _refuse_serial(self) -> None:
+        if self.is_serial:
+            raise NotImplementedError(
+                "scheduler='srbp' is host-serial: use run(), not init/step")
+
     def _update(self, graph) -> Callable:
         """``logm -> (cand, resid)`` for one graph or a whole bucket."""
         if not isinstance(graph, BatchedPGM):
@@ -345,6 +349,7 @@ class BPEngine:
         uniform initial messages ((E, S) or (B, E, S) numpy array or
         tensor), e.g. to resume a trajectory that the reference package
         started."""
+        self._refuse_serial()
         g = self._check_graph(graph)
         dev = g.device
         batched = isinstance(g, BatchedPGM)
@@ -388,6 +393,7 @@ class BPEngine:
         """Advance one chunk: at most ``chunk_rounds`` further rounds per
         graph, stopping early on convergence. A finished state is a no-op.
         Bitwise equal to running the same total rounds in one chunk."""
+        self._refuse_serial()
         cfg, sched = self.config, self.scheduler
         graph = self._check_graph(state.graph)
         batched = isinstance(graph, BatchedPGM)
@@ -514,7 +520,13 @@ class BPEngine:
             state: BPState | None = None) -> BPResult:
         """One-shot inference, chunk by chunk when ``chunk_rounds`` is set
         (same trajectory either way). ``state`` resumes an existing
-        trajectory instead of starting fresh."""
+        trajectory instead of starting fresh. For ``scheduler='srbp'`` runs
+        the host-serial baseline and returns an ``SRBPResult``."""
+        if self.is_serial:
+            from repro_torch.core.serial import srbp_run
+            kw = dict(self.config.scheduler_kwargs)
+            return srbp_run(self._check_graph(graph), eps=self.config.eps,
+                            **kw)
         if state is None:
             if rng is None:
                 raise ValueError("run() needs an rng (a torch.Generator) or "

@@ -12,7 +12,9 @@
 The port of ``repro.core.schedulers``. Schedulers are addressable by string
 spec through a :class:`repro_torch.core.registry.Registry` with the
 reference's names, so ``BPConfig`` serializes identically in both packages.
-The host-serial SRBP baseline is not ported yet (ROADMAP queue 1, item 6).
+Serial RBP (the paper's SRBP baseline) lives in ``repro_torch.core.serial``
+as host-side numpy; it is not a ``Scheduler`` (it owns its own loop) and is
+reached via ``BPConfig(scheduler="srbp")`` instead of this registry.
 """
 
 from __future__ import annotations
@@ -58,9 +60,9 @@ def get_scheduler(spec, **kwargs) -> Scheduler:
     already-built ``Scheduler`` instance (kwargs must then be empty)."""
     if isinstance(spec, str):
         if spec.lower() == "srbp":
-            raise NotImplementedError(
-                "'srbp' (the host-serial baseline) is not ported to "
-                "repro_torch yet: ROADMAP queue 1, item 6")
+            raise ValueError(
+                "'srbp' is the host-serial baseline, not a frontier "
+                "scheduler; use BPEngine(BPConfig(scheduler='srbp')).run()")
         return SCHEDULERS.lookup(spec)(**kwargs)
     if kwargs:
         raise ValueError("scheduler kwargs only apply to string specs, got "

@@ -32,7 +32,16 @@ chunk. This module is the pipeline behind it:
   ``ADMISSION_POLICIES`` registry.
 - **threaded ingestion**: ``ingest_threads=N`` moves the stream pull onto
   feeder threads behind a bounded queue. Feeder threads only pull from the
-  source iterator; every torch call stays on the serving thread.
+  source iterator; every torch call but one stays on the serving thread.
+- **graphs made on the card**: a request may arrive as a graph on the GPU,
+  written by kernels on whatever stream its producer used (another
+  thread's, under the router tier). Where a request enters -- the feeder's
+  or the serving thread's pull -- an event is recorded on the pulling
+  thread's current stream (the one call above), and staging makes its own
+  stream wait on that event before it reads the graph to the host. The
+  alternative, synchronizing the producer's stream at submission, would
+  block the submitting thread on every request; the event blocks nothing
+  but the one host read that needs the graph finished.
 
 Trajectory invariance is the load-bearing property: request ``rid`` draws
 from ``slot_generator(base, rid)`` and its trajectory depends only on its
@@ -889,6 +898,19 @@ _FEEDER_DONE = object()
 _FEEDER_EXHAUSTED = object()
 
 
+def _entry_event(item):
+    """An event recorded on the calling thread's current stream when the
+    request ``item`` (a ``PGM`` or a ``(rid, PGM[, slo])`` tuple) carries a
+    graph on a GPU, else ``None``: staging waits on it before reading the
+    graph, so the producer's kernels are ordered before that read."""
+    pgm = item[1] if isinstance(item, tuple) and len(item) > 1 else item
+    if not isinstance(pgm, PGM) or pgm.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(pgm.device))
+    return event
+
+
 class _IngestFeeder:
     """Feeder threads pulling the request iterator into a bounded queue.
 
@@ -896,12 +918,13 @@ class _IngestFeeder:
     a lock, so any plain iterator is safe); pulled items enter a
     ``queue.Queue(maxsize)`` whose bound is the host-memory guard -- a full
     queue blocks the *feeder*, never the serving loop. Each item is stamped
-    under the lock with its arrival index (the auto-rid) and its pull time
-    (``t_enqueue``). Iterator exceptions are re-raised on the serving
-    thread once the queue drains. Feeders only pull: padding, scoring and
-    every torch call stay on the serving thread. ``close()`` stops the
-    workers; puts are bounded waits re-checking the stop flag, so a worker
-    blocked on a full queue exits promptly."""
+    under the lock with its arrival index (the auto-rid), its pull time
+    (``t_enqueue``) and its entry event (``_entry_event``). Iterator
+    exceptions are re-raised on the serving thread once the queue drains.
+    Feeders only pull and record the entry event: padding, scoring and
+    every other torch call stay on the serving thread. ``close()`` stops
+    the workers; puts are bounded waits re-checking the stop flag, so a
+    worker blocked on a full queue exits promptly."""
 
     def __init__(self, it: Iterator, threads: int, maxsize: int,
                  clock=time.perf_counter):
@@ -942,7 +965,8 @@ class _IngestFeeder:
                     break
                 rid, self._n = self._n, self._n + 1
                 t = self._clock()
-            if not self._put((rid, item, t)):  # blocks when full: the bound
+                ready = _entry_event(item)
+            if not self._put((rid, item, t, ready)):  # blocks when full
                 return
         self._put(_FEEDER_DONE)
 
@@ -963,9 +987,9 @@ class _IngestFeeder:
             t.join(timeout=max(0.0, deadline - time.perf_counter()))
 
     def get(self, block: bool):
-        """Next ``(auto_rid, item, t_pull)``; ``None`` when nothing is
-        available right now (non-blocking miss), or the exhausted sentinel
-        once every feeder thread has finished."""
+        """Next ``(auto_rid, item, t_pull, entry_event)``; ``None`` when
+        nothing is available right now (non-blocking miss), or the
+        exhausted sentinel once every feeder thread has finished."""
         while True:
             try:
                 got = self._q.get(block=block)
@@ -1032,6 +1056,9 @@ class ServingPipeline:
                  ingest_threads: int = 0,
                  ingest_queue: int | None = None,
                  clock=None):
+        if engine.is_serial:
+            raise NotImplementedError(
+                "serving needs a frontier scheduler (srbp is host-serial)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_batch is not None and max_batch < 1:
@@ -1120,11 +1147,13 @@ class ServingPipeline:
         return staged.elem
 
     def _stage(self, rid: int, pgm: PGM, t_enqueue: float,
-               slo: float | None = None) -> None:
+               slo: float | None = None, ready=None) -> None:
         if self._explicit_rids:         # rid = generator index: must be 1:1
             if rid in self._seen_rids:
                 raise ValueError(f"duplicate request id {rid} in stream")
             self._seen_rids.add(rid)
+        if ready is not None:           # the graph's producer ran elsewhere
+            torch.cuda.current_stream(pgm.device).wait_event(ready)
         group = self._group_for(pgm)
         e, v, s, re_, rv = group.ceilings
         arrs = pad_pgm_arrays(pgm, n_edges=e, n_vertices=v, n_states=s)
@@ -1154,7 +1183,7 @@ class ServingPipeline:
                 if got is _FEEDER_EXHAUSTED:
                     self._exhausted = True
                     return
-                rid_auto, item, t = got
+                rid_auto, item, t, ready = got
             else:
                 try:
                     item = next(it)
@@ -1163,6 +1192,7 @@ class ServingPipeline:
                     return
                 t = self.clock()
                 rid_auto = self._arrival
+                ready = _entry_event(item)
             slo = None
             if isinstance(item, tuple):
                 if len(item) == 3:
@@ -1177,7 +1207,7 @@ class ServingPipeline:
             else:
                 rid, pgm = rid_auto, item
             self._arrival += 1
-            self._stage(int(rid), pgm, t, slo=slo)
+            self._stage(int(rid), pgm, t, slo=slo, ready=ready)
 
     # -- slot lifecycle ----------------------------------------------------
 

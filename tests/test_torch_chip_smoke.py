@@ -7,6 +7,7 @@ launch nothing). Without a GPU, ``main`` exits non-zero and prints no
 result.
 """
 
+import json
 import pathlib
 import sys
 
@@ -219,6 +220,104 @@ def test_serving_phase_on_cpu(counted):
     cs.log_serving(out)
     by_path = cs.launches_by_path(
         {"launches": {"sum": 1, "t": 0}}, {"launches": 2},
-        {"launches": 3, "other_launches": {"sum": 0, "max": 0}}, out)
+        {"launches": 3, "other_launches": {"sum": 0, "max": 0}}, out,
+        {"launches": {"fused_update_t/sum": 4}},
+        {"launches": {"sum": 5, "max": 0}})
     assert by_path["fused_update_t/sum"]["serving"] == \
         out["launches"]["fused_update_t/sum"]
+    assert by_path["fused_update_t/sum"]["routed"] == 4
+    assert by_path["fused_update_e/sum"]["routed"] == 0
+    assert by_path["fused_update_e/sum"]["resilient"] == 5
+
+
+def test_interval_helpers():
+    u = cs.merged([(5, 6), (0, 2), (1, 3), (3, 4)])
+    assert u == [[0, 4], [5, 6]]
+    assert cs.overlap(u, cs.merged([(3.5, 5.5)])) == 1.0
+    assert cs.overlap(u, []) == 0.0
+
+
+def test_kernel_streams_groups_kernels_by_stream(tmp_path):
+    """The trace's kernels by CUDA stream, written where no directory
+    exists yet (a fresh checkout has no ``chiprun_out/``)."""
+    class Trace:
+        def export_chrome_trace(self, path):
+            events = [
+                {"ph": "X", "cat": "kernel", "ts": 0, "dur": 4,
+                 "args": {"stream": 7}},
+                {"ph": "X", "cat": "kernel", "ts": 2, "dur": 4,
+                 "args": {"stream": 7}},
+                {"ph": "X", "cat": "kernel", "ts": 3, "dur": 5,
+                 "args": {"stream": 13}},
+                {"ph": "X", "cat": "gpu_memcpy", "ts": 0, "dur": 9,
+                 "args": {"stream": 21}}]
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+    path = tmp_path / "fresh" / "trace.json"
+    streams = cs.kernel_streams(Trace(), path)
+    assert streams == {7: [[0.0, 6.0]], 13: [[3.0, 8.0]]}
+    assert cs.overlap(streams[7], streams[13]) == 3.0
+    assert not path.exists()
+
+
+def test_router_phase_on_cpu(counted):
+    """Phase 15 at a tiny size: the routed stream (traced, round robin
+    against each share's solo run, least-loaded with stealing against
+    round robin), the routed deadline run on both devices and the skewed
+    stealing scenario."""
+    scene = {"height": 6, "width": 8, "n_disp": 4}
+    out = cs.phase_router(CPU, frames=2, scene=scene, zoo_n=9,
+                          max_rounds=300)
+    assert out["requests"] == 11 and out["replicas"] == 2
+    for key in ("round_robin", "least_loaded_steal"):
+        r = out[key]
+        assert r["requests"] == 11 and r["requests_per_s"] > 0
+        assert sum(r["routed"]) == 11
+        assert set(r["latency_ms"]) == {"latency", "admission", "service"}
+        assert 0 <= r["wasted_sweeps"] <= r["device_sweeps"]
+    assert out["round_robin"]["routed"] == [6, 5]
+    assert out["round_robin"]["steals"] == 0
+    assert all(out["bitwise"].values())
+    assert out["round_robin"]["inbox_wait_ms"]["p99"] >= 0.0
+    tr = out["traced"]
+    assert tr["requests"] == 11 and tr["kernel_streams"] == 0   # no card
+    assert tr["routing_s"] > 0.0
+    for name in ("fused_update_t/sum", "fused_update_e/sum"):
+        rows = out["kernel_check"][name]
+        assert rows and all(r["max_abs_err"] == 0.0 for r in rows)
+    d = out["deadline"]
+    assert d["statuses_equal"] and d["evicted"] == [0, 5]
+    assert d["requests"] == 11 and d["max_prob_diff"] == 0.0
+    sk = out["stealing"]
+    assert sk["bitwise_on_vs_off"] and sk["on"]["stolen"] > 0
+    assert sk["on"]["wasted_sweeps"] < sk["off"]["wasted_sweeps"]
+    assert out["launches"]["fused_update_t/sum"] > 0
+    assert out["launches"]["fused_update_e/sum"] > 0
+    assert out["launches"].get("fused_update_e/max", 0) == 0
+    serving = {"requests": 11, "wall_s": 1.0, "requests_per_s": 11.0,
+               "latency_ms": out["round_robin"]["latency_ms"],
+               "stats": {"wasted_sweeps": 0, "device_sweeps": 1},
+               "peak_memory_bytes": 0, "traced": {"busy_s": 0.0}}
+    cs.log_router(out, serving)
+
+
+def test_resilient_phase_on_cpu(counted, tmp_path):
+    """Phase 16 at a tiny size: the resilient run and its resumption
+    against the main path's engine run, SRBP beside RnBP, and the chain
+    against variable elimination."""
+    pgm, res, _ = cs.phase_main(CPU, n=12)
+    paper = [dict(graph="ising8", scheduler="rnbp", rounds=40,
+                  converged=True, run_s=0.5)]      # phase 5's row
+    out = cs.phase_resilient(CPU, pgm, res, paper, tmp_path / "ckpt",
+                             chunk=7, srbp_n=8, srbp_limit=5.0)
+    r = out["resilient"]
+    assert r["bitwise"] and r["rounds"] == int(res.rounds) > 7
+    assert r["checkpoints"] >= 2 and 0 < r["resumed_from"] < r["rounds"]
+    assert r["launches"]["sum"] >= r["rounds"] and r["max_abs_err"] == 0.0
+    assert 0.0 < r["save_s"] < r["loop_s"]
+    assert not (tmp_path / "ckpt").exists()
+    s = out["srbp"]
+    assert s["updates"] > 0 and s["converged"]
+    assert s["rnbp_card"]["rounds"] > 0
+    assert out["kl"]["max_kl"] <= cs.KL_BOUND
+    cs.log_resilient(out)

@@ -17,6 +17,10 @@ no JAX:
   edge counts up to the main paths' (cut so one table stays <= 1 GiB),
   both kernels match their plain versions; and a graph's edges launched
   alone give bitwise the output they have inside a larger launch.
+- The router tier: two replicas, each on a stream of its own, give results
+  bitwise each share's solo run; graphs written on the submitting thread's
+  stream route bitwise as host graphs do (staging waits on their entry
+  event); a resilient run is bitwise the monolithic run, resumed too.
 """
 
 import numpy as np
@@ -314,3 +318,97 @@ def test_element_admitted_after_async_staging_equals_sync_staging(cuda):
     want = eng.run(sync, [slot_generator(0, i, cuda) for i in range(3)])
     for x, y in zip(_result_tensors(got), _result_tensors(want)):
         assert torch.equal(x, y)
+
+
+def _router_stream(device):
+    """Small RnBP stream of two shape families on ``device``."""
+    out = []
+    for k in range(4):
+        out.append(TD.ising_grid(8, 1.8, seed=k, device=device))
+        out.append(TD.chain_graph(40 + k, seed=k, device=device))
+    return out
+
+
+def _router_engines(cuda, n=2):
+    return [BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs={
+        "low_p": 0.4, "high_p": 0.9}, eps=1e-3, max_rounds=300,
+        backend="triton", batch_backend="pallas"), device=cuda)
+        for _ in range(n)]
+
+
+def test_two_replicas_on_their_streams_equal_solo_serve_async(cuda):
+    """Round robin without stealing on the card: each replica runs on a
+    non-default stream of its own, and every record is bitwise its
+    share's solo ``serve_async`` run."""
+    from repro_torch.core import serve_async
+    from repro_torch.serve import Router
+    stream = _router_stream("cpu")
+    engines = _router_engines(cuda)
+    router = Router(engines, 0, routing="round_robin", max_batch=2,
+                    chunk_rounds=16)
+    streams = [r.stream for r in router.replicas]
+    assert all(s is not None and s != torch.cuda.default_stream(cuda)
+               for s in streams) and streams[0] != streams[1]
+    by_rid = {r.rid: r.result for r in router.serve(iter(stream))}
+    assert sorted(by_rid) == list(range(len(stream)))
+    for k in range(2):
+        share = [(i, p) for i, p in enumerate(stream) if i % 2 == k]
+        for rec in serve_async(engines[0], iter(share), 0, max_batch=2,
+                               chunk_rounds=16).records:
+            for x, y in zip(_result_tensors(by_rid[rec.rid]),
+                            _result_tensors(rec.result)):
+                assert torch.equal(x, y)
+
+
+def test_graphs_made_on_the_card_route_as_host_graphs(cuda):
+    """Graphs written on the submitting thread's stream behind a long
+    kernel, then routed to replicas on other streams: the replicas' reads
+    wait on the entry event, so the results are bitwise those of the same
+    graphs made on the host."""
+    import dataclasses
+    from repro_torch.serve import serve_routed
+    host = _router_stream("cpu")
+
+    def made_on_card():
+        for p in host:
+            dev = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+            dev = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                   for k, v in dev.items()}
+            torch.cuda._sleep(50_000_000)   # the writes below wait on this
+            yield type(p)(**{k: v.clone() if isinstance(v, torch.Tensor)
+                             else v for k, v in dev.items()})
+    engines = _router_engines(cuda)
+    want = serve_routed(engines, iter(host), 0, routing="round_robin",
+                        max_batch=2, chunk_rounds=16).results
+    got = serve_routed(engines, made_on_card(), 0, routing="least_loaded",
+                       steal=True, max_batch=2, chunk_rounds=16).results
+    for a, b in zip(got, want):
+        for x, y in zip(_result_tensors(a), _result_tensors(b)):
+            assert torch.equal(x, y)
+
+
+def test_resilient_run_on_card_is_bitwise_monolithic(cuda, tmp_path):
+    import os
+    import shutil
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.ft import run_bp_resilient
+    pgm = TD.ising_grid_fast(64, 2.5, seed=0, device=cuda)
+    sched = RnBP(low_p=0.4, high_p=0.9)
+    eng = BPEngine(BPConfig(scheduler=sched, eps=1e-3, max_rounds=2000,
+                            backend="triton"), device=cuda)
+    want = eng.run(pgm, torch.Generator(device=cuda).manual_seed(0))
+
+    def resilient():
+        return run_bp_resilient(
+            pgm, sched, torch.Generator(device=cuda).manual_seed(0),
+            max_rounds=2000, rounds_per_chunk=9, ckpt_dir=str(tmp_path),
+            backend="triton")
+    got = resilient()
+    for x, y in zip(_result_tensors(got), _result_tensors(want)):
+        assert torch.equal(x, y)
+    steps = sorted(int(d.split("_")[1]) for d in os.listdir(tmp_path))
+    for s in steps[len(steps) // 2 + 1:]:
+        shutil.rmtree(tmp_path / f"step_{s:09d}")
+    again = resilient()
+    assert torch.equal(again.logm, want.logm)
+    assert int(again.rounds) == int(want.rounds) - steps[len(steps) // 2]

@@ -223,8 +223,11 @@ def test_config_validation_matches_reference():
 
 def test_unported_paths_raise():
     tpgm = bridge(JD.ising_grid(3, 2.0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        TEngine(TConfig(scheduler="srbp"), device="cpu")
+    serial = TEngine(TConfig(scheduler="srbp"), device="cpu")
+    for call in (lambda: serial.init(tpgm, gen()),
+                 lambda: serial.step(None)):
+        with pytest.raises(NotImplementedError, match="host-serial"):
+            call()
     eng = TEngine(TConfig(batch_backend="triton"), device="cpu")
     with pytest.raises(TypeError, match="BatchedPGM"):
         eng.init([tpgm, tpgm], gen())

@@ -2,9 +2,9 @@
 
 A fresh interpreter imports every module of ``repro_torch`` and imports
 ``chip_smoke`` (without running it); neither JAX nor the reference package
-``repro`` may then be loaded. Graph builders and ``BPEngine`` called
-without ``device=`` must raise when there is no GPU rather than carry on
-on the CPU.
+``repro`` may then be loaded. Graph builders, ``BPEngine``, the router tier
+and ``run_bp_resilient`` called without ``device=`` must raise when there
+is no GPU rather than carry on on the CPU.
 """
 
 import json
@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from repro_torch.core import BPConfig, BPEngine, build_pgm, build_pgm_uniform
+from repro_torch.ft import run_bp_resilient
 from repro_torch.pgm import datasets as TD
+from repro_torch.serve import Router, serve_routed
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -52,7 +54,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.core.batch", "repro_torch.kernels.message_update",
                 "repro_torch.kernels.ops", "repro_torch.core.serving",
                 "repro_torch.core.schedulers.rlx",
-                "repro_torch.core.schedulers.rlxtree"):
+                "repro_torch.core.schedulers.rlxtree",
+                "repro_torch.serve", "repro_torch.serve.routing",
+                "repro_torch.serve.replica", "repro_torch.serve.router",
+                "repro_torch.core.exact", "repro_torch.core.serial",
+                "repro_torch.core.runner", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.ckpt", "repro_torch.ft",
+                "repro_torch.ft.resilience"):
         assert mod in report["modules"]
 
 
@@ -92,10 +100,15 @@ def no_gpu(monkeypatch):
     lambda: TD.stereo_mrf(3, 4, 2),
     lambda: next(TD.zoo_stream(1)),
     lambda: BPEngine(BPConfig(backend="pallas", batch_backend="pallas")),
+    lambda: Router(BPConfig(), 0),
+    lambda: serve_routed(BPConfig(), [], 0, replicas=2),
+    lambda: run_bp_resilient(TD.ising_grid(3, 2.0, device="cpu"), "lbp",
+                             torch.Generator()),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
-        "zoo_stream", "engine_batched"])
+        "zoo_stream", "engine_batched", "router", "serve_routed",
+        "run_bp_resilient"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -138,8 +138,11 @@ def test_registry_surface():
             JS.get_scheduler(name, queues=4, p=0.1))
         assert TS.get_scheduler(*TS.scheduler_spec(sched)[:1],
                                 **TS.scheduler_spec(sched)[1]) == sched
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(ValueError) as je:
+        JS.get_scheduler("srbp")
+    with pytest.raises(ValueError, match="host-serial baseline") as te:
         TS.get_scheduler("srbp")
+    assert str(te.value) == str(je.value)
     with pytest.raises(KeyError, match="unknown scheduler 'nope'"):
         TS.get_scheduler("nope")
     inst = TS.RBP(p=0.1)
