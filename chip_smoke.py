@@ -34,7 +34,15 @@ main paths and its serving path at full size and measures them:
 - resilient runs and the serial baseline: ``run_bp_resilient`` on the
   one-graph main path, chunked and resumed from a checkpoint, bitwise the
   engine run; SRBP on the paper's Ising 200 x 200 beside RnBP on the card;
-  a chain's RnBP beliefs against variable elimination (phase 16).
+  a chain's RnBP beliefs against variable elimination (phase 16);
+- the multi-device paths (``repro_torch.dist``; the host has one card):
+  (a) a world of one rank over NCCL, ``run_bp_sharded`` on the one-graph
+  main path bitwise phase 4's run and banded LBP at n = 1 bitwise a
+  one-device LBP run, with the collectives' device time (CUDA events);
+  (b) two gloo ranks in spawned processes sharing the card, their
+  exchanges staged through the host: sharded LBP and RnBP on the paper's
+  Ising 200 x 200 against one-device runs, banded LBP bitwise, every
+  rank's messages bitwise equal (phase 17).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -48,7 +56,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the five paths (``launches_by_path``), its largest
+  and on each of the seven paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -83,14 +91,6 @@ CHECK_EDGES = (1, 127, 4096, 3_996_032)
 SUB_EDGES = 37                       # the sub-launch check's first edges
 CHECK_TABLE_BYTES = 1 << 30          # cap E so one (E, S, S) table <= 1 GiB
 
-# Published peaks (NVIDIA data sheets): device memory bytes/s and float32
-# (non-tensor-core) FLOP/s, by a substring of torch.cuda.get_device_name().
-CARD_PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-              ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
-
-# Per-edge flops of the fused update, (S^2, S, 1) coefficients -- the hand
-# count of the reference's roofline kernel model.
-FLOPS_PER_EDGE = {"sum": (5.0, 24.0, 6.0), "max": (2.0, 14.0, 1.0)}
 REPLACES = {"sum": "src/repro/kernels/triton_update.py:103",
             "max": "src/repro/kernels/triton_update.py:125"}
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_update_e.cu"
@@ -129,6 +129,20 @@ SKEW_KW = dict(max_batch=2, chunk_rounds=16, slots=1, prefetch=2,
                ingest_queue=1, admission="windowed",
                admission_kwargs={"window_s": 0.25}, steal_batch=4,
                low_watermark=2)
+# Multi-device paths (phase 17): a world of one rank over NCCL on the main
+# path's graph, then two gloo ranks sharing the card on the paper's grid.
+DIST_TOL = 5e-3                      # multi-device vs one-device beliefs
+# Phase 17 (b)'s eps. RnBP on this frustrated grid is sensitive to its
+# trajectory: a sharded run, which adds a vertex's in-edges in another
+# order, stopped 1.7e-2 and 3.2e-2 from the one-device beliefs at eps=1e-3
+# and 1e-4 on an H100, and 1.2e-3 at 1e-5 (PERF.md). Both runs are
+# deterministic, so the check at 1e-5 is repeatable; it is not a bound.
+DIST_EPS = 1e-5
+# LBP does not converge on this grid: its runs are held at a cap.
+DIST_ROUNDS = {"lbp": 500, "rnbp": 4000}
+DIST_BANDED_ROUNDS = 200             # banded LBP's cap on the main graph
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 120                 # process groups and the spawned world
 # Resilient runs and the serial baseline.
 RESILIENT_CHUNK = 200
 SRBP_LIMIT_S = 30.0
@@ -140,22 +154,19 @@ def log(msg: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, bw, f32 in CARD_PEAKS:
-        if key in name:
-            return bw, f32
-    raise RuntimeError(f"no published peaks for {name!r}; add it to "
-                       "CARD_PEAKS")
+    """(bytes/s, float32 flop/s) of the card, from the port's roofline
+    model (``repro_torch.roofline.kernel_model.CARD_PEAKS``)."""
+    from repro_torch.roofline.kernel_model import card_peaks as peaks
+    return peaks(name)
 
 
 def bound(e: int, s: int, semiring: str, bw: float, f32: float):
     """(bound_ms, bound_by) of one fused update over e edges of s states:
-    each input read once, each output written once, (S^2+3S+1)*4 + S bytes
-    per edge, against the card's memory rate and float32 peak."""
-    nbytes = e * ((s * s + 3 * s + 1) * 4 + s)
-    a, b, c = FLOPS_PER_EDGE[semiring]
-    flops = e * (a * s * s + b * s + c)
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    the port's roofline model (``fused_update_cost``: each input read once,
+    each output written once, (S^2+3S+1)*4 + S bytes per edge) against the
+    card's memory rate and float32 peak."""
+    from repro_torch.roofline.kernel_model import bound_ms, fused_update_cost
+    return bound_ms(fused_update_cost(e, s, semiring=semiring), bw, f32)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1842,29 +1853,364 @@ def log_resilient(out) -> None:
         f"{k['max_kl']:.3g} <= {k['bound']:g} ({k['rounds']} rounds)")
 
 
-def launches_by_path(main, mapd, bmain, serving, routed, resilient):
+def one_device_backend(device) -> str:
+    """The one-device backend whose update the multi-device paths run on
+    ``device``: the kernel backend on the card, the plain one on the CPU
+    (``repro_torch.dist.slice_update``)."""
+    return "triton" if device.type == "cuda" else "ref"
+
+
+class world:
+    """``with world(backend, store, size, rank):`` -- a ``torch.distributed``
+    process group from a ``FileStore`` at ``store`` (a stale file removed
+    by rank 0), with a ``DIST_TIMEOUT_S`` timeout, destroyed on exit."""
+
+    def __init__(self, backend, store, size=1, rank=0):
+        self.args = (backend, Path(store), size, rank)
+
+    def __enter__(self):
+        import datetime
+        import torch.distributed as dist
+        backend, store, size, rank = self.args
+        store.parent.mkdir(parents=True, exist_ok=True)
+        if rank == 0 and size == 1 and store.exists():
+            store.unlink()
+        dist.init_process_group(
+            backend, store=dist.FileStore(str(store), size), rank=rank,
+            world_size=size,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return False
+
+
+def watch_dist(timed=False):
+    """Hooks on the multi-device paths; call the returned ``undo`` after.
+    Always: the operands of the last ``slice_update`` call (``captured``;
+    references only). With ``timed`` on the card: a CUDA event pair on
+    the current stream around every gather (``events``), whose sum is the
+    collectives' device time, waits included."""
+    import torch
+    from repro_torch import dist as D
+    w = dict(captured=None, events=[])
+    saved = (D.slice_update, D.comm.all_gather, D.comm.all_gather_into)
+
+    def captured(*args):
+        w["captured"] = args
+        return saved[0](*args)
+
+    def evented(fn):
+        def wrapper(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            w["events"].append(ev)
+            return out
+        return wrapper
+
+    D.slice_update = captured
+    if timed:
+        D.comm.all_gather = evented(saved[1])
+        D.comm.all_gather_into = evented(saved[2])
+
+    def undo():
+        D.slice_update, D.comm.all_gather, D.comm.all_gather_into = saved
+    return w, undo
+
+
+def check_slice(args):
+    """A captured rank-slice call's operands through ``fused_update_e``
+    and its plain version (sum-product, ``SUM_TOL``)."""
+    from repro_torch.kernels.ref import fused_update_e_ref
+    from repro_torch.kernels.triton_update import fused_update_e
+    psi, pre, logm, dmask, _ = args
+    ops = (psi, pre, logm, dmask)
+    return dict(E=int(logm.shape[0]), S=int(logm.shape[1]),
+                max_abs_err=compare("sum", fused_update_e(*ops),
+                                    fused_update_e_ref(*ops)))
+
+
+def phase_dist_one(device, pgm, res, store, backend="nccl",
+                   banded_rounds=DIST_BANDED_ROUNDS):
+    """Phase 17 (a): a world of one rank over ``backend``. ``run_bp_sharded``
+    with the main path's RnBP on ``pgm`` must be bitwise ``res`` (phase 4's
+    one-device run: rounds, messages, beliefs); then banded LBP at n = 1,
+    capped at ``banded_rounds``, bitwise a one-device LBP run at that cap.
+    Launch counts reset just before each path and read just after; a first
+    run with hooks (captured slice, collectives' CUDA events), a second for
+    the wall time."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import triton_update as TT
+    cuda = device.type == "cuda"
+    out = {}
+    with world(backend, store):
+        mesh = D.make_bp_mesh(device=device)
+        group = D.mesh_axis(mesh)[2]
+        out["transport"] = D.comm.transport(group, device)
+
+        def sharded():
+            return D.run_bp_sharded(
+                pgm, RnBP(**MAIN_KW), mesh,
+                torch.Generator(device=device).manual_seed(0), eps=1e-3,
+                max_rounds=2000, device=device)
+        w, undo = watch_dist(timed=cuda)
+        try:
+            TT.reset_launch_counts()
+            D.comm.reset_stats()
+            got = sharded()
+            sync(device)
+            launches = TT.LAUNCHES["sum"]
+            stats = dict(D.comm.STATS)
+        finally:
+            undo()
+        rounds = int(got.rounds)
+        if not (rounds == int(res.rounds) and torch.equal(got.logm, res.logm)
+                and torch.equal(got.beliefs, res.beliefs)):
+            raise AssertionError(
+                f"the sharded world of one differs from the one-device run: "
+                f"rounds {rounds} vs {int(res.rounds)}")
+        if launches < rounds:
+            raise AssertionError(f"sharded: {launches} fused_update_e "
+                                 f"launches < {rounds} rounds")
+        coll_ms = sum(a.elapsed_time(b) for a, b in w["events"])
+        sync(device)
+        t0 = time.perf_counter()
+        sharded()
+        sync(device)
+        secs = time.perf_counter() - t0
+        out["sharded"] = dict(
+            rounds=rounds, launches=launches, run_s=secs,
+            ms_per_round=secs * 1e3 / max(rounds, 1),
+            collectives=stats["collectives"],
+            collective_ms_per_round=coll_ms / max(rounds, 1),
+            staged_bytes=stats["staged_bytes"], bitwise=True,
+            kernel_check=check_slice(w["captured"]))
+
+        t0 = time.perf_counter()
+        part = D.partition_banded(pgm, 1)
+        part_s = time.perf_counter() - t0
+        one, _ = run_engine(pgm, device, scheduler="lbp", eps=1e-3,
+                            max_rounds=banded_rounds,
+                            backend=one_device_backend(device))
+        w, undo = watch_dist()
+        band_s = [0.0]
+        real_band = D.bp_banded._band
+
+        def timed_band(*args):
+            t = time.perf_counter()
+            out_band = real_band(*args)
+            sync(device)
+            band_s[0] += time.perf_counter() - t
+            return out_band
+        try:
+            D.bp_banded._band = timed_band
+            TT.reset_launch_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            logm, b_rounds, done = D.run_bp_banded(
+                part, "lbp", mesh, 0, eps=1e-3, max_rounds=banded_rounds)
+            sync(device)
+            b_secs = time.perf_counter() - t0
+            b_launches = TT.LAUNCHES["sum"]
+        finally:
+            D.bp_banded._band = real_band
+            undo()
+        b_rounds = int(b_rounds)
+        if not (b_rounds == int(one.rounds) and torch.equal(logm, one.logm)):
+            raise AssertionError(
+                f"banded LBP at n=1 differs from the one-device run: rounds "
+                f"{b_rounds} vs {int(one.rounds)}")
+        if b_launches < b_rounds:
+            raise AssertionError(f"banded: {b_launches} fused_update_e "
+                                 f"launches < {b_rounds} rounds")
+        out["banded"] = dict(rounds=b_rounds, done=bool(done),
+                             launches=b_launches, partition_s=part_s,
+                             run_s=b_secs, band_setup_s=band_s[0],
+                             bitwise=True, ms_per_round=(
+                                 b_secs - band_s[0]) * 1e3 / max(b_rounds, 1),
+                             kernel_check=check_slice(w["captured"]))
+    return out
+
+
+def _gloo_rank(rank, size, out_dir, device_type, n):
+    """One rank of phase 17 (b), in its own process: sharded LBP and RnBP
+    and banded LBP at ``DIST_EPS`` on Ising ``n`` x ``n`` (C = 2.5) over a
+    gloo world of ``size`` ranks, every tensor on ``device_type``; writes
+    its results to ``out_dir/rank<r>.pt``."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch import dist as D
+    from repro_torch.core.schedulers import LBP, RnBP
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import ising_grid_fast
+    device = torch.device(device_type)
+    if device.type != "cuda":
+        torch.set_num_threads(1)
+    out = {}
+    with world("gloo", Path(out_dir) / "store", size, rank):
+        mesh = D.make_bp_mesh(device=device)
+        out["transport"] = D.comm.transport(D.mesh_axis(mesh)[2], device)
+        pgm = ising_grid_fast(n, 2.5, seed=0, device=device)
+        for name, sched in (("lbp", LBP()), ("rnbp", RnBP(**MAIN_KW))):
+            TT.reset_launch_counts()
+            D.comm.reset_stats()
+            t0 = time.perf_counter()
+            res = D.run_bp_sharded(
+                pgm, sched, mesh, torch.Generator(device=device).manual_seed(
+                    0), eps=DIST_EPS, max_rounds=DIST_ROUNDS[name],
+                device=device)
+            out[name] = dict(
+                rounds=int(res.rounds), converged=bool(res.converged),
+                logm=res.logm.cpu(), beliefs=res.beliefs.cpu(),
+                run_s=time.perf_counter() - t0, launches=TT.LAUNCHES["sum"],
+                staged_bytes=D.comm.STATS["staged_bytes"])
+        TT.reset_launch_counts()
+        D.comm.reset_stats()
+        t0 = time.perf_counter()
+        logm, rounds, done = D.run_bp_banded(
+            D.partition_banded(pgm, size), "lbp", mesh, 0, eps=DIST_EPS,
+            max_rounds=DIST_ROUNDS["lbp"])
+        out["banded"] = dict(rounds=int(rounds), done=bool(done),
+                             logm=logm.cpu(), run_s=time.perf_counter() - t0,
+                             launches=TT.LAUNCHES["sum"],
+                             staged_bytes=D.comm.STATS["staged_bytes"])
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
+                    timeout_s=DIST_TIMEOUT_S):
+    """Phase 17 (b): ``size`` gloo ranks in spawned processes sharing
+    ``device``: sharded LBP and RnBP converge as one-device runs of the same
+    config do (LBP does not on Ising 200 x 200 at C = 2.5) with beliefs
+    within ``DIST_TOL``, banded LBP gives the one-device rounds
+    and messages bitwise, and every rank's messages are bitwise equal."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.pgm import ising_grid_fast
+    out_dir = Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_gloo_rank, args=(size, str(out_dir),
+                                               device.type, n),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=0.5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"the gloo world did not finish in "
+                                 f"{timeout_s} s")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt") for r in range(size)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pgm = ising_grid_fast(n, 2.5, seed=0, device=device)
+    backend = one_device_backend(device)
+    out = dict(ranks=size, transport=ranks[0]["transport"], wall_s=wall)
+    for name, kw in (("lbp", {}), ("rnbp", MAIN_KW)):
+        one, secs = run_engine(pgm, device, scheduler=name,
+                               scheduler_kwargs=kw, eps=DIST_EPS,
+                               max_rounds=DIST_ROUNDS[name], backend=backend)
+        r = ranks[0][name]
+        diff = float((r["beliefs"] - one.beliefs.cpu()).abs().max())
+        if r["converged"] != bool(one.converged) or not diff <= DIST_TOL:
+            raise AssertionError(f"gloo sharded {name}: converged "
+                                 f"{r['converged']} (one device "
+                                 f"{bool(one.converged)}), belief diff "
+                                 f"{diff}")
+        out[name] = dict(rounds=r["rounds"], one_rounds=int(one.rounds),
+                         converged=r["converged"],
+                         max_belief_diff=diff, run_s=r["run_s"],
+                         one_run_s=secs, launches=r["launches"],
+                         staged_bytes=r["staged_bytes"])
+    one, _ = run_engine(pgm, device, scheduler="lbp", eps=DIST_EPS,
+                        max_rounds=DIST_ROUNDS["lbp"], backend=backend)
+    b = ranks[0]["banded"]
+    if not (b["rounds"] == int(one.rounds)
+            and torch.equal(b["logm"], one.logm.cpu())):
+        raise AssertionError(f"gloo banded LBP: rounds {b['rounds']} vs "
+                             f"{int(one.rounds)}, or messages differ")
+    out["banded"] = dict(rounds=b["rounds"], run_s=b["run_s"],
+                         launches=b["launches"],
+                         staged_bytes=b["staged_bytes"], bitwise=True)
+    for other in ranks[1:]:
+        for name in ("lbp", "rnbp", "banded"):
+            if not torch.equal(other[name]["logm"], ranks[0][name]["logm"]):
+                raise AssertionError(f"gloo {name}: ranks' messages differ")
+    out["ranks_bitwise_equal"] = True
+    if device.type == "cuda" and min(
+            r[k]["launches"] for r in ranks for k in ("lbp", "banded")) < 1:
+        raise AssertionError("a gloo rank bypassed fused_update_e")
+    return out
+
+
+def log_dist(out) -> None:
+    """Phase 17's progress lines."""
+    a, b = out["one"], out["gloo"]
+    s, bd = a["sharded"], a["banded"]
+    log(f"  (a) world of one, transport {a['transport']}: run_bp_sharded "
+        f"RnBP {s['rounds']} rounds bitwise phase 4's run, "
+        f"{s['ms_per_round']:.3f} ms/round (phase 4: "
+        f"{out['main_ms_per_round']:.3f}), collectives "
+        f"{s['collective_ms_per_round']:.4f} ms/round on the card "
+        f"({s['collectives']} calls), fused_update_e launches "
+        f"{s['launches']}; slice vs plain "
+        f"{s['kernel_check']['max_abs_err']:.3g}")
+    log(f"      banded LBP n=1 capped at {bd['rounds']} rounds: bitwise the "
+        f"one-device run, {bd['ms_per_round']:.3f} ms/round (the call "
+        f"{bd['run_s']:.3f} s less the band's set-up "
+        f"{bd['band_setup_s']:.3f} s), partition {bd['partition_s']:.3f} s, "
+        f"launches {bd['launches']}; band vs plain "
+        f"{bd['kernel_check']['max_abs_err']:.3g}")
+    log(f"  (b) {b['ranks']} gloo ranks sharing the card, transport "
+        f"{b['transport']}, {b['wall_s']:.1f} s with the spawn: "
+        + "; ".join(f"{k} {b[k]['rounds']} rounds (one device "
+                    f"{b[k]['one_rounds']}, converged {b[k]['converged']}) "
+                    f"diff {b[k]['max_belief_diff']:.3g} "
+                    f"{b[k]['run_s']:.3f} s staged {b[k]['staged_bytes']} B"
+                    for k in ("lbp", "rnbp"))
+        + f"; banded LBP {b['banded']['rounds']} rounds bitwise, "
+        f"{b['banded']['run_s']:.3f} s staged {b['banded']['staged_bytes']} "
+        f"B; ranks' messages bitwise equal")
+
+
+def launches_by_path(main, mapd, bmain, serving, routed, resilient,
+                     dist_one):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
     path (phase 15: run (a), the deadline run, the skewed runs; each
-    counted from 0) and the resilient run (phase 16)."""
+    counted from 0), the resilient run (phase 16), and the multi-device
+    paths of phase 17 (a): ``sharded`` and ``banded``."""
     srv, rt = serving["launches"], routed["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
                                    serving=srv["fused_update_e/sum"],
                                    routed=rt.get("fused_update_e/sum", 0),
-                                   resilient=resilient["launches"]["sum"]),
+                                   resilient=resilient["launches"]["sum"],
+                                   sharded=dist_one["sharded"]["launches"],
+                                   banded=dist_one["banded"]["launches"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
                                    routed=rt.get("fused_update_e/max", 0),
-                                   resilient=resilient["launches"]["max"]),
+                                   resilient=resilient["launches"]["max"],
+                                   sharded=0, banded=0),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
                                    routed=rt.get("fused_update_t/sum", 0),
-                                   resilient=0)}
+                                   resilient=0, sharded=0, banded=0)}
 
 
 def log_serving(out) -> None:
@@ -1918,11 +2264,12 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
                  by_path, served=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
     launches, ``launches_by_path`` (``by_path[name]``: its launches on the
-    one-graph, batched, serving, routed and resilient paths, each counted
-    from 0 just before the path ran), its largest difference from the
-    plain version over phases 3, 7, 9 and 12 and the captured chunks of
-    the serving and routed paths and the resilient run (``served``: name
-    -> rows with ``max_abs_err``), the main path's shape's
+    one-graph, batched, serving, routed, resilient, sharded and banded
+    paths, each counted from 0 just before the path ran), its largest
+    difference from the plain version over phases 3, 7, 9 and 12, the
+    captured chunks of the serving and routed paths, the resilient run
+    and the captured rank slices of phase 17 (``served``: name -> rows
+    with ``max_abs_err``), the main path's shape's
     times and bound, and
     ``shapes``,
     one ``{E, S, ms, device_ms, bound_ms, plain_ms}`` per timed shape
@@ -2049,7 +2396,7 @@ def main() -> int:
     for name, ms in trace["top_ms_per_round"].items():
         log(f"  {ms:.4f} ms/round  {name[:110]}")
 
-    main_pgm, main_res = pgm, res       # phase 16 runs them again, resilient
+    main_pgm, main_res = pgm, res       # phases 16 and 17 run them again
     del pgm, res
 
     log("== 9. TPU-layout kernel vs plain version on the card")
@@ -2112,17 +2459,33 @@ def main() -> int:
     resil = phase_resilient(device, main_pgm, main_res, paper,
                             REPO / "chiprun_out" / "resilient_ckpt")
     log_resilient(resil)
+
+    log("== 17. multi-device paths (repro_torch.dist: a world of one over "
+        "NCCL, gloo ranks sharing the card)")
+    t0 = time.perf_counter()
+    dist_out = dict(
+        one=phase_dist_one(device, main_pgm, main_res,
+                           REPO / "chiprun_out" / "dist_store"),
+        gloo=phase_dist_gloo(device, REPO / "chiprun_out" / "dist_gloo"),
+        main_ms_per_round=main["ms_per_round"])
+    dist_out["phase_s"] = time.perf_counter() - t0
+    log_dist(dist_out)
     del main_pgm, main_res
 
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
-    checked["fused_update_e/sum"].append(resil["resilient"])
+    checked["fused_update_e/sum"] += [resil["resilient"],
+                                      dist_out["one"]["sharded"]
+                                      ["kernel_check"],
+                                      dist_out["one"]["banded"]
+                                      ["kernel_check"]]
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
-                                            router, resil["resilient"]),
+                                            router, resil["resilient"],
+                                            dist_out["one"]),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -2131,7 +2494,8 @@ def main() -> int:
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
                   batched_timing=btiming, protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
-                  resilient=resil, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                  resilient=resil, dist=dist_out,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -18,7 +18,8 @@ runs on the bucket's *disjoint union* -- ``BatchedPGM.folded()`` offsets
 vertex and edge ids so B graphs become one (B*E)-edge graph riding the
 unmodified single-graph update, kernels included. The union is built once
 per ``BatchedPGM`` and kept, as are the per-graph tensors the schedulers
-read (``memo``).
+read (``memo``). Under the ``"sharded"`` backend the union also keeps the
+rank's slice plan (``folded(mesh=)``).
 
 Randomness: the reference derives one key per graph with ``fold_in(rng,
 input position)``. The port derives one ``torch.Generator`` per position
@@ -157,15 +158,27 @@ class BatchedPGM:
                    n_real_edges=p.n_real_edges,
                    edge_count=p.edge_count[i], vertex_count=p.vertex_count[i])
 
-    def folded(self) -> PGM:
+    def folded(self, mesh=None, *, axis: str = "bp") -> PGM:
         """The bucket as one disjoint-union PGM with B*E edges and B*V
         vertices: graph ``b``'s vertex ``u`` becomes ``b*V + u`` and its
         edge ``e`` becomes ``b*E + e`` (in ``edge_rev`` and ``in_edges``
         too). Message updates on the union are bitwise those of the member
         graphs -- no cross edges, and each vertex folds its in-edges in the
         same order -- so the whole bucket rides the single-graph update in
-        one launch. Built once per bucket and kept."""
-        return self.memo("folded", self._fold)
+        one launch. Built once per bucket and kept.
+
+        With ``mesh`` (a 1-D ``DeviceMesh`` whose axis is ``axis``, see
+        ``repro_torch.dist``) the union is checked to split into even,
+        pair-aligned slices over the mesh -- a ``ValueError`` otherwise --
+        and keeps this rank's slice plan for the ``"sharded"`` backend
+        (``dist.shard_pgm``). Per-graph E is a multiple of EDGE_PAD and
+        reverse pairs sit at adjacent even indices, so any even per-rank
+        split of B*E keeps reverse pairs on one rank."""
+        union = self.memo("folded", self._fold)
+        if mesh is None:
+            return union
+        from repro_torch.dist import shard_pgm
+        return shard_pgm(union, mesh, axis=axis)
 
     def _fold(self) -> PGM:
         p = self.pgm
@@ -188,12 +201,14 @@ class BatchedPGM:
             n_real_vertices=b * v, n_real_edges=b * e,
             edge_count=b * e, vertex_count=b * v)
 
-    def folded_update(self, update_fn: Callable, logm: torch.Tensor):
+    def folded_update(self, update_fn: Callable, logm: torch.Tensor, *,
+                      mesh=None, axis: str = "bp"):
         """A single-graph update ``(pgm, logm) -> (cand, resid)`` run once
-        on the union: (B, E, S) messages in, ``(cand (B, E, S), resid
-        (B, E))`` out."""
+        on the union (``folded(mesh, axis=axis)``): (B, E, S) messages in,
+        ``(cand (B, E, S), resid (B, E))`` out."""
         b, e, s = logm.shape
-        cand, resid = update_fn(self.folded(), logm.reshape(b * e, s))
+        cand, resid = update_fn(self.folded(mesh, axis=axis),
+                                logm.reshape(b * e, s))
         return cand.reshape(b, e, s), resid.reshape(b, e)
 
     def take(self, indices) -> "BatchedPGM":

@@ -110,7 +110,8 @@ class BPConfig:
     the other. ``scheduler`` is a registry spec string ("lbp"/"rbp"/"rs"/
     "rnbp") or a prebuilt ``Scheduler``; ``scheduler_kwargs`` feed its
     constructor. ``backend`` names the message update ("ref" | "maxprod" |
-    "triton" | "pallas", through ``repro_torch.kernels.ops.UPDATE_BACKENDS``)
+    "triton" | "pallas" | "sharded", through
+    ``repro_torch.kernels.ops.UPDATE_BACKENDS``)
     or is a ``(pgm, logm) -> (cand, resid)`` callable. A bucket folds into
     its disjoint union and runs ``backend`` there; ``batch_backend``
     optionally names another backend for that fold ("pallas" | "triton",
@@ -299,8 +300,12 @@ class BPEngine:
         self.update_fn = (backend if callable(backend)
                           else get_update_fn(backend))
         if batch_backend is None:
+            # Mesh-aware fold: a sharded backend (repro_torch.dist)
+            # advertises its mesh, and the union keeps the rank's slice.
+            mesh = getattr(self.update_fn, "mesh", None)
+            axis = getattr(self.update_fn, "axis", "bp")
             self.batch_update_fn = lambda batch, logm: batch.folded_update(
-                self.update_fn, logm)
+                self.update_fn, logm, mesh=mesh, axis=axis)
         elif callable(batch_backend):
             self.batch_update_fn = batch_backend
         else:

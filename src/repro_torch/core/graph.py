@@ -184,6 +184,17 @@ class PGM:
         return (self.log_psi_e.permute(1, 2, 0).contiguous(),
                 self.dst_mask.t().contiguous())
 
+    def memo(self, key, build):
+        """``build()`` once per graph and ``key``, then the kept value (as
+        ``BatchedPGM.memo``): the per-rank slice plans of the multi-device
+        backend (``repro_torch.dist``), built on the host at first use. A
+        graph made by ``dataclasses.replace`` or ``pad_pgm`` keeps nothing
+        of this one's."""
+        memo = self.__dict__.setdefault("_memo", {})
+        if key not in memo:
+            memo[key] = build()
+        return memo[key]
+
     def degree(self) -> torch.Tensor:
         """(V,) int64 in-degree per vertex (== out-degree; graph is
         symmetric)."""

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.graph import NEG_INF, PGM
 
-__all__ = ["masked_logsumexp", "init_messages", "vertex_logprod",
+__all__ = ["masked_logsumexp", "init_messages", "fold_in_edges",
+           "vertex_logprod",
            "edge_prelude", "propagate_ref", "normalize_and_residual",
            "residuals", "beliefs", "ref_update", "propagate_max",
            "max_product_update", "map_assignment", "apply_frontier"]
@@ -55,7 +56,17 @@ def vertex_logprod(pgm: PGM, logm: torch.Tensor) -> torch.Tensor:
     every run -- no float atomics. Padded edges are not in the table, so the
     dummy and padding vertices sum to 0.
     """
-    gathered = torch.where(pgm.in_mask[:, :, None], logm[pgm.in_edges], 0.0)
+    return fold_in_edges(pgm.in_edges, pgm.in_mask, logm)
+
+
+def fold_in_edges(in_edges: torch.Tensor, in_mask: torch.Tensor,
+                  logm: torch.Tensor) -> torch.Tensor:
+    """(R, S) row sums of ``logm[in_edges]`` over the ``in_mask`` entries
+    of an (R, D) in-edge table, folded column by column, left to right.
+    ``vertex_logprod`` runs it on the graph's table; the multi-device paths
+    (``repro_torch.dist``) run it on tables restricted to a rank's edges, so
+    a vertex adds its in-edges in the same order on every path."""
+    gathered = torch.where(in_mask[:, :, None], logm[in_edges], 0.0)
     acc = gathered[:, 0]
     for d in range(1, gathered.shape[1]):
         acc = acc + gathered[:, d]

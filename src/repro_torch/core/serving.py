@@ -1091,6 +1091,20 @@ class ServingPipeline:
                 admission_kwargs = dict(cfg.admission_kwargs)
         self.policy = get_admission_policy(
             admission, **dict(admission_kwargs or {})).bind(self)
+        by_clock = self._clock_on_chunk is None and isinstance(
+            self.policy, (WindowedAdmission, DeadlineAdmission))
+        if getattr(engine.update_fn, "mesh", None) is not None and (
+                ingest_threads or by_clock):
+            # Every rank of the sharded backend runs this pipeline and must
+            # take the same decisions; timing differs between ranks.
+            raise NotImplementedError(
+                "the sharded backend serves one pipeline per rank, and "
+                "every rank must take the same serving decisions or the "
+                "next collective deadlocks; ingest threads and "
+                f"{self.policy.name!r} admission on a wall clock decide by "
+                "timing. Use fifo or residual admission, windowed or "
+                "deadline admission under a SweepClock, and "
+                "ingest_threads=0")
         self.stats = AsyncServeStats(policy=self.policy.name)
         self._groups: Dict[tuple, _Group] = {}
         self._exhausted = False

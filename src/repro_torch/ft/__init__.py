@@ -1,3 +1,4 @@
-from repro_torch.ft.resilience import StragglerMonitor, run_bp_resilient
+from repro_torch.ft.resilience import (ElasticMesh, StragglerMonitor,
+                                       run_bp_resilient)
 
-__all__ = ["StragglerMonitor", "run_bp_resilient"]
+__all__ = ["ElasticMesh", "StragglerMonitor", "run_bp_resilient"]

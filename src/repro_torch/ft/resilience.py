@@ -1,15 +1,20 @@
 """Fault tolerance & straggler mitigation.
 
-The port of ``repro.ft.resilience``'s two single-device mechanisms (the
-reference's ``ElasticMesh`` builds a device mesh and waits for the port's
-``dist``):
+The port of ``repro.ft.resilience``'s three mechanisms:
 
-1. **StragglerMonitor** -- per-chunk wall-time EWMA with an outlier budget.
+1. **ElasticMesh** -- a mesh factory that rebuilds on a change of the
+   world. Checkpoints are mesh-agnostic (``repro_torch.checkpoint`` stores
+   host arrays), so a job that loses ranks restarts on the survivors: reload
+   the last step, re-initialize ``torch.distributed`` over the live ranks,
+   rebuild the 2-D (data, model) ``DeviceMesh`` from whatever the world now
+   holds.
+
+2. **StragglerMonitor** -- per-chunk wall-time EWMA with an outlier budget.
    A chunk that exceeds ``budget_factor`` x EWMA marks a straggler event;
    BP's response is to continue -- stale messages are *correct* under
    asynchronous BP semantics, the paper's own argument.
 
-2. **run_bp_resilient** -- chunked BP execution on ``BPEngine.step``: run
+3. **run_bp_resilient** -- chunked BP execution on ``BPEngine.step``: run
    ``rounds_per_chunk`` at a time, checkpoint the full ``BPState``
    (messages, scheduler state, the generator's state, counters) between
    chunks, and resume from the last chunk on crash. Because ``step``
@@ -30,9 +35,52 @@ import torch
 
 from repro_torch.checkpoint import latest_step, restore_pytree, save_pytree
 from repro_torch.core.engine import BPConfig, BPEngine, BPState
-from repro_torch.core.graph import PGM
+from repro_torch.core.graph import PGM, resolve_device
 
-__all__ = ["StragglerMonitor", "run_bp_resilient"]
+__all__ = ["ElasticMesh", "StragglerMonitor", "run_bp_resilient"]
+
+
+def _world_size() -> int:
+    """Ranks of the default process group; 0 when there is none."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
+class ElasticMesh:
+    """Rebuilds the (data, model)-style mesh from the live world.
+
+    ``current()`` builds a 2-D ``DeviceMesh`` over every rank of the
+    initialized ``torch.distributed`` world, on ``device``'s type (the card
+    by default; ``device="cpu"`` for a gloo world on the CPU): the model
+    axis takes ``model_parallel`` ranks, shrunk until it divides the world,
+    the data axis the rest. ``changed()`` reports whether the world size
+    moved since. With no process group ``current()`` raises a
+    ``RuntimeError`` naming ``torch.distributed.init_process_group``."""
+
+    def __init__(self, model_parallel: int = 1,
+                 axis_names=("data", "model"), *, device="cuda"):
+        self.model_parallel = model_parallel
+        self.axis_names = tuple(axis_names)
+        self.device = device
+        self._n = 0
+
+    def current(self):
+        dev = resolve_device(self.device)
+        from repro_torch.dist import require_world
+        require_world()
+        from torch.distributed.device_mesh import init_device_mesh
+        n = _world_size()
+        mp = min(self.model_parallel, n)
+        while n % mp:
+            mp -= 1
+        self._n = n
+        return init_device_mesh(dev.type, (n // mp, mp),
+                                mesh_dim_names=self.axis_names)
+
+    def changed(self) -> bool:
+        return _world_size() != self._n
 
 
 @dataclasses.dataclass

@@ -24,10 +24,15 @@ the reference's two names are accepted, so configs interchange.
 ``pallas_update_batch``/``triton_update_batch`` keep the reference's
 function names for the same fold.
 
+- ``"sharded"``: the multi-device update of ``repro_torch.dist`` -- each
+  rank of the ``torch.distributed`` world updates its slice of the edge
+  axis (``fused_update_e`` on the card) and the slices are gathered. It
+  resolves only inside an initialized world; outside one its factory
+  raises a ``RuntimeError`` naming ``init_process_group``.
+
 Each name is the reference's, so a ``BPConfig.to_dict()`` from either
-package loads in the other. The reference's ``"sharded"`` backend is not
-ported (ROADMAP queue 1, item 11); looking it up raises the registry's
-uniform ``KeyError``. The reference's ``interpret=`` has no meaning here.
+package loads in the other. The reference's ``interpret=`` has no meaning
+here.
 """
 
 from __future__ import annotations
@@ -44,8 +49,8 @@ __all__ = ["UPDATE_BACKENDS", "BATCH_BACKEND_NAMES", "kernel_operands_t",
            "pallas_update", "make_pallas_update", "pallas_update_batch",
            "make_pallas_update_batch", "triton_update", "make_triton_update",
            "triton_update_batch", "make_triton_update_batch",
-           "register_update_backend", "list_backends", "get_update_fn",
-           "get_batch_update_fn"]
+           "make_sharded_update", "register_update_backend",
+           "list_backends", "get_update_fn", "get_batch_update_fn"]
 
 
 def kernel_operands_t(pgm: PGM):
@@ -117,12 +122,21 @@ def make_triton_update_batch(*, semiring: str = "sum"):
     return batch_update_fn
 
 
+def make_sharded_update(mesh=None, *, axis: str = "bp"):
+    """The ``"sharded"`` backend's update callable
+    (``repro_torch.dist.make_sharded_update``, imported at call time: the
+    module needs the engine, which needs this registry)."""
+    from repro_torch.dist import make_sharded_update as make
+    return make(mesh, axis=axis)
+
+
 #: name -> zero/kwarg factory returning an ``update_fn``.
 UPDATE_BACKENDS = Registry("update backend", {
     "ref": lambda: M.ref_update,
     "maxprod": lambda: M.max_product_update,
     "pallas": make_pallas_update,
     "triton": make_triton_update,
+    "sharded": make_sharded_update,
 })
 
 #: The ``BPConfig.batch_backend`` names (the reference's batched backends).

@@ -210,6 +210,13 @@ class Router:
                 raise TypeError(
                     "engine must be a BPConfig, a BPEngine, or a sequence "
                     f"of BPEngines, got {type(engine).__name__}")
+        if any(getattr(e.update_fn, "mesh", None) is not None
+               for e in engines):
+            raise NotImplementedError(
+                "the router tier places requests by load and runs each "
+                "replica on its own thread, so ranks of the sharded backend "
+                "would issue their collectives in different orders and "
+                "deadlock; serve through serve_async, one pipeline per rank")
         if steal_batch < 1:
             raise ValueError(f"steal_batch must be >= 1, got {steal_batch}")
         self.rng = rng

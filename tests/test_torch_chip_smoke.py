@@ -222,12 +222,15 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"sum": 1, "t": 0}}, {"launches": 2},
         {"launches": 3, "other_launches": {"sum": 0, "max": 0}}, out,
         {"launches": {"fused_update_t/sum": 4}},
-        {"launches": {"sum": 5, "max": 0}})
+        {"launches": {"sum": 5, "max": 0}},
+        {"sharded": {"launches": 6}, "banded": {"launches": 7}})
     assert by_path["fused_update_t/sum"]["serving"] == \
         out["launches"]["fused_update_t/sum"]
     assert by_path["fused_update_t/sum"]["routed"] == 4
     assert by_path["fused_update_e/sum"]["routed"] == 0
     assert by_path["fused_update_e/sum"]["resilient"] == 5
+    assert (by_path["fused_update_e/sum"]["sharded"],
+            by_path["fused_update_e/sum"]["banded"]) == (6, 7)
 
 
 def test_interval_helpers():
@@ -321,3 +324,52 @@ def test_resilient_phase_on_cpu(counted, tmp_path):
     assert s["rnbp_card"]["rounds"] > 0
     assert out["kl"]["max_kl"] <= cs.KL_BOUND
     cs.log_resilient(out)
+
+
+@pytest.fixture
+def counted_slices(monkeypatch):
+    """Count the multi-device paths' per-slice updates as launches (on the
+    CPU they run the plain version and launch nothing)."""
+    from repro_torch import dist as D
+    real = D.slice_update
+
+    def counting(*args):
+        TT.LAUNCHES["sum"] += 1
+        return real(*args)
+    monkeypatch.setattr(D, "slice_update", counting)
+
+
+def test_dist_phase_on_cpu(counted_slices, tmp_path):
+    """Phase 17 at a tiny size over gloo: (a) the world of one, sharded
+    RnBP bitwise the one-device run and banded LBP at n = 1 bitwise its
+    one-device run at the cap; (b) two spawned gloo ranks against
+    one-device runs, their messages bitwise equal."""
+    from repro_torch.pgm import ising_grid_fast
+    pgm = ising_grid_fast(12, 2.5, seed=0, device="cpu")
+    res, _ = cs.run_engine(pgm, CPU, scheduler="rnbp",
+                           scheduler_kwargs=cs.MAIN_KW,
+                           backend=cs.one_device_backend(CPU))
+    one = cs.phase_dist_one(CPU, pgm, res, tmp_path / "store",
+                            backend="gloo", banded_rounds=30)
+    assert one["transport"] == "gloo"
+    s, b = one["sharded"], one["banded"]
+    assert s["bitwise"] and s["launches"] >= s["rounds"] == int(res.rounds)
+    assert s["collectives"] == 3 * s["launches"] and s["staged_bytes"] == 0
+    assert s["kernel_check"]["E"] == pgm.n_edges
+    assert b["bitwise"] and b["launches"] >= b["rounds"] == 30
+    assert s["kernel_check"]["max_abs_err"] == 0.0 == \
+        b["kernel_check"]["max_abs_err"]
+    gloo = cs.phase_dist_gloo(CPU, tmp_path / "gloo", n=12, size=2)
+    assert gloo["transport"] == "gloo" and gloo["ranks_bitwise_equal"]
+    assert gloo["banded"]["bitwise"]
+    assert gloo["lbp"]["max_belief_diff"] <= cs.DIST_TOL
+    assert not (tmp_path / "gloo").exists()
+    cs.log_dist(dict(one=one, gloo=gloo, main_ms_per_round=1.0))
+    by_path = cs.launches_by_path(
+        {"launches": {"sum": 1, "t": 0}}, {"launches": 0},
+        {"other_launches": {"sum": 0, "max": 0}, "launches": 0},
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}}, {"launches": {}},
+        {"launches": {"sum": 0, "max": 0}}, one)
+    assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
+    assert by_path["fused_update_e/sum"]["banded"] == b["launches"]

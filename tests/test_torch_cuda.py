@@ -21,6 +21,11 @@ no JAX:
   bitwise each share's solo run; graphs written on the submitting thread's
   stream route bitwise as host graphs do (staging waits on their entry
   event); a resilient run is bitwise the monolithic run, resumed too.
+- The multi-device paths (``repro_torch.dist``, through ``chip_smoke.py``'s
+  phase 17 helpers at small sizes): a world of one rank over NCCL is
+  bitwise the one-device run, sharded and banded; two gloo ranks sharing
+  the card stage their exchanges through the host, hold equal messages,
+  and banded LBP is bitwise the one-device run.
 """
 
 import numpy as np
@@ -412,3 +417,34 @@ def test_resilient_run_on_card_is_bitwise_monolithic(cuda, tmp_path):
     again = resilient()
     assert torch.equal(again.logm, want.logm)
     assert int(again.rounds) == int(want.rounds) - steps[len(steps) // 2]
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_nccl_world_of_one_is_bitwise_the_one_device_run(cuda, tmp_path):
+    cs = _chip_smoke()
+    pgm = TD.ising_grid_fast(64, 2.5, seed=0, device=cuda)
+    res, _ = cs.run_engine(pgm, cuda, scheduler="rnbp",
+                           scheduler_kwargs=cs.MAIN_KW, backend="triton")
+    out = cs.phase_dist_one(cuda, pgm, res, tmp_path / "store",
+                            backend="nccl", banded_rounds=60)
+    assert out["transport"] == "nccl"
+    s, b = out["sharded"], out["banded"]
+    assert s["bitwise"] and s["launches"] >= s["rounds"] > 0
+    assert b["bitwise"] and b["launches"] >= b["rounds"] > 0
+    assert s["staged_bytes"] == 0
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    cs = _chip_smoke()
+    out = cs.phase_dist_gloo(cuda, tmp_path / "gloo", n=32, size=2)
+    assert out["transport"] == "gloo, host-staged"
+    assert out["ranks_bitwise_equal"] and out["banded"]["bitwise"]
+    assert out["lbp"]["staged_bytes"] > 0
+    assert out["lbp"]["launches"] >= out["lbp"]["rounds"]

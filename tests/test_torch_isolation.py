@@ -2,9 +2,10 @@
 
 A fresh interpreter imports every module of ``repro_torch`` and imports
 ``chip_smoke`` (without running it); neither JAX nor the reference package
-``repro`` may then be loaded. Graph builders, ``BPEngine``, the router tier
-and ``run_bp_resilient`` called without ``device=`` must raise when there
-is no GPU rather than carry on on the CPU.
+``repro`` may then be loaded. Graph builders, ``BPEngine``, the router tier,
+``run_bp_resilient`` and the multi-device entry points (``make_bp_mesh``,
+``run_bp_sharded``, ``ElasticMesh``) called without ``device=`` must raise
+when there is no GPU rather than carry on on the CPU.
 """
 
 import json
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core import BPConfig, BPEngine, build_pgm, build_pgm_uniform
-from repro_torch.ft import run_bp_resilient
+from repro_torch.dist import make_bp_mesh, run_bp_sharded
+from repro_torch.ft import ElasticMesh, run_bp_resilient
 from repro_torch.pgm import datasets as TD
 from repro_torch.serve import Router, serve_routed
 
@@ -60,7 +62,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.core.exact", "repro_torch.core.serial",
                 "repro_torch.core.runner", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.ckpt", "repro_torch.ft",
-                "repro_torch.ft.resilience"):
+                "repro_torch.ft.resilience", "repro_torch.dist",
+                "repro_torch.dist.bp_banded", "repro_torch.dist.comm",
+                "repro_torch.roofline", "repro_torch.roofline.kernel_model"):
         assert mod in report["modules"]
 
 
@@ -104,11 +108,16 @@ def no_gpu(monkeypatch):
     lambda: serve_routed(BPConfig(), [], 0, replicas=2),
     lambda: run_bp_resilient(TD.ising_grid(3, 2.0, device="cpu"), "lbp",
                              torch.Generator()),
+    lambda: make_bp_mesh(),
+    lambda: run_bp_sharded(TD.ising_grid(3, 2.0, device="cpu"), "lbp", None,
+                           torch.Generator()),
+    lambda: ElasticMesh().current(),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
         "zoo_stream", "engine_batched", "router", "serve_routed",
-        "run_bp_resilient"])
+        "run_bp_resilient", "make_bp_mesh", "run_bp_sharded",
+        "elastic_mesh"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

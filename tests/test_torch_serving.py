@@ -205,6 +205,57 @@ def test_straggler_eps_1e5_round_difference_is_float32_rounding():
         assert abs(r - hist[16]) < 0.04 * hist[16]
 
 
+def residual_trail(engine, state, rounds):
+    """Each round's largest residual, one ``step`` per round, for at most
+    ``rounds`` rounds or until the run converges."""
+    trail = []
+    for _ in range(rounds):
+        state = engine.step(state, chunk_rounds=1)
+        if bool(state.done):
+            break
+        trail.append(float(state.max_residual))
+    return trail
+
+
+def test_eps_1e5_rounds_and_residuals_are_float32_noise():
+    """Does the port's prelude -- a fold over each vertex's in-edge table
+    -- drift further from exact arithmetic than the reference's
+    ``segment_sum``? LBP at eps=1e-5 on the straggler stream's Ising grids
+    and the zoo: each round's largest residual in both packages against the
+    same run in float64 (``lbp_float64``), and each run's round count. The
+    port is no further from float64 than the reference: it misses the
+    float64 round count on fewer graphs (the reference misses it on two of
+    the zoo's, the port on the 17-vs-16 graph), its median relative
+    residual error per round is within a factor of the reference's, and it
+    is the farther of the two on fewer than half the rounds. So the
+    difference is float32 noise on both sides, and the fold order stays."""
+    eps = 1e-5
+    graphs = [JD.ising_grid(8, 1.5, seed=s) for s in range(6)]
+    graphs += [g for _, g in JD.zoo_stream(24, seed=0)]
+    miss = {"ref": 0, "port": 0}
+    err_ref, err_port = [], []
+    for jg in graphs:
+        rounds64, hist = lbp_float64(jg, eps, 400)
+        je, te = engines(scheduler="lbp", eps=eps, max_rounds=400)
+        tg = bridge(jg)
+        j_rounds = int(je.run(jg, jax.random.key(0)).rounds)
+        t_rounds = int(te.run(tg, torch.Generator().manual_seed(0)).rounds)
+        miss["ref"] += j_rounds != rounds64
+        miss["port"] += t_rounds != rounds64
+        n = min(j_rounds, t_rounds)
+        jt = residual_trail(je, je.init(jg, jax.random.key(0)), n)
+        tt = residual_trail(te, te.init(tg, torch.Generator().manual_seed(0)),
+                            n)
+        h = np.asarray(hist[:n])
+        err_ref.append(np.abs(np.asarray(jt) - h) / h)
+        err_port.append(np.abs(np.asarray(tt) - h) / h)
+    err_ref, err_port = np.concatenate(err_ref), np.concatenate(err_port)
+    assert err_ref.size > 700
+    assert miss["port"] <= miss["ref"] and miss == {"ref": 2, "port": 1}
+    assert np.median(err_port) <= 2 * np.median(err_ref)
+    assert float(np.mean(err_port > err_ref)) < 0.5
+
+
 @pytest.mark.parametrize("slots", [1, 2])
 def test_lbp_mixed_shape_stream_matches_reference(slots):
     jpgms = mixed_stream()
