@@ -42,7 +42,17 @@ main paths and its serving path at full size and measures them:
   (b) two gloo ranks in spawned processes sharing the card, their
   exchanges staged through the host: sharded LBP and RnBP on the paper's
   Ising 200 x 200 against one-device runs, banded LBP bitwise, every
-  rank's messages bitwise equal (phase 17).
+  rank's messages bitwise equal (phase 17);
+- the LM stack's serving path (``repro_torch.models``,
+  ``repro_torch.launch.serve``), which runs none of the BP kernels: every
+  family at ``reduced()`` on the card against the CPU (prefill logits and
+  caches, 8 decode steps, MoE routing equal, host syncs of a decode step);
+  Qwen3-4B's full width at two layers in float32 against the CPU over
+  1,024 tokens; Qwen3-4B as published (36 layers, bf16, weights drawn on
+  the card) served at B = 4: prefill over 1,024 tokens, ``generate`` with
+  a 64-token prompt and 32 new tokens (decode ms/step beside the bytes
+  bound, decode against prefill within 3e-2), a profiler trace of 8
+  decode steps (phase 18).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -56,7 +66,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the seven paths (``launches_by_path``), its largest
+  and on each of the eight paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -69,10 +79,13 @@ exits non-zero without a GPU or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -147,6 +160,18 @@ DIST_TIMEOUT_S = 120                 # process groups and the spawned world
 RESILIENT_CHUNK = 200
 SRBP_LIMIT_S = 30.0
 KL_BOUND = 1e-6                      # RnBP on a chain vs variable elimination
+# The LM stack's serving path (phase 18): every family at reduced() on the
+# card against the CPU, Qwen3-4B's width at two layers (two q-blocks of
+# 512), and Qwen3-4B as the repo publishes it (src/repro/configs/
+# qwen3_4b.py: 36 layers, bf16) served at B = 4.
+LM_TOL = 1e-4                        # card vs CPU in float32, abs and rel
+LM_FAMILY = dict(b=2, s=8, steps=8)
+LM_WIDE = dict(layers=2, b=1, s=1024)
+LM_SERVE = dict(b=4, prefill_len=1024, prompt_len=64, gen=32,
+                trace_steps=8)
+# decode vs prefill in bf16: max|d logit| / max|logit| (the reference's own
+# decode-matches-forward check, tests/test_models_smoke.py:98-120)
+LM_DECODE_REL = 3e-2
 
 
 def log(msg: str) -> None:
@@ -2183,15 +2208,400 @@ def log_dist(out) -> None:
         f"B; ranks' messages bitwise equal")
 
 
+# ------------------------------------------------------------- phase 18 --
+
+def lm_models(cfg, device, seed=0):
+    """The port's model of ``cfg`` on the CPU, its weights from
+    ``init_params`` with a seeded CPU generator, and a copy on ``device``."""
+    import torch
+    from repro_torch.models import build_model
+    cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(seed))
+    card = build_model(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def lm_inputs(cfg, b, s, seed=1):
+    """Prompt tokens (and the frontend stubs' embeddings) on the CPU."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g)}
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = 0.1 * torch.randn(
+            b, cfg.n_frontend_tokens, cfg.d_model, generator=g)
+    if cfg.frontend == "audio":
+        batch["frontend_embeds"] = 0.1 * torch.randn(b, s, cfg.d_model,
+                                                     generator=g)
+    return batch
+
+
+def lm_err(name, card, cpu, tol=LM_TOL) -> float:
+    """Max |card - cpu|; raises unless within ``tol`` (abs and rel)."""
+    import torch
+    card, cpu = card.detach().cpu().float(), cpu.detach().float()
+    if card.shape != cpu.shape:
+        raise AssertionError(f"{name}: shape {tuple(card.shape)} on the "
+                             f"card, {tuple(cpu.shape)} on the CPU")
+    err = float((card - cpu).abs().max()) if card.numel() else 0.0
+    if not torch.allclose(card, cpu, rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: card vs CPU max |diff| {err:.3g} "
+                             f"beyond {tol} (abs and rel)")
+    return err
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Every MoE routing decision (``top_e``) the port makes inside."""
+    from repro_torch.models.layers import moe as M
+    real, seen = M._route, []
+
+    def record(p, xt, top_k):
+        out = real(p, xt, top_k)
+        seen.append(out[3].cpu())
+        return out
+    M._route = record
+    try:
+        yield seen
+    finally:
+        M._route = real
+
+
+def host_syncs(fn, device):
+    """Where ``fn`` makes a synchronizing CUDA call, as torch's sync debug
+    mode reports them: one "file:line" of the caller per call; None off
+    the card. The mode is switched on and off once before, so that
+    nothing of its own first use is counted."""
+    import warnings
+    import torch
+    if device.type != "cuda":
+        return None
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message).lower()]
+
+
+SYNC_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize", "cudaMemcpy"})
+
+
+def traced_syncs(fn, device):
+    """A second witness for ``host_syncs``, whose detector torch calls a
+    prototype: the synchronizing CUDA runtime calls a profiler trace of
+    ``fn`` holds, less those of a trace of nothing. A control that reads
+    one value to the host must show at least one such call, or the trace
+    cannot see them and the answer is None (also off the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        return None
+
+    def count(f):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        return sum(ev.name in SYNC_CALLS for ev in prof.events())
+
+    one = torch.ones(8, device=device)
+    base = count(lambda: None)
+    if count(lambda: one.sum().item()) <= base:
+        return None
+    return count(fn) - base
+
+
+def lm_card_vs_cpu(cfg, device, b, s, steps):
+    """``prefill`` logits and caches and ``steps`` decode steps from
+    ``init_cache`` on the card against the CPU, same weights and tokens;
+    MoE routing equal. Then the host syncs of one decode step on the card
+    with the position on the card."""
+    import torch
+    cpu, card = lm_models(cfg, device)
+    batch = lm_inputs(cfg, b, s)
+    toks = torch.randint(0, cfg.vocab, (steps, b, 1),
+                         generator=torch.Generator().manual_seed(2))
+
+    def run(model):
+        with routes_recorded() as routes:
+            logits, cache = model.prefill(batch)
+            dcache = model.init_cache(b, s + steps)
+            step_logits = []
+            for t in range(steps):
+                lg, dcache = model.decode_step(dcache, toks[t], t)
+                step_logits.append(lg)
+        return logits, cache, step_logits, dcache, routes
+
+    ref, got = run(cpu), run(card)
+    out = dict(arch=cfg.name, family=cfg.family, b=b, s=s, steps=steps,
+               prefill_err=lm_err(f"{cfg.name} prefill logits", got[0],
+                                  ref[0]))
+    out["cache_err"] = max(
+        [lm_err(f"{cfg.name} prefill cache {g}/{k}", got[1][g][k], v)
+         for g in ref[1] for k, v in ref[1][g].items()]
+        + [lm_err(f"{cfg.name} decode cache {g}/{k}", got[3][g][k], v)
+           for g in ref[3] for k, v in ref[3][g].items()])
+    out["decode_err"] = max([lm_err(f"{cfg.name} decode step {t}", a, c)
+                             for t, (a, c) in enumerate(zip(got[2], ref[2]))]
+                            or [0.0])
+    if len(got[4]) != len(ref[4]) or not all(
+            torch.equal(a, c) for a, c in zip(got[4], ref[4])):
+        raise AssertionError(f"{cfg.name}: MoE routing differs on the card")
+    out["moe_routings"] = len(got[4])
+    if steps:
+        tok, pos = toks[0].to(card.device), torch.tensor(steps,
+                                                         device=card.device)
+
+        def step():
+            card.decode_step(got[3], tok, pos)
+
+        where = host_syncs(step, card.device)
+        out["syncs_per_step"] = None if where is None else len(where)
+        out["sync_sites"] = where
+        out["traced_syncs_per_step"] = traced_syncs(step, card.device)
+    return out
+
+
+def percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def lm_served(cfg, device, bw, b, prefill_len, prompt_len, gen, trace_steps):
+    """Phase 18 (c): ``cfg`` with weights drawn on the card, timed
+    ``prefill`` over ``prefill_len`` tokens, ``launch.serve.generate``
+    (``prompt_len`` prompt tokens, ``gen`` generated), its last prompt
+    logits against ``prefill`` on the same prompt, and a profiler trace of
+    ``trace_steps`` decode steps beside the decode bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    on_card = device.type == "cuda"
+    # what earlier phases still hold: peaks below are reported above it
+    held = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device).init_params(
+        torch.Generator(device=device).manual_seed(0))
+    sync(device)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, b=b,
+               held_before_bytes=held, threads=threading.active_count(),
+               gc_objects=len(gc.get_objects()),
+               init_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()),
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in model.parameters()))
+    tokens = torch.randint(0, cfg.vocab, (b, prefill_len),
+                           generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(device)
+    batch = {"tokens": tokens}
+
+    def finite(name, t):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+
+    model.prefill(batch)                     # warm: cuBLAS plans, allocator
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch)
+    if device.type == "cuda":
+        end.record()
+    sync(device)
+    host_s = time.perf_counter() - t0
+    finite("prefill", logits)
+    block_params = sum(p.numel() for n, p in model.named_parameters()
+                       if n.startswith(("blocks.", "lead_blocks.")))
+    out["prefill"] = dict(
+        tokens=b * prefill_len, host_s=host_s,
+        event_s=start.elapsed_time(end) / 1e3 if device.type == "cuda"
+        else None,
+        tokens_per_s=b * prefill_len / host_s,
+        matmul_tflops_per_s=2 * block_params * b * prefill_len / host_s
+        / 1e12,
+        peak_memory_bytes=torch.cuda.max_memory_allocated() - held
+        if on_card else None)
+    del logits, cache
+
+    prompt = tokens[:, :prompt_len]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen_tokens, timings = generate(model, prompt, gen)
+    peak = torch.cuda.max_memory_allocated() - held if on_card else None
+    full, _ = model.prefill({"tokens": prompt})
+    finite("prefill over the prompt", full)
+    finite("decode after the prompt", timings["logits"])
+    rel = float((timings["logits"].float() - full.float()).abs().max()
+                / full.float().abs().max())
+    if not rel <= LM_DECODE_REL:
+        raise AssertionError(f"decode vs prefill: max|d| / max|logit| = "
+                             f"{rel:.3g} beyond {LM_DECODE_REL}")
+    steps = timings["step_ms"][prompt_len:]
+    out["serve"] = dict(
+        prompt_len=prompt_len, gen=gen, tokens_shape=list(gen_tokens.shape),
+        wall_s=timings["wall_s"],
+        generated_tokens_per_s=b * gen / timings["wall_s"],
+        prompt_step_ms_p50=percentile(timings["step_ms"][:prompt_len], 50),
+        decode_step_ms_p50=percentile(steps, 50),
+        decode_step_ms_p90=percentile(steps, 90),
+        decode_tokens_per_s=b * 1e3 / percentile(steps, 50),
+        decode_vs_prefill_rel=rel, peak_memory_bytes=peak)
+
+    # decode bound: every weight and the head table read once, the whole
+    # serve-length KV cache read once (the reference attends over it all)
+    cache = model.init_cache(b, prompt_len + gen)
+    kv_bytes = sum(t.numel() * t.element_size() for g in cache.values()
+                   for t in g.values())
+    head_bytes = out["param_bytes"]
+    if not cfg.tie_embeddings:               # embed: only B rows gathered
+        head_bytes -= model.embed.table.numel() * 4
+    bound_bytes = head_bytes + kv_bytes
+    out["bound"] = dict(bytes=bound_bytes, kv_bytes=kv_bytes,
+                        decode_ms=bound_bytes / bw * 1e3, bound_by="bytes")
+
+    tok = gen_tokens[:, :1]
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+
+    def steps_run(n):
+        nonlocal pos, cache
+        for _ in range(n):
+            lg, cache = model.decode_step(cache, tok, pos)
+            pos = pos + 1
+        return lg
+
+    steps_run(2)
+    sync(device)
+    t0 = time.perf_counter()
+    steps_run(trace_steps)
+    sync(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        lg = steps_run(trace_steps)
+        sync(device)
+    finite("traced decode", lg)
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3)
+    busy_s, n_ops = busy_seconds(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["trace"] = dict(
+        steps=trace_steps, wall_ms_per_step=wall_ms / trace_steps,
+        busy_ms_per_step=busy_s * 1e3 / trace_steps,
+        busy_share=busy_s * 1e3 / wall_ms,
+        device_ops_per_step=n_ops / trace_steps,
+        top_ms_per_step={k: v / trace_steps for k, v in top})
+    return out
+
+
+def phase_lm(device, wide_cfg=None, serve_cfg=None,
+             family=LM_FAMILY, wide=LM_WIDE, serve=LM_SERVE, bw=3.35e12):
+    """Phase 18, the LM stack's serving path: (a) every family at
+    ``reduced()`` on the card against the CPU; (b) Qwen3-4B's width at
+    ``wide["layers"]`` layers in float32, ``prefill`` over ``wide["s"]``
+    tokens, card against CPU; (c) Qwen3-4B as published, served. The
+    kernels of the BP path run nowhere here: their counts go from 0."""
+    import torch
+    from repro_torch import configs as TC
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: float32 card-vs-CPU "
+                             "checks would lose three digits")
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dict(families=[lm_card_vs_cpu(TC.get(a).reduced(), device,
+                                        **family)
+                         for a in TC.ARCH_IDS])
+    out["families_s"] = time.perf_counter() - t0
+    wide_cfg = wide_cfg or dataclasses.replace(
+        TC.get("qwen3_4b"), n_layers=wide["layers"], dtype="float32")
+    t0 = time.perf_counter()
+    out["wide"] = lm_card_vs_cpu(wide_cfg, device, wide["b"], wide["s"], 0)
+    out["wide_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["served"] = lm_served(serve_cfg or TC.get("qwen3_4b"), device, bw,
+                              **serve)
+    out["served_s"] = time.perf_counter() - t0
+    out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"]}
+    return out
+
+
+def log_lm(out) -> None:
+    """Phase 18's progress lines."""
+    for f in out["families"]:
+        log(f"  {f['arch']} ({f['family']}): card vs CPU prefill "
+            f"{f['prefill_err']:.3g}, caches {f['cache_err']:.3g}, "
+            f"{f['steps']} decode steps {f['decode_err']:.3g}; MoE "
+            f"routings equal: {f['moe_routings']}; host syncs per decode "
+            f"step: {f.get('syncs_per_step')} {f.get('sync_sites') or ''} "
+            f"(sync debug mode), {f.get('traced_syncs_per_step')} (runtime "
+            "calls in a profiler trace)")
+    w = out["wide"]
+    log(f"  {w['arch']} B={w['b']} S={w['s']} float32: card vs CPU prefill "
+        f"{w['prefill_err']:.3g}, caches {w['cache_err']:.3g} "
+        f"({out['wide_s']:.1f} s)")
+    sv = out["served"]
+    p, s, bd, tr = sv["prefill"], sv["serve"], sv["bound"], sv["trace"]
+    log(f"  {sv['arch']} {sv['layers']} layers {sv['dtype']}: "
+        f"{sv['params']:,} parameters, {sv['param_bytes'] / 1e9:.3f} GB, "
+        f"drawn on the device in {sv['init_s']:.2f} s; earlier phases hold "
+        f"{sv['held_before_bytes']} B (peaks below are above it); "
+        f"{sv['threads']} threads alive, {sv['gc_objects']:,} objects "
+        "tracked by the collector")
+    log(f"  prefill B={sv['b']} x {p['tokens'] // sv['b']}: {p['host_s']:.4f} "
+        f"s host ({p['event_s']} s events) = {p['tokens_per_s']:.0f} "
+        f"tokens/s, block matmuls {p['matmul_tflops_per_s']:.1f} TFLOP/s, "
+        f"peak {p['peak_memory_bytes']} B")
+    log(f"  generate B={sv['b']} prompt {s['prompt_len']} + {s['gen']}: "
+        f"{s['wall_s']:.3f} s, {s['generated_tokens_per_s']:.1f} generated "
+        f"tokens/s; decode ms/step p50 {s['decode_step_ms_p50']:.3f} p90 "
+        f"{s['decode_step_ms_p90']:.3f} (prompt steps p50 "
+        f"{s['prompt_step_ms_p50']:.3f}) against a bound of "
+        f"{bd['decode_ms']:.3f} ms ({bd['bytes'] / 1e9:.3f} GB at the "
+        f"card's memory rate); peak {s['peak_memory_bytes']} B")
+    log(f"  decode vs prefill over the prompt: max|d| / max|logit| = "
+        f"{s['decode_vs_prefill_rel']:.3g} (limit {LM_DECODE_REL}); all "
+        "logits finite")
+    log(f"  trace of {tr['steps']} decode steps: {tr['wall_ms_per_step']:.3f} "
+        f"ms/step wall (no profiler), device busy "
+        f"{tr['busy_ms_per_step']:.3f} ms/step = share "
+        f"{tr['busy_share']:.3f}, {tr['device_ops_per_step']:.0f} device "
+        "ops/step")
+    for name, ms in tr["top_ms_per_step"].items():
+        log(f"  {ms:.4f} ms/step  {name[:110]}")
+    log(f"  kernel launches on the LM path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one):
+                     dist_one, lm):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
     path (phase 15: run (a), the deadline run, the skewed runs; each
-    counted from 0), the resilient run (phase 16), and the multi-device
-    paths of phase 17 (a): ``sharded`` and ``banded``."""
-    srv, rt = serving["launches"], routed["launches"]
+    counted from 0), the resilient run (phase 16), the multi-device
+    paths of phase 17 (a): ``sharded`` and ``banded``, and the LM stack's
+    serving path (phase 18, ``lm``)."""
+    srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -2199,18 +2609,21 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    routed=rt.get("fused_update_e/sum", 0),
                                    resilient=resilient["launches"]["sum"],
                                    sharded=dist_one["sharded"]["launches"],
-                                   banded=dist_one["banded"]["launches"]),
+                                   banded=dist_one["banded"]["launches"],
+                                   lm=lm["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
                                    routed=rt.get("fused_update_e/max", 0),
                                    resilient=resilient["launches"]["max"],
-                                   sharded=0, banded=0),
+                                   sharded=0, banded=0,
+                                   lm=lm["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
                                    routed=rt.get("fused_update_t/sum", 0),
-                                   resilient=0, sharded=0, banded=0)}
+                                   resilient=0, sharded=0, banded=0,
+                                   lm=lm["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -2264,7 +2677,7 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
                  by_path, served=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
     launches, ``launches_by_path`` (``by_path[name]``: its launches on the
-    one-graph, batched, serving, routed, resilient, sharded and banded
+    one-graph, batched, serving, routed, resilient, sharded, banded and LM
     paths, each counted from 0 just before the path ran), its largest
     difference from the plain version over phases 3, 7, 9 and 12, the
     captured chunks of the serving and routed paths, the resilient run
@@ -2472,6 +2885,11 @@ def main() -> int:
     log_dist(dist_out)
     del main_pgm, main_res
 
+    log("== 18. the LM stack's serving path (repro_torch.models, "
+        "launch.serve): every family card vs CPU, Qwen3-4B")
+    lm = phase_lm(device, bw=bw)
+    log_lm(lm)
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -2485,7 +2903,7 @@ def main() -> int:
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
-                                            dist_out["one"]),
+                                            dist_out["one"], lm),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -2494,7 +2912,7 @@ def main() -> int:
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
                   batched_timing=btiming, protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
-                  resilient=resil, dist=dist_out,
+                  resilient=resil, dist=dist_out, lm=lm,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

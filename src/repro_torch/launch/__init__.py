@@ -1,0 +1,1 @@
+"""Launchers of the LM stack (a port of ``repro.launch``): ``serve``."""

@@ -1,0 +1,22 @@
+"""Gated MLPs (SwiGLU / GeGLU) and the plain enc-dec FFN (a port of
+``repro.models.layers.mlp``)."""
+
+from __future__ import annotations
+
+from repro_torch.models.layers.basic import act_fn, dense
+
+
+def init_mlp(d_model: int, d_ff: int, gated: bool = True):
+    p = {"w_in": dense((d_model, d_ff)), "w_out": dense((d_ff, d_model))}
+    if gated:
+        p["w_gate"] = dense((d_model, d_ff))
+    return p
+
+
+def mlp(p, x, act: str = "silu"):
+    h = x @ p["w_in"].to(x.dtype)
+    if "w_gate" in p:
+        h = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * h
+    else:
+        h = act_fn(act)(h)
+    return h @ p["w_out"].to(x.dtype)

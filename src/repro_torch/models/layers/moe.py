@@ -1,0 +1,120 @@
+"""Mixture-of-Experts with top-k routing (a port of
+``repro.models.layers.moe``).
+
+Dispatch:
+  "ragged"  tokens replicated to (T*topk) rows, sorted stably by assigned
+            expert, then one grouped product per non-empty expert group
+            (the reference's ``jax.lax.ragged_dot``); no capacity dropping.
+            The group sizes are read to the host once per call: one host
+            synchronization per MoE layer and step.
+  "dense"   every expert on every token, combined with the routing
+            weights (E/top_k x the active FLOPs, no dispatch).
+  "sharded" not ported yet (ROADMAP queue 1, item 14c): it raises.
+
+Aux losses: the load-balance loss (Switch-style) and the router z-loss,
+returned as the reference returns them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers.basic import act_fn, dense
+
+
+def init_moe(d_model: int, n_experts: int, d_ff: int, n_shared: int = 0,
+             shared_d_ff: int = 0):
+    p = {
+        "router": dense((d_model, n_experts), scale=0.02),
+        "w_in": dense((n_experts, d_model, d_ff)),
+        "w_gate": dense((n_experts, d_model, d_ff)),
+        "w_out": dense((n_experts, d_ff, d_model)),
+    }
+    if n_shared > 0:
+        sf = shared_d_ff or d_ff
+        p["shared_w_in"] = dense((d_model, n_shared * sf))
+        p["shared_w_gate"] = dense((d_model, n_shared * sf))
+        p["shared_w_out"] = dense((n_shared * sf, d_model))
+    return p
+
+
+def _route(p, xt, top_k):
+    logits = (xt @ p["router"].to(xt.dtype)).float()                # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)                 # (T, K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, top_p, top_e
+
+
+def _counts(flat_e, n_experts):
+    """``bincount(flat_e, minlength=n_experts)`` without the host read that
+    CUDA's bincount makes to size its output."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
+def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
+                    act):
+    """Sort-and-group dispatch: rows sorted by expert, one product per
+    non-empty group, rows put back in token order and combined."""
+    t, d = xt.shape
+    flat_e = top_e.reshape(-1)                                       # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    rows = xt[torch.arange(t, device=xt.device).repeat_interleave(top_k)
+              [order]]                                               # (T*K, d)
+    sizes = _counts(flat_e, n_experts).tolist()                     # host read
+    out_rows = torch.empty_like(rows)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            r = rows[start:start + n]
+            h = act_fn(act)(r @ w_gate[e]) * (r @ w_in[e])
+            out_rows[start:start + n] = h @ w_out[e]
+            start += n
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    out_rows = out_rows[inv].reshape(t, top_k, d)
+    return torch.einsum("tkd,tk->td", out_rows, top_p.to(xt.dtype))
+
+
+def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
+        dispatch: str = "ragged"):
+    """x: (B, S, d). Returns (out, aux) with aux = (lb_loss, z_loss)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    logits, probs, top_p, top_e = _route(p, xt, top_k)
+
+    if dispatch == "dense":
+        w_full = torch.zeros(top_e.shape + (n_experts,), dtype=x.dtype,
+                             device=x.device).scatter_(
+            -1, top_e[..., None], 1.0)                               # (T,K,E)
+        w_full = torch.einsum("tke,tk->te", w_full, top_p.to(x.dtype))
+        h_in = torch.einsum("td,edf->tef", xt, p["w_in"].to(x.dtype))
+        h_gate = torch.einsum("td,edf->tef", xt, p["w_gate"].to(x.dtype))
+        h = act_fn(act)(h_gate) * h_in
+        out = torch.einsum("tef,efd,te->td", h, p["w_out"].to(x.dtype),
+                           w_full)
+    elif dispatch == "sharded":
+        raise NotImplementedError(
+            "moe dispatch='sharded' is not ported yet (ROADMAP queue 1, "
+            "item 14c: the sharding rules and MoE 'sharded' dispatch over "
+            "torch.distributed); use 'ragged' or 'dense'")
+    else:
+        out = _ragged_experts(p["w_in"].to(x.dtype), p["w_gate"].to(x.dtype),
+                              p["w_out"].to(x.dtype), xt, top_p, top_e,
+                              n_experts, top_k, act)
+
+    if "shared_w_in" in p:
+        hs = (act_fn(act)(xt @ p["shared_w_gate"].to(x.dtype))
+              * (xt @ p["shared_w_in"].to(x.dtype)))
+        out = out + hs @ p["shared_w_out"].to(x.dtype)
+
+    # --- aux losses --------------------------------------------------------
+    # load balance: E * sum_e f_e * P_e  (f = fraction routed, P = mean prob)
+    f = _counts(top_e.reshape(-1), n_experts).float() / (t * top_k)
+    pbar = probs.mean(dim=0)
+    lb_loss = n_experts * torch.sum(f * pbar)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return out.reshape(b, s, d), (lb_loss, z_loss)

@@ -223,7 +223,12 @@ def test_serving_phase_on_cpu(counted):
         {"launches": 3, "other_launches": {"sum": 0, "max": 0}}, out,
         {"launches": {"fused_update_t/sum": 4}},
         {"launches": {"sum": 5, "max": 0}},
-        {"sharded": {"launches": 6}, "banded": {"launches": 7}})
+        {"sharded": {"launches": 6}, "banded": {"launches": 7}},
+        {"launches": {"fused_update_e/sum": 8, "fused_update_e/max": 9,
+                      "fused_update_t/sum": 10}})
+    assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
+                                       "fused_update_e/max",
+                                       "fused_update_t/sum")] == [8, 9, 10]
     assert by_path["fused_update_t/sum"]["serving"] == \
         out["launches"]["fused_update_t/sum"]
     assert by_path["fused_update_t/sum"]["routed"] == 4
@@ -370,6 +375,61 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
         {"other_launches": {"sum": 0, "max": 0}, "launches": 0},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}}, {"launches": {}},
-        {"launches": {"sum": 0, "max": 0}}, one)
+        {"launches": {"sum": 0, "max": 0}}, one,
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
+
+
+def test_lm_phase_on_cpu():
+    """Phase 18's control flow and checks at tiny sizes: every family at
+    reduced(), the wide check at two q-blocks of a reduced Qwen3, and the
+    served run on a two-layer reduced Qwen3 in bf16."""
+    import dataclasses
+    from repro_torch import configs as TC
+    qwen = TC.get("qwen3_4b").reduced()
+    out = cs.phase_lm(
+        CPU, wide_cfg=dataclasses.replace(qwen, n_layers=1),
+        serve_cfg=dataclasses.replace(qwen, dtype="bfloat16"),
+        family=dict(b=1, s=4, steps=2), wide=dict(b=1, s=1024),
+        serve=dict(b=2, prefill_len=16, prompt_len=8, gen=4, trace_steps=2))
+    assert [f["arch"] for f in out["families"]] == [
+        TC.get(a).reduced().name for a in TC.ARCH_IDS]
+    for f in out["families"]:
+        assert f["prefill_err"] == f["cache_err"] == f["decode_err"] == 0.0
+        assert f["syncs_per_step"] is None          # counted on the card only
+        assert f["traced_syncs_per_step"] is None
+        assert (f["moe_routings"] > 0) == (f["family"] == "moe")
+    assert out["wide"]["s"] == 1024 and out["wide"]["prefill_err"] == 0.0
+    sv = out["served"]
+    assert sv["serve"]["tokens_shape"] == [2, 4]
+    assert sv["serve"]["decode_vs_prefill_rel"] <= cs.LM_DECODE_REL
+    assert sv["bound"]["decode_ms"] > 0 and sv["bound"]["kv_bytes"] > 0
+    assert sv["trace"]["device_ops_per_step"] == 0
+    assert out["launches"] == {"fused_update_t/sum": 0,
+                               "fused_update_e/sum": 0,
+                               "fused_update_e/max": 0}
+    cs.log_lm(out)
+
+
+def test_lm_card_check_rejects_a_wrong_card_result():
+    """``lm_err`` raises beyond the tolerance or on another shape, and the
+    route recorder sees each MoE layer's choice and then steps aside."""
+    import torch
+    from repro_torch import configs as TC
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe as M
+    a = torch.zeros(3)
+    assert cs.lm_err("x", a, a) == 0.0
+    with pytest.raises(AssertionError, match="beyond"):
+        cs.lm_err("x", a + 2e-4, a)
+    with pytest.raises(AssertionError, match="shape"):
+        cs.lm_err("x", torch.zeros(2), a)
+    cfg = TC.get("granite_moe_3b_a800m").reduced()
+    model = build_model(cfg, device="cpu").init_params(torch.Generator())
+    real = M._route
+    with cs.routes_recorded() as seen:
+        model.prefill(cs.lm_inputs(cfg, 2, 5))
+    assert M._route is real
+    assert [tuple(t.shape) for t in seen] == [(10, 2)] * cfg.n_layers

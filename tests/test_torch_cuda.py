@@ -448,3 +448,23 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     assert out["ranks_bitwise_equal"] and out["banded"]["bitwise"]
     assert out["lbp"]["staged_bytes"] > 0
     assert out["lbp"]["launches"] >= out["lbp"]["rounds"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "granite_moe_3b_a800m",
+                                  "deepseek_v3_671b", "mamba2_130m",
+                                  "hymba_1_5b", "whisper_medium"],
+                         ids=["dense", "moe", "mla", "ssm", "hybrid",
+                              "enc_dec"])
+def test_lm_family_on_card_matches_cpu(cuda, arch):
+    """The LM stack on the card: prefill logits and caches and 8 decode
+    steps within 1e-4 of the CPU on the same weights, MoE routing equal
+    (``chip_smoke.py`` phase 18 (a)); a decode step with the position on
+    the card reads the host only for the MoE group sizes."""
+    from repro_torch import configs as TC
+    cs = _chip_smoke()
+    cfg = TC.get(arch).reduced()
+    out = cs.lm_card_vs_cpu(cfg, cuda, 2, 8, 8)
+    assert out["decode_err"] <= cs.LM_TOL
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
+    assert out["moe_routings"] == n_moe * 9     # prefill + 8 decode steps
+    assert out["syncs_per_step"] <= n_moe

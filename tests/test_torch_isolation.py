@@ -4,8 +4,9 @@ A fresh interpreter imports every module of ``repro_torch`` and imports
 ``chip_smoke`` (without running it); neither JAX nor the reference package
 ``repro`` may then be loaded. Graph builders, ``BPEngine``, the router tier,
 ``run_bp_resilient`` and the multi-device entry points (``make_bp_mesh``,
-``run_bp_sharded``, ``ElasticMesh``) called without ``device=`` must raise
-when there is no GPU rather than carry on on the CPU.
+``run_bp_sharded``, ``ElasticMesh``) and the LM stack's ``build_model``
+and ``Model`` called without ``device=`` must raise when there is no GPU
+rather than carry on on the CPU.
 """
 
 import json
@@ -16,9 +17,11 @@ import sys
 import pytest
 import torch
 
+from repro_torch import configs as TC
 from repro_torch.core import BPConfig, BPEngine, build_pgm, build_pgm_uniform
 from repro_torch.dist import make_bp_mesh, run_bp_sharded
 from repro_torch.ft import ElasticMesh, run_bp_resilient
+from repro_torch.models import Model, build_model
 from repro_torch.pgm import datasets as TD
 from repro_torch.serve import Router, serve_routed
 
@@ -64,7 +67,18 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.checkpoint.ckpt", "repro_torch.ft",
                 "repro_torch.ft.resilience", "repro_torch.dist",
                 "repro_torch.dist.bp_banded", "repro_torch.dist.comm",
-                "repro_torch.roofline", "repro_torch.roofline.kernel_model"):
+                "repro_torch.roofline", "repro_torch.roofline.kernel_model",
+                "repro_torch.configs", "repro_torch.configs.base",
+                "repro_torch.configs.qwen3_4b", "repro_torch.models",
+                "repro_torch.models.model", "repro_torch.models.blocks",
+                "repro_torch.models.convert", "repro_torch.models.layers",
+                "repro_torch.models.layers.basic",
+                "repro_torch.models.layers.mlp",
+                "repro_torch.models.layers.attention",
+                "repro_torch.models.layers.ssm",
+                "repro_torch.models.layers.moe",
+                "repro_torch.models.layers.mla", "repro_torch.launch",
+                "repro_torch.launch.serve"):
         assert mod in report["modules"]
 
 
@@ -112,12 +126,14 @@ def no_gpu(monkeypatch):
     lambda: run_bp_sharded(TD.ising_grid(3, 2.0, device="cpu"), "lbp", None,
                            torch.Generator()),
     lambda: ElasticMesh().current(),
+    lambda: build_model(TC.get("qwen3_4b").reduced()),
+    lambda: Model(TC.get("mamba2_130m").reduced()),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
         "zoo_stream", "engine_batched", "router", "serve_routed",
         "run_bp_resilient", "make_bp_mesh", "run_bp_sharded",
-        "elastic_mesh"])
+        "elastic_mesh", "build_model", "model"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -127,6 +143,17 @@ def test_cpu_is_explicit(no_gpu):
     pgm = TD.ising_grid(3, 2.0, device="cpu")
     res = BPEngine(BPConfig(), device="cpu").run(pgm, torch.Generator())
     assert res.beliefs.device.type == "cpu" and bool(res.converged)
+
+
+def test_lm_model_on_cpu_stays_on_cpu(no_gpu):
+    model = build_model(TC.get("qwen3_4b").reduced(), device="cpu")
+    model.init_params(torch.Generator())
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    cache = model.init_cache(1, 4)
+    logits, cache = model.decode_step(
+        cache, torch.zeros((1, 1), dtype=torch.long), 0)
+    assert logits.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in cache["main"].values())
 
 
 def test_bucket_on_cpu_stays_on_cpu(no_gpu):
