@@ -52,7 +52,18 @@ main paths and its serving path at full size and measures them:
   the card) served at B = 4: prefill over 1,024 tokens, ``generate`` with
   a 64-token prompt and 32 new tokens (decode ms/step beside the bytes
   bound, decode against prefill within 3e-2), a profiler trace of 8
-  decode steps (phase 18).
+  decode steps (phase 18);
+- the LM stack's training path (``repro_torch.train``, ``repro_torch.data``),
+  which runs none of the BP kernels either: every family at ``reduced()``
+  on the card against the CPU (``forward_train``'s metrics, every gradient
+  leaf, one AdamW update), a step with remat bitwise one without, two
+  microbatches against one, a run checkpointed and resumed bitwise the
+  unbroken one, host syncs of a train step; Qwen3-4B's widths at two
+  layers in float32 against the CPU (loss and gradients, S = 512); and
+  Qwen3-4B as published (36 layers, bf16 compute over float32 masters)
+  trained 10 steps at B = 1, S = 2,048: ms/step, tokens/s, model FLOPs and
+  their share of the card's dense bf16 peak (``mfu``), peak memory, a
+  profiler trace of two steps, the loss falling (phase 19).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -66,7 +77,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the eight paths (``launches_by_path``), its largest
+  and on each of the nine paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -83,6 +94,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -172,6 +184,23 @@ LM_SERVE = dict(b=4, prefill_len=1024, prompt_len=64, gen=32,
 # decode vs prefill in bf16: max|d logit| / max|logit| (the reference's own
 # decode-matches-forward check, tests/test_models_smoke.py:98-120)
 LM_DECODE_REL = 3e-2
+# The LM stack's training path (phase 19): every family at reduced() on the
+# card against the CPU and the train step's invariants there, Qwen3-4B's
+# widths at two layers in float32, and Qwen3-4B as published trained ten
+# steps at B = 1, S = 2,048.
+LM_TRAIN_FAMILY = dict(b=2, s=16, steps=5, ckpt_at=3)
+LM_TRAIN_WIDE = dict(layers=2, b=1, s=512)
+LM_TRAIN = dict(b=1, s=2048, steps=10, base_lr=3e-4, warmup=2, synced=6,
+                traced=(7, 8))
+LM_TRAIN_REL = 1e-4                  # (b): loss relative, gradients of max
+LM_TRAIN_EVAL = 3                    # (c): batches 0..2 evaluated on the
+LM_TRAIN_DROP = 0.1                  # masters before and after training,
+#                                      their mean lower by this much
+#                                      (the prediction in PERF.md)
+#: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
+#: substring of the device name; the first match wins
+BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
+              ("H100", 989e12))
 
 
 def log(msg: str) -> None:
@@ -183,6 +212,15 @@ def card_peaks(name: str):
     model (``repro_torch.roofline.kernel_model.CARD_PEAKS``)."""
     from repro_torch.roofline.kernel_model import card_peaks as peaks
     return peaks(name)
+
+
+def bf16_peak(name: str) -> float:
+    """The card's dense bf16 peak FLOP/s (``BF16_PEAKS``)."""
+    for key, peak in BF16_PEAKS:
+        if key in name:
+            return peak
+    raise RuntimeError(f"no published bf16 peak for {name!r}; add it to "
+                       "BF16_PEAKS")
 
 
 def bound(e: int, s: int, semiring: str, bw: float, f32: float):
@@ -2294,29 +2332,44 @@ SYNC_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaEventSynchronize", "cudaMemcpy"})
 
 
+def profiled(fn):
+    """A ``torch.profiler`` trace (host and card) of ``fn()``, begun after
+    a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return prof
+
+
+def sync_calls(prof) -> int:
+    """The synchronizing CUDA runtime calls in a profiler trace."""
+    return sum(ev.name in SYNC_CALLS for ev in prof.events())
+
+
+def sync_baseline(device):
+    """The synchronizing runtime calls of a trace of nothing, which every
+    count is taken less; None when a control that reads one value to the
+    host shows none more (the trace cannot see them) or off the card."""
+    import torch
+    if device.type != "cuda":
+        return None
+    one = torch.ones(8, device=device)
+    base = sync_calls(profiled(lambda: None))
+    if sync_calls(profiled(lambda: one.sum().item())) <= base:
+        return None
+    return base
+
+
 def traced_syncs(fn, device):
     """A second witness for ``host_syncs``, whose detector torch calls a
     prototype: the synchronizing CUDA runtime calls a profiler trace of
-    ``fn`` holds, less those of a trace of nothing. A control that reads
-    one value to the host must show at least one such call, or the trace
-    cannot see them and the answer is None (also off the card)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if device.type != "cuda":
-        return None
-
-    def count(f):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            f()
-        return sum(ev.name in SYNC_CALLS for ev in prof.events())
-
-    one = torch.ones(8, device=device)
-    base = count(lambda: None)
-    if count(lambda: one.sum().item()) <= base:
-        return None
-    return count(fn) - base
+    ``fn`` holds, less those of a trace of nothing (``sync_baseline``);
+    None where the trace cannot see them."""
+    base = sync_baseline(device)
+    return None if base is None else sync_calls(profiled(fn)) - base
 
 
 def lm_card_vs_cpu(cfg, device, b, s, steps):
@@ -2592,16 +2645,432 @@ def log_lm(out) -> None:
     log(f"  kernel launches on the LM path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 19 --
+
+def train_state_on(cfg, device, seed=0):
+    """``(model, state)`` of ``cfg`` on ``device``: float32 masters drawn
+    on the CPU from ``seed`` (so every device gets the same ones)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state
+    model = build_model(cfg, device=device)
+    return model, init_train_state(model, torch.Generator().manual_seed(seed))
+
+
+def train_pipe(cfg, device, b, s, seed=0):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticLM
+    return SyntheticLM(cfg, InputShape("train", s, b, "train"), seed=seed,
+                       device=device)
+
+
+def loss_and_grads(model, state, batch):
+    """``forward_train`` on the step's cast copies, then backward: (metrics,
+    {name: float32 gradient}), the masters' ``.grad`` cleared."""
+    from repro_torch.train.step import compute_params
+    loss, metrics = model.forward_train(compute_params(model, state.params),
+                                        batch)
+    loss.backward()
+    grads = {}
+    for n, p in state.params.items():
+        grads[n], p.grad = p.grad, None
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def rel_err(name, card, cpu, tol) -> float:
+    """max|card - cpu| / max|cpu|; raises beyond ``tol`` or on another
+    shape."""
+    card, cpu = card.detach().cpu().float(), cpu.detach().float()
+    if card.shape != cpu.shape:
+        raise AssertionError(f"{name}: shape {tuple(card.shape)} on the "
+                             f"card, {tuple(cpu.shape)} on the CPU")
+    err = float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+    if not err <= tol:
+        raise AssertionError(f"{name}: card vs CPU max|diff| / max|cpu| = "
+                             f"{err:.3g} beyond {tol}")
+    return err
+
+
+def state_leaves(state):
+    """Every tensor of a train state by a name of its own."""
+    return {**{f"params/{n}": t for n, t in state.params.items()},
+            **{f"mu/{n}": t for n, t in state.opt.mu.items()},
+            **{f"nu/{n}": t for n, t in state.opt.nu.items()},
+            "count": state.opt.count, "step": state.step}
+
+
+def same_state(name, a, b) -> None:
+    """Raise unless two train states are bitwise equal."""
+    import torch
+    la, lb = state_leaves(a), state_leaves(b)
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    if differ:
+        raise AssertionError(f"{name}: {len(differ)} leaves differ, e.g. "
+                             f"{differ[:3]}")
+
+
+def counted(counter, fn, device):
+    """``counter(fn, device)`` (``host_syncs`` or ``traced_syncs``), and
+    ``fn`` run once whatever the counter did (off the card it runs
+    nothing)."""
+    ran = []
+    result = counter(lambda: ran.append(fn()), device)
+    if not ran:
+        fn()
+    return result
+
+
+def lm_train_card_vs_cpu(cfg, device, b, s, steps, ckpt_at, ckpt_dir):
+    """Phase 19 (a) on one config: ``forward_train``'s metrics and every
+    gradient leaf on the card against the CPU (same masters and batch),
+    one ``adamw_update`` on the same gradients on both; then on the card a
+    step with remat equal to one without (bitwise), two microbatches
+    against one (params within 5e-3, xent within rtol 1e-4, the
+    reference's bound), a run checkpointed at step ``ckpt_at`` and resumed
+    bitwise the unbroken ``steps``-step run, and the host syncs of a train
+    step (sync debug mode and runtime calls in a profiler trace)."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.train import adamw_update, make_train_step
+    from repro_torch.train.step import (load_reference_tree, reference_like,
+                                        reference_tree)
+    out = dict(arch=cfg.name, family=cfg.family, b=b, s=s, steps=steps,
+               ckpt_at=ckpt_at)
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        model, state = train_state_on(cfg, dev)
+        batch = train_pipe(cfg, dev, b, s).batch(0)
+        runs.append((model, state) + loss_and_grads(model, state, batch))
+    (_, cstate, cmet, cgrads), (model, state, met, grads) = runs
+    if met.keys() != cmet.keys():
+        raise AssertionError(f"{cfg.name}: metrics {sorted(met)} on the card, "
+                             f"{sorted(cmet)} on the CPU")
+    out["metric_err"] = max(lm_err(f"{cfg.name} {k}", met[k], cmet[k])
+                            for k in cmet)
+    out["grad_err"] = max(rel_err(f"{cfg.name} grad {n}", grads[n], g,
+                                  LM_TOL) for n, g in cgrads.items())
+    for st, g in ((cstate, cgrads),
+                  (state, {n: v.to(device) for n, v in cgrads.items()})):
+        adamw_update(st.params, g, st.opt, lr=1e-3)
+    out["adamw_err"] = max(lm_err(f"{cfg.name} adamw {n}", t,
+                                  state_leaves(cstate)[n])
+                           for n, t in state_leaves(state).items())
+    del runs, cstate, cgrads, grads
+
+    def trained(n, start=None, **kw):
+        """A fresh card state after ``n`` steps (or ``start``'s, further);
+        no warmup, so the first step moves the masters."""
+        model, st = start or train_state_on(cfg, device)
+        step = make_train_step(model, base_lr=1e-3, warmup=0,
+                               total_steps=steps, **kw)
+        pipe = train_pipe(cfg, device, b, s)
+        first = int(st.step)
+        for i in range(first, first + n):
+            st, m = step(st, pipe.batch(i))
+        return (model, st), m, step, pipe
+
+    (_, remat), m1, step, pipe = trained(1)
+    (_, plain), m_plain, _, _ = trained(1, remat=False)
+    same_state(f"{cfg.name}: remat=True vs remat=False", remat, plain)
+    if not all(torch.equal(m1[k], m_plain[k]) for k in m1):
+        raise AssertionError(f"{cfg.name}: remat changes the metrics")
+    (_, micro), m2, _, _ = trained(1, microbatches=2)
+    out["micro_param_diff"] = max(float((micro.params[n] - p).detach()
+                                        .abs().max())
+                                  for n, p in remat.params.items())
+    out["micro_xent_rel"] = float(abs(m2["xent"] - m1["xent"])
+                                  / abs(m1["xent"]))
+    if not (out["micro_param_diff"] < 5e-3 and out["micro_xent_rel"] <= 1e-4):
+        raise AssertionError(f"{cfg.name}: microbatches=2 vs 1: params "
+                             f"{out['micro_param_diff']:.3g} (limit 5e-3), "
+                             f"xent {out['micro_xent_rel']:.3g} (limit 1e-4)")
+    del plain, micro
+
+    # the unbroken run goes on from the remat state; its next two steps
+    # are counted for host syncs
+    where = counted(host_syncs, lambda: step(remat, pipe.batch(1)), device)
+    out["syncs_per_step"] = None if where is None else len(where)
+    out["sync_sites"] = where
+    out["traced_syncs_per_step"] = counted(
+        traced_syncs, lambda: step(remat, pipe.batch(2)), device)
+    for i in range(3, steps):
+        step(remat, pipe.batch(i))
+    (model, broken), _, _, _ = trained(ckpt_at)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_pytree(str(ckpt_dir), ckpt_at, reference_tree(broken),
+                extra={"data_step": ckpt_at})
+    resumed = train_state_on(cfg, device, seed=1)
+    tree, extra = restore_pytree(str(ckpt_dir), ckpt_at,
+                                 reference_like(resumed[1]))
+    load_reference_tree(resumed[1], tree)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    (_, resumed), _, _, _ = trained(steps - extra["data_step"], start=resumed)
+    same_state(f"{cfg.name}: resumed at step {ckpt_at} vs unbroken",
+               resumed, remat)
+    out["resumed_bitwise"] = True
+    return out
+
+
+def lm_train_wide(cfg, device, b, s):
+    """Phase 19 (b): ``cfg`` (Qwen3-4B's widths, cut in depth) in float32:
+    the loss within ``LM_TRAIN_REL`` relative and every gradient leaf
+    within ``LM_TRAIN_REL`` of its largest magnitude, card vs CPU."""
+    import torch
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        model, state = train_state_on(cfg, dev)
+        runs.append(loss_and_grads(model, state,
+                                   train_pipe(cfg, dev, b, s).batch(0)))
+        del model, state
+    (cmet, cgrads), (met, grads) = runs
+    return dict(arch=cfg.name, layers=cfg.n_layers, b=b, s=s,
+                loss=float(cmet["loss"]),
+                loss_rel=rel_err(f"{cfg.name} loss", met["loss"],
+                                 cmet["loss"], LM_TRAIN_REL),
+                grad_err=max(rel_err(f"{cfg.name} grad {n}", grads[n], g,
+                                     LM_TRAIN_REL)
+                             for n, g in cgrads.items()))
+
+
+def lm_trained(cfg, device, b, s, steps, base_lr, warmup, synced, traced,
+               peak_bf16):
+    """Phase 19 (c): ``cfg`` as published, masters drawn on the card,
+    ``steps`` steps of ``make_train_step(remat=True)`` on ``SyntheticLM``
+    batches, each timed by CUDA events; step ``synced`` under torch's sync
+    debug mode, the steps in ``traced`` under the profiler (busy share,
+    device ops, synchronizing runtime calls). Checks: every loss and
+    grad_norm finite, ``lr`` equal to ``cosine_lr`` at every step, and the
+    mean loss over the first ``LM_TRAIN_EVAL`` batches, evaluated on the
+    masters before the first step and after the last, lower by
+    ``LM_TRAIN_DROP`` (the training losses themselves spike at this
+    schedule: PERF.md, phase 19). The mean of the last three training
+    losses against step 0's is reported as ``loss_drop``."""
+    import torch
+    from repro_torch.roofline import model_flops
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import cosine_lr
+    from repro_torch.train.step import compute_params, init_train_state
+    on_card = device.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    state = init_train_state(model, torch.Generator(device=device)
+                             .manual_seed(0))
+    sync(device)
+    params = sum(p.numel() for p in state.params.values())
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, b=b, s=s,
+               steps=steps, base_lr=base_lr, warmup=warmup,
+               init_s=time.perf_counter() - t0, params=params,
+               held_before_bytes=held,
+               model_flops_per_step=model_flops(state.params, b * s,
+                                                cfg=cfg))
+    pipe = train_pipe(cfg, device, b, s)
+    step = make_train_step(model, base_lr=base_lr, warmup=warmup,
+                           total_steps=steps, remat=True)
+    def evaluated():
+        with torch.no_grad():
+            return [float(model.forward_train(
+                compute_params(model, state.params), pipe.batch(i),
+                remat=False)[0]) for i in range(LM_TRAIN_EVAL)]
+
+    before = evaluated()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = sync_baseline(device)
+    metrics, marks, kinds, prof = [], [], [], None
+
+    def mark(kind=None):
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+        if kind:
+            kinds.append(kind)
+
+    def run(i):
+        metrics.append(step(state, pipe.batch(i))[1])
+
+    t0 = time.perf_counter()
+    mark()
+    for i in range(steps):
+        if i == synced:
+            where = counted(host_syncs, lambda: run(i), device)
+            mark("synced")
+        elif on_card and i == traced[0]:
+            # the traced steps share one interval
+            t_tr = time.perf_counter()
+            prof = profiled(lambda: [run(j) for j in traced])
+            traced_wall_s = time.perf_counter() - t_tr
+            mark("traced")
+        elif not (on_card and i in traced):
+            run(i)
+            mark("plain")
+    sync(device)
+    out["wall_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    after = evaluated()
+    if on_card:
+        ms = [a.elapsed_time(c) for a, c in zip(marks, marks[1:])]
+    else:
+        ms = [(c - a) * 1e3 for a, c in zip(marks, marks[1:])]
+    plain = [t for t, kind in zip(ms, kinds) if kind != "traced"]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    lrs = [float(m["lr"]) for m in metrics]
+    want = [float(cosine_lr(torch.tensor(i, dtype=torch.int32,
+                                         device=device), base_lr=base_lr,
+                            warmup=warmup, total=steps))
+            for i in range(steps)]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses} "
+                             f"{gnorms}")
+    if lrs != want:
+        raise AssertionError(f"lr {lrs} is not cosine_lr's {want}")
+    eval_drop = (sum(before) - sum(after)) / LM_TRAIN_EVAL
+    if not eval_drop > LM_TRAIN_DROP:
+        raise AssertionError(f"mean loss over batches 0..{LM_TRAIN_EVAL - 1}"
+                             f" {before} before training, {after} after: "
+                             f"not {LM_TRAIN_DROP} lower")
+    step_s = percentile(plain, 50) / 1e3
+    out.update(
+        losses=losses, grad_norms=gnorms, lrs=lrs, step_ms=ms,
+        step_kinds=kinds,
+        step_ms_p50=percentile(plain, 50), step_ms_p90=percentile(plain, 90),
+        tokens_per_s=b * s / step_s,
+        loss_drop=losses[0] - sum(losses[-3:]) / 3, eval_before=before,
+        eval_after=after, eval_drop=eval_drop,
+        mfu=out["model_flops_per_step"] / step_s / peak_bf16,
+        model_tflops_per_s=out["model_flops_per_step"] / step_s / 1e12,
+        peak_bf16=peak_bf16, peak_memory_bytes=peak,
+        syncs_per_step=None if where is None else len(where),
+        sync_sites=where)
+    if prof is not None:
+        busy_s, n_ops = busy_seconds(prof)
+        n = len(traced)
+        out["trace"] = dict(
+            steps=n, wall_ms_per_step=traced_wall_s * 1e3 / n,
+            busy_ms_per_step=busy_s * 1e3 / n,
+            busy_share=busy_s / traced_wall_s,
+            busy_over_untraced_step=busy_s * 1e3 / n / out["step_ms_p50"],
+            device_ops_per_step=n_ops / n,
+            traced_syncs_per_step=None if base is None
+            else (sync_calls(prof) - base) / n)
+    del model, state, metrics
+    return out
+
+
+def phase_lm_train(device, families=None, wide_cfg=None, train_cfg=None,
+                   family=LM_TRAIN_FAMILY, wide=LM_TRAIN_WIDE,
+                   train=LM_TRAIN, ckpt_dir=None, peak_bf16=None):
+    """Phase 19, the LM stack's training path: (a) every family at
+    ``reduced()`` card vs CPU and the step's invariants on the card; (b)
+    Qwen3-4B's widths at ``wide["layers"]`` layers in float32, card vs
+    CPU; (c) Qwen3-4B as published, trained. The BP kernels run nowhere
+    here: their counts go from 0."""
+    import torch
+    from repro_torch import configs as TC
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: float32 card-vs-CPU "
+                             "checks would lose three digits")
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    ckpt_dir = ckpt_dir or REPO / "chiprun_out" / "lm_train_ckpt"
+    t0 = time.perf_counter()
+    out = dict(families=[
+        lm_train_card_vs_cpu(cfg, device, ckpt_dir=ckpt_dir, **family)
+        for cfg in families or [TC.get(a).reduced() for a in TC.ARCH_IDS]])
+    out["families_s"] = time.perf_counter() - t0
+    wide_cfg = wide_cfg or dataclasses.replace(
+        TC.get("qwen3_4b"), n_layers=wide["layers"], dtype="float32")
+    t0 = time.perf_counter()
+    out["wide"] = lm_train_wide(wide_cfg, device, wide["b"], wide["s"])
+    out["wide_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trained"] = lm_trained(train_cfg or TC.get("qwen3_4b"), device,
+                                peak_bf16=peak_bf16 or bf16_peak(
+                                    torch.cuda.get_device_name(0)),
+                                **train)
+    out["trained_s"] = time.perf_counter() - t0
+    out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"]}
+    return out
+
+
+def log_lm_train(out) -> None:
+    """Phase 19's progress lines."""
+    for f in out["families"]:
+        log(f"  {f['arch']} ({f['family']}) B={f['b']} S={f['s']}: card vs "
+            f"CPU metrics {f['metric_err']:.3g}, gradients "
+            f"{f['grad_err']:.3g} (of max), one adamw_update "
+            f"{f['adamw_err']:.3g}; remat on == off bitwise; 2 microbatches "
+            f"vs 1: params {f['micro_param_diff']:.3g}, xent "
+            f"{f['micro_xent_rel']:.3g}; resumed at step {f['ckpt_at']} "
+            f"bitwise the unbroken {f['steps']} steps; host syncs per train "
+            f"step: {f['syncs_per_step']} {f['sync_sites'] or ''} (sync debug "
+            f"mode), {f['traced_syncs_per_step']} (runtime calls in a "
+            "profiler trace)")
+    log(f"  families in {out['families_s']:.1f} s")
+    w = out["wide"]
+    log(f"  {w['arch']} {w['layers']} layers float32 B={w['b']} S={w['s']}: "
+        f"loss {w['loss']:.5f}, card vs CPU {w['loss_rel']:.3g} (relative), "
+        f"gradients {w['grad_err']:.3g} (of max) ({out['wide_s']:.1f} s)")
+    t = out["trained"]
+    log(f"  {t['arch']} {t['layers']} layers {t['dtype']} over float32 "
+        f"masters: {t['params']:,} parameters, drawn on the device in "
+        f"{t['init_s']:.2f} s; earlier phases hold {t['held_before_bytes']} B")
+    log(f"  {t['steps']} steps B={t['b']} S={t['s']} lr {t['base_lr']} warmup "
+        f"{t['warmup']}: ms/step p50 {t['step_ms_p50']:.1f} p90 "
+        f"{t['step_ms_p90']:.1f} (CUDA events, untraced steps; each "
+        "interval: " + ", ".join(f"{x:.1f} {k}" for x, k in
+                                 zip(t["step_ms"], t["step_kinds"])) + ")")
+    log(f"  {t['tokens_per_s']:.0f} tokens/s; model_flops "
+        f"{t['model_flops_per_step'] / 1e12:.2f} TFLOP/step = "
+        f"{t['model_tflops_per_s']:.1f} TFLOP/s, mfu {t['mfu']:.4f} of "
+        f"{t['peak_bf16'] / 1e12:.0f} TFLOP/s dense bf16; peak memory "
+        f"{t['peak_memory_bytes']} B; host syncs per step "
+        f"{t['syncs_per_step']} {t['sync_sites'] or ''}")
+    if "trace" in t:
+        tr = t["trace"]
+        log(f"  trace of {tr['steps']} steps: {tr['wall_ms_per_step']:.1f} "
+            f"ms/step wall under the profiler, device busy "
+            f"{tr['busy_ms_per_step']:.1f} ms/step = share "
+            f"{tr['busy_share']:.3f} of it, "
+            f"{tr['busy_over_untraced_step']:.3f} of the untraced p50 step; "
+            f"{tr['device_ops_per_step']:.0f} "
+            f"device ops/step, {tr['traced_syncs_per_step']} synchronizing "
+            "runtime calls/step")
+    log("  loss " + ", ".join(f"{x:.4f}" for x in t["losses"])
+        + f" (mean of the last three {t['loss_drop']:.4f} below step 0's)")
+    log(f"  loss over batches 0..{len(t['eval_before']) - 1} on the masters: "
+        + ", ".join(f"{x:.4f}" for x in t["eval_before"]) + " before, "
+        + ", ".join(f"{x:.4f}" for x in t["eval_after"]) + " after: "
+        f"{t['eval_drop']:.4f} lower (limit {LM_TRAIN_DROP})")
+    log("  grad_norm " + ", ".join(f"{x:.4f}" for x in t["grad_norms"]))
+    log(f"  kernel launches on the LM training path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one, lm):
+                     dist_one, lm, lm_train):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
     path (phase 15: run (a), the deadline run, the skewed runs; each
     counted from 0), the resilient run (phase 16), the multi-device
-    paths of phase 17 (a): ``sharded`` and ``banded``, and the LM stack's
-    serving path (phase 18, ``lm``)."""
+    paths of phase 17 (a): ``sharded`` and ``banded``, the LM stack's
+    serving path (phase 18, ``lm``) and its training path (phase 19,
+    ``lm_train``)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
+    lmt = lm_train["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -2610,20 +3079,23 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    resilient=resilient["launches"]["sum"],
                                    sharded=dist_one["sharded"]["launches"],
                                    banded=dist_one["banded"]["launches"],
-                                   lm=lm["fused_update_e/sum"]),
+                                   lm=lm["fused_update_e/sum"],
+                                   lm_train=lmt["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
                                    routed=rt.get("fused_update_e/max", 0),
                                    resilient=resilient["launches"]["max"],
                                    sharded=0, banded=0,
-                                   lm=lm["fused_update_e/max"]),
+                                   lm=lm["fused_update_e/max"],
+                                   lm_train=lmt["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
                                    routed=rt.get("fused_update_t/sum", 0),
                                    resilient=0, sharded=0, banded=0,
-                                   lm=lm["fused_update_t/sum"])}
+                                   lm=lm["fused_update_t/sum"],
+                                   lm_train=lmt["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -2677,8 +3149,9 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
                  by_path, served=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
     launches, ``launches_by_path`` (``by_path[name]``: its launches on the
-    one-graph, batched, serving, routed, resilient, sharded, banded and LM
-    paths, each counted from 0 just before the path ran), its largest
+    one-graph, batched, serving, routed, resilient, sharded, banded, LM
+    serving and LM training paths, each counted from 0 just before the path
+    ran), its largest
     difference from the plain version over phases 3, 7, 9 and 12, the
     captured chunks of the serving and routed paths, the resilient run
     and the captured rank slices of phase 17 (``served``: name -> rows
@@ -2890,6 +3363,11 @@ def main() -> int:
     lm = phase_lm(device, bw=bw)
     log_lm(lm)
 
+    log("== 19. the LM stack's training path (forward_train, AdamW, the "
+        "train step, SyntheticLM): every family card vs CPU, Qwen3-4B")
+    lm_train = phase_lm_train(device)
+    log_lm_train(lm_train)
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -2903,7 +3381,7 @@ def main() -> int:
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
-                                            dist_out["one"], lm),
+                                            dist_out["one"], lm, lm_train),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -2912,7 +3390,7 @@ def main() -> int:
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
                   batched_timing=btiming, protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
-                  resilient=resil, dist=dist_out, lm=lm,
+                  resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

@@ -1,5 +1,5 @@
-"""The weight carry: the reference's parameter pytree to the port's
-``state_dict``.
+"""The weight carry between the reference's parameter pytree and the port's
+``state_dict``, both ways.
 
 ``params_from_reference(cfg, tree)`` takes the tree that
 ``repro.models.Model.init_params`` returns, as numpy arrays (for example
@@ -9,17 +9,23 @@
 Matmul weights keep the reference's (in, out) layout, so nothing is
 transposed. Then ``model.load_state_dict(...)`` makes the port compute the
 reference's function.
+
+``params_to_reference(params)`` is the inverse: it stacks the per-layer
+entries back on a leading L axis, in float32 numpy on the host, so a port
+tree (parameters, or AdamW moments) saves under the reference's checkpoint
+keys.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import STACKS, model_dtype, storage_dtype
+from repro_torch.models.model import (STACKS, model_dtype, param_tree,
+                                      storage_dtype)
 
 
 def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
@@ -31,8 +37,9 @@ def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def params_from_reference(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
-    """A ``state_dict`` for ``Model(cfg)`` from the reference's params."""
+def unstack_reference(tree) -> Dict[str, Any]:
+    """The reference's tree as ``{port parameter name: array}``, each
+    stacked leaf split into its layers."""
     flat: Dict[str, Any] = {}
     for key, sub in tree.items():
         if key in STACKS:
@@ -43,7 +50,39 @@ def params_from_reference(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
             _flatten(sub, key + ".", flat)
         else:
             flat[key] = sub
+    return flat
+
+
+def params_from_reference(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for ``Model(cfg)`` from the reference's params."""
     dt = model_dtype(cfg)
     return {name: torch.from_numpy(np.array(arr, np.float32)).to(
                 storage_dtype(name, dt))
-            for name, arr in flat.items()}
+            for name, arr in unstack_reference(tree).items()}
+
+
+def stack_like_reference(flat: Mapping[str, Any],
+                         stack: Callable = np.stack) -> Dict[str, Any]:
+    """``{port parameter name: leaf}`` as the reference's nested tree, each
+    block stack's per-layer leaves joined by ``stack`` (a list of the
+    layers' leaves -> one leaf)."""
+    tree = param_tree(flat)
+    for key in STACKS:
+        if key in tree:
+            layers = [_flatten(layer, "", {}) for layer in tree[key]]
+            tree[key] = param_tree({name: stack([layer[name]
+                                                 for layer in layers])
+                                    for name in layers[0]})
+    return tree
+
+
+def _host32(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def params_to_reference(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's params tree (float32 numpy, layers stacked on a
+    leading L axis) from the port's ``{name: tensor}`` on any device."""
+    return stack_like_reference({n: _host32(t) for n, t in params.items()})

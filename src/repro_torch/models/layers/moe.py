@@ -6,7 +6,10 @@ Dispatch:
             expert, then one grouped product per non-empty expert group
             (the reference's ``jax.lax.ragged_dot``); no capacity dropping.
             The group sizes are read to the host once per call: one host
-            synchronization per MoE layer and step.
+            synchronization per MoE layer and step (two in training with
+            remat: the forward and its recompute). The backward pass holds
+            no float scatter-add over repeated indices, so it is
+            deterministic on the GPU.
   "dense"   every expert on every token, combined with the routing
             weights (E/top_k x the active FLOPs, no dispatch).
   "sharded" not ported yet (ROADMAP queue 1, item 14c): it raises.
@@ -61,17 +64,16 @@ def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
     t, d = xt.shape
     flat_e = top_e.reshape(-1)                                       # (T*K,)
     order = torch.argsort(flat_e, stable=True)
-    rows = xt[torch.arange(t, device=xt.device).repeat_interleave(top_k)
-              [order]]                                               # (T*K, d)
+    # each token's K copies, then sorted: both steps' backward passes are
+    # sums in a fixed order (no scatter-add of duplicate indices)
+    rows = xt.repeat_interleave(top_k, dim=0)[order]                # (T*K, d)
     sizes = _counts(flat_e, n_experts).tolist()                     # host read
-    out_rows = torch.empty_like(rows)
-    start = 0
-    for e, n in enumerate(sizes):
-        if n:
-            r = rows[start:start + n]
+    groups = []
+    for e, r in zip(range(n_experts), torch.split(rows, sizes)):
+        if r.shape[0]:
             h = act_fn(act)(r @ w_gate[e]) * (r @ w_in[e])
-            out_rows[start:start + n] = h @ w_out[e]
-            start += n
+            groups.append(h @ w_out[e])
+    out_rows = torch.cat(groups)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     out_rows = out_rows[inv].reshape(t, top_k, d)

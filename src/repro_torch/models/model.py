@@ -1,5 +1,5 @@
-"""Model assembly: init / prefill / decode for every family (a port of the
-serving half of ``repro.models.model``).
+"""Model assembly: init / train-forward / prefill / decode for every family
+(a port of ``repro.models.model``).
 
 ``Model`` is an ``nn.Module`` whose parameters keep the reference's pytree
 names (``embed.table``, ``blocks.3.attn.wq``, ...). Where the reference
@@ -13,24 +13,24 @@ cache it was given, updated.
 Storage: matmul weights in the config's dtype; norm weights, ``A_log``,
 ``D``, ``dt_bias``, the embedding and head tables and MLA's ``w_uv`` in
 float32, since the reference uses them in float32 (``storage_dtype``).
+Training keeps float32 masters instead (``repro_torch.train``) and hands
+``forward_train`` the tensors to compute with, by parameter name.
 
 Batch dict contract (all optional keys per family):
   tokens   (B, S)  int          text tokens (decoder tokens for enc-dec)
+  labels   (B, S)  int          next-token labels, -1 = masked
   frontend_embeds (B, T, d)     vlm: patch embeddings (prepended);
                                 audio: encoder frame embeddings
 Decode: tokens (B, 1), pos an int or a 0-d integer tensor, plus the cache.
-
-Training (``forward_train`` with the MoE aux and MTP losses) is the next
-slice; the MTP head's weights are held here so the reference's whole
-parameter tree carries over.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import resolve_device
@@ -50,6 +50,53 @@ STACKS = ("lead_blocks", "blocks", "enc_blocks")
 def storage_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     """The dtype the port stores parameter ``name`` (a dotted path) in."""
     return torch.float32 if name.rsplit(".", 1)[-1] in F32_LEAVES else dtype
+
+
+def stacked_ndim(name: str, t) -> int:
+    """The ndim of parameter ``name`` in the reference's tree, where every
+    leaf of a block stack carries a leading L axis: ``t.ndim + 1`` under
+    ``lead_blocks``, ``blocks`` and ``enc_blocks``, ``t.ndim`` elsewhere
+    (the MTP head's block is not stacked). The reference decides by this
+    ndim which leaves a train step casts and AdamW decays."""
+    return len(t.shape) + (name.split(".", 1)[0] in STACKS)
+
+
+def param_tree(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Flat ``{dotted name: tensor}`` (a ``state_dict``'s layout) as the
+    nested tree the layer functions read: dicts, and each block stack as
+    a list of per-layer dicts."""
+    tree: Dict[str, Any] = {}
+    for name, t in params.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    for stack in STACKS:
+        if stack in tree:
+            tree[stack] = [tree[stack][str(i)]
+                           for i in range(len(tree[stack]))]
+    return tree
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor):
+    """Masked mean cross-entropy; labels -1 are ignored. logits f32.
+    Returns (loss, number of unmasked labels)."""
+    mask = labels >= 0
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, logz - gold, 0.0)
+    denom = mask.sum().clamp_min(1)
+    return nll.sum() / denom, denom
+
+
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``remat`` (the
+    reference's ``jax.checkpoint``: only the inputs are kept)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -125,6 +172,11 @@ class Model(nn.Module):
         _register(self, self._param_spec(), self.dtype, self.device, "",
                   self._leaves)
 
+    def __getitem__(self, key):
+        """``model["blocks"]`` reads the model as ``param_tree`` reads a
+        flat mapping, so one set of helpers serves both."""
+        return getattr(self, key)
+
     # ------------------------------------------------------------- init --
 
     def _layer_kinds(self) -> Tuple[str, int, str, int]:
@@ -182,36 +234,127 @@ class Model(nn.Module):
 
     # ------------------------------------------------------- embeddings --
 
-    def _embed_inputs(self, batch: Dict[str, torch.Tensor]):
-        """Returns (x (B,S,d), positions (B,S))."""
+    def _embed_inputs(self, p, batch: Dict[str, torch.Tensor]):
+        """Returns (x (B,S,d), positions (B,S), labels-or-None); for the
+        vision frontend the labels are padded with -1 over the patches."""
         cfg = self.cfg
-        x = embed(self.embed, batch["tokens"].to(self.device), self.dtype)
+        x = embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
+        labels = batch.get("labels")
+        if labels is not None:
+            labels = labels.to(self.device)
         if cfg.frontend == "vision" and "frontend_embeds" in batch:
             fe = batch["frontend_embeds"].to(self.device, self.dtype)
             x = torch.cat([fe, x], dim=1)
+            if labels is not None:
+                labels = torch.cat([labels.new_full(fe.shape[:2], -1),
+                                    labels], dim=1)
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(b, s)
         if cfg.rope_theta == 0.0:  # absolute sinusoidal (whisper)
             x = x + sinusoid(positions, cfg.d_model).to(self.dtype)
-        return x, positions
+        return x, positions, labels
 
-    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.embed if self.cfg.tie_embeddings else self.lm_head
+    def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
+        head = p["embed"] if self.cfg.tie_embeddings else p["lm_head"]
         return unembed(head, x)
 
     # ----------------------------------------------------------- encode --
 
-    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
         """Whisper encoder over stub frame embeddings (B, S_enc, d)."""
         x = frames.to(self.device, self.dtype)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(x.shape[0], s)
         x = x + sinusoid(positions, self.cfg.d_model).to(self.dtype)
-        for p_l in self.enc_blocks:
+        for p_l in p["enc_blocks"]:
             x = B.enc_block_forward(p_l, x, positions, self.cfg)
-        return rms_norm(self.enc_norm, x)
+        return rms_norm(p["enc_norm"], x)
+
+    # ------------------------------------------------------------ train --
+
+    def forward_train(self, params: Mapping[str, torch.Tensor],
+                      batch: Dict[str, torch.Tensor], *, remat: bool = True):
+        """Returns (loss, metrics dict) as the reference computes them:
+        the masked mean cross-entropy of ``batch["labels"]``, plus 0.01 x
+        the MoE load-balance loss and 1e-3 x the router z-loss (each
+        averaged over the MoE layers) and 0.3 x the MTP loss. Metrics:
+        ``xent``, ``n_tokens``, ``lb_loss`` and ``z_loss`` (MoE),
+        ``mtp_loss`` (MTP), ``loss``.
+
+        ``params`` maps every parameter name to the tensor to compute with
+        (``dict(model.named_parameters())``, or a train step's cast
+        copies); gradients flow back to those tensors. With ``remat`` each
+        block is recomputed in the backward pass."""
+        cfg = self.cfg
+        p = param_tree(params)
+        if cfg.enc_dec:
+            return self._forward_train_encdec(p, batch, remat=remat)
+        x, positions, labels = self._embed_inputs(p, batch)
+        lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
+        lb_loss = z_loss = torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+        for stack, kind in (("lead_blocks", lead_kind), ("blocks", main_kind)):
+            def block(p_l, x, kind=kind):
+                x, _, (l1, l2) = B.block_forward(p_l, x, positions, cfg, kind)
+                return x, l1, l2
+            for p_l in p.get(stack, ()):
+                x, l1, l2 = _remat(block, remat, p_l, x)
+                lb_loss, z_loss = lb_loss + l1, z_loss + l2
+        x = rms_norm(p["final_norm"], x)
+        logits = self._unembed(p, x)
+        loss, n_tok = _xent(logits, labels)
+        metrics = {"xent": loss, "n_tokens": n_tok}
+        total = loss
+        if cfg.n_experts:
+            metrics["lb_loss"] = lb_loss / main_n
+            metrics["z_loss"] = z_loss / main_n
+            total = total + 0.01 * metrics["lb_loss"] \
+                + 1e-3 * metrics["z_loss"]
+        if cfg.mtp:
+            mtp_loss = self._mtp_loss(p, x, batch, positions)
+            metrics["mtp_loss"] = mtp_loss
+            total = total + 0.3 * mtp_loss
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, p, h, batch, positions):
+        """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from
+        [h_t ; emb(tok_{t+1})]."""
+        cfg = self.cfg
+        tokens = batch["tokens"].to(self.device)
+        labels = batch["labels"].to(self.device)
+        emb_next = embed(p["embed"], torch.roll(tokens, -1, dims=1),
+                         self.dtype)
+        z = torch.cat([h.to(self.dtype), emb_next], dim=-1)
+        z = z @ p["mtp"]["proj"].to(self.dtype)
+        z, _, _ = B.block_forward(p["mtp"]["block"], z, positions, cfg,
+                                  "dense")
+        z = rms_norm(p["mtp"]["norm"], z)
+        logits = self._unembed(p, z)
+        mtp_labels = torch.roll(labels, -1, dims=1)
+        mtp_labels[:, -2:] = -1
+        loss, _ = _xent(logits, mtp_labels)
+        return loss
+
+    def _forward_train_encdec(self, p, batch, *, remat: bool = True):
+        cfg = self.cfg
+        enc_out = self._encode(p, batch["frontend_embeds"])
+        x, positions, labels = self._embed_inputs(p, batch)
+
+        def block(p_l, x):
+            ek, ev = A.cross_kv(p_l["xattn"], enc_out, n_heads=cfg.n_heads,
+                                head_dim=cfg.resolved_head_dim)
+            out, _ = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
+            return out
+
+        for p_l in p["blocks"]:
+            x = _remat(block, remat, p_l, x)
+        x = rms_norm(p["final_norm"], x)
+        logits = self._unembed(p, x)
+        loss, n_tok = _xent(logits, labels)
+        return loss, {"xent": loss, "loss": loss, "n_tokens": n_tok}
 
     # ---------------------------------------------------------- prefill --
 
@@ -221,7 +364,7 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.enc_dec:
             return self._prefill_encdec(batch)
-        x, positions = self._embed_inputs(batch)
+        x, positions, _ = self._embed_inputs(self, batch)
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
         caches = {}
         for name, stack, kind in (("lead", "lead_blocks", lead_kind),
@@ -234,13 +377,13 @@ class Model(nn.Module):
                 per_layer.append(cache)
             caches[name] = _stack(per_layer)
         x = rms_norm(self.final_norm, x)
-        logits = self._unembed(x[:, -1:])
+        logits = self._unembed(self, x[:, -1:])
         return logits[:, 0], caches
 
     def _prefill_encdec(self, batch):
         cfg = self.cfg
-        enc_out = self._encode(batch["frontend_embeds"])
-        x, positions = self._embed_inputs(batch)
+        enc_out = self._encode(self, batch["frontend_embeds"])
+        x, positions, _ = self._embed_inputs(self, batch)
         per_layer = []
         for p_l in self.blocks:
             ek, ev = A.cross_kv(p_l["xattn"], enc_out, n_heads=cfg.n_heads,
@@ -248,7 +391,7 @@ class Model(nn.Module):
             x, cache = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
             per_layer.append(dict(cache, cross_k=ek, cross_v=ev))
         x = rms_norm(self.final_norm, x)
-        logits = self._unembed(x[:, -1:])
+        logits = self._unembed(self, x[:, -1:])
         return logits[:, 0], {"main": _stack(per_layer)}
 
     # ----------------------------------------------------------- decode --
@@ -284,7 +427,7 @@ class Model(nn.Module):
                     x, _ = B.block_decode(p_l, x, c_l, pos, cfg, kind)
 
         x = rms_norm(self.final_norm, x)
-        logits = self._unembed(x)
+        logits = self._unembed(self, x)
         return logits[:, 0], cache
 
     # ------------------------------------------------------ cache specs --

@@ -225,10 +225,16 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"sum": 5, "max": 0}},
         {"sharded": {"launches": 6}, "banded": {"launches": 7}},
         {"launches": {"fused_update_e/sum": 8, "fused_update_e/max": 9,
-                      "fused_update_t/sum": 10}})
+                      "fused_update_t/sum": 10}},
+        {"launches": {"fused_update_e/sum": 11, "fused_update_e/max": 12,
+                      "fused_update_t/sum": 13}})
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
+    assert [by_path[k]["lm_train"] for k in ("fused_update_e/sum",
+                                             "fused_update_e/max",
+                                             "fused_update_t/sum")] == [
+        11, 12, 13]
     assert by_path["fused_update_t/sum"]["serving"] == \
         out["launches"]["fused_update_t/sum"]
     assert by_path["fused_update_t/sum"]["routed"] == 4
@@ -377,6 +383,8 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
                       "fused_update_t/sum": 0}}, {"launches": {}},
         {"launches": {"sum": 0, "max": 0}}, one,
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}},
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
@@ -433,3 +441,68 @@ def test_lm_card_check_rejects_a_wrong_card_result():
         model.prefill(cs.lm_inputs(cfg, 2, 5))
     assert M._route is real
     assert [tuple(t.shape) for t in seen] == [(10, 2)] * cfg.n_layers
+
+
+def test_lm_train_phase_on_cpu(tmp_path):
+    """Phase 19's control flow and checks at tiny sizes: every family at
+    reduced() (card vs CPU, remat, microbatches, checkpoint and resume),
+    the wide check on a one-layer reduced Qwen3, and the trained run on a
+    reduced Qwen3 in bf16 whose loss over three batches must fall by
+    ``LM_TRAIN_DROP`` in 10 steps."""
+    import dataclasses
+    from repro_torch import configs as TC
+    qwen = TC.get("qwen3_4b").reduced()
+    out = cs.phase_lm_train(
+        CPU, wide_cfg=dataclasses.replace(qwen, n_layers=1),
+        train_cfg=dataclasses.replace(qwen, dtype="bfloat16"),
+        family=dict(b=2, s=12, steps=4, ckpt_at=2), wide=dict(b=1, s=64),
+        train=dict(b=8, s=64, steps=10, base_lr=3e-2, warmup=1, synced=6,
+                   traced=(7, 8)),
+        ckpt_dir=tmp_path / "ckpt", peak_bf16=989e12)
+    assert [f["arch"] for f in out["families"]] == [
+        TC.get(a).reduced().name for a in TC.ARCH_IDS]
+    for f in out["families"]:
+        assert f["metric_err"] == f["grad_err"] == f["adamw_err"] == 0.0
+        assert f["micro_param_diff"] < 5e-3 and f["micro_xent_rel"] <= 1e-4
+        assert f["resumed_bitwise"]
+        assert f["syncs_per_step"] is None          # counted on the card only
+        assert f["traced_syncs_per_step"] is None
+    assert not (tmp_path / "ckpt").exists()
+    assert out["wide"]["loss_rel"] == out["wide"]["grad_err"] == 0.0
+    t = out["trained"]
+    assert len(t["losses"]) == len(t["lrs"]) == 10
+    assert t["eval_drop"] > cs.LM_TRAIN_DROP and t["tokens_per_s"] > 0
+    assert len(t["eval_before"]) == len(t["eval_after"]) == 3
+    assert t["step_kinds"] == ["plain"] * 6 + ["synced"] + ["plain"] * 3
+    assert t["model_flops_per_step"] == 6.0 * t["params"] * 8 * 64
+    assert "trace" not in t and t["peak_memory_bytes"] is None
+    assert out["launches"] == {"fused_update_t/sum": 0,
+                               "fused_update_e/sum": 0,
+                               "fused_update_e/max": 0}
+    cs.log_lm_train(out)
+
+
+def test_lm_train_checks_reject_a_wrong_card_result(monkeypatch):
+    """A gradient off by more than the tolerance, a train state one leaf
+    of which differs, and a loss that does not fall by the predicted
+    margin each raise."""
+    import dataclasses
+    from repro_torch import configs as TC
+    g = torch.linspace(-1, 1, 9)
+    assert cs.rel_err("g", g, g, 1e-4) == 0.0
+    with pytest.raises(AssertionError, match="beyond"):
+        cs.rel_err("g", g + 2e-4 * torch.eye(9)[3], g, 1e-4)
+    with pytest.raises(AssertionError, match="shape"):
+        cs.rel_err("g", g[:4], g, 1e-4)
+    cfg = TC.get("mamba2_130m").reduced()
+    (_, a), (_, b) = (cs.train_state_on(cfg, CPU) for _ in range(2))
+    cs.same_state("fresh", a, b)
+    with torch.no_grad():
+        b.opt.nu["blocks.1.ssm.D"][0] += 1e-12
+    with pytest.raises(AssertionError, match="1 leaves differ"):
+        cs.same_state("corrupted", a, b)
+    monkeypatch.setattr(cs, "LM_TRAIN_DROP", 10.0)
+    with pytest.raises(AssertionError, match="not 10.0 lower"):
+        cs.lm_trained(dataclasses.replace(cfg, n_layers=1), CPU, b=2, s=16,
+                      steps=3, base_lr=1e-3, warmup=1, synced=1,
+                      traced=(1, 2), peak_bf16=989e12)

@@ -26,6 +26,9 @@ no JAX:
   bitwise the one-device run, sharded and banded; two gloo ranks sharing
   the card stage their exchanges through the host, hold equal messages,
   and banded LBP is bitwise the one-device run.
+- The LM stack (``chip_smoke.py`` phases 18 and 19 at small sizes): each
+  family's serving and training paths on the card against the CPU; a
+  train step's remat and resume bitwise on the card.
 """
 
 import numpy as np
@@ -468,3 +471,30 @@ def test_lm_family_on_card_matches_cpu(cuda, arch):
     n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
     assert out["moe_routings"] == n_moe * 9     # prefill + 8 decode steps
     assert out["syncs_per_step"] <= n_moe
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "granite_moe_3b_a800m",
+                                  "deepseek_v3_671b", "mamba2_130m",
+                                  "whisper_medium"],
+                         ids=["dense", "moe", "mla_mtp", "ssm", "enc_dec"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
+    """The LM stack's training on the card (``chip_smoke.py`` phase 19
+    (a)): forward_train's metrics, every gradient leaf and one AdamW update
+    within 1e-4 of the CPU; remat on == off and a resumed run == the
+    unbroken one, bitwise on the card; a dense train step reads nothing
+    back to the host, a ragged MoE one its group sizes twice per MoE layer
+    (forward and recompute)."""
+    from repro_torch import configs as TC
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticLM
+    cs = _chip_smoke()
+    cfg = TC.get(arch).reduced()
+    out = cs.lm_train_card_vs_cpu(cfg, cuda, b=2, s=16, steps=5, ckpt_at=3,
+                                  ckpt_dir=tmp_path / "ckpt")
+    assert out["grad_err"] <= cs.LM_TOL and out["resumed_bitwise"]
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
+    assert out["syncs_per_step"] <= 2 * n_moe
+    shape = InputShape("train", 16, 2, "train")
+    card = SyntheticLM(cfg, shape, device=cuda).batch(4)
+    host = SyntheticLM(cfg, shape, device="cpu").batch(4)
+    assert all(torch.equal(card[k].cpu(), host[k]) for k in host)

@@ -4,8 +4,10 @@ A fresh interpreter imports every module of ``repro_torch`` and imports
 ``chip_smoke`` (without running it); neither JAX nor the reference package
 ``repro`` may then be loaded. Graph builders, ``BPEngine``, the router tier,
 ``run_bp_resilient`` and the multi-device entry points (``make_bp_mesh``,
-``run_bp_sharded``, ``ElasticMesh``) and the LM stack's ``build_model``
-and ``Model`` called without ``device=`` must raise when there is no GPU
+``run_bp_sharded``, ``ElasticMesh``), the LM stack's ``build_model`` and
+``Model``, its training entry points (``make_train_step``'s model,
+``init_train_state``, ``SyntheticLM``) and the training launcher called
+without ``device=`` / ``--device cpu`` must raise when there is no GPU
 rather than carry on on the CPU.
 """
 
@@ -18,12 +20,17 @@ import pytest
 import torch
 
 from repro_torch import configs as TC
+from repro_torch.configs.base import TRAIN_4K
 from repro_torch.core import BPConfig, BPEngine, build_pgm, build_pgm_uniform
+from repro_torch.data import SyntheticLM
 from repro_torch.dist import make_bp_mesh, run_bp_sharded
 from repro_torch.ft import ElasticMesh, run_bp_resilient
 from repro_torch.models import Model, build_model
 from repro_torch.pgm import datasets as TD
+from repro_torch.launch import train as launch_train
 from repro_torch.serve import Router, serve_routed
+from repro_torch.train import make_train_step
+from repro_torch.train.step import init_train_state
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -78,7 +85,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.models.layers.ssm",
                 "repro_torch.models.layers.moe",
                 "repro_torch.models.layers.mla", "repro_torch.launch",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.launch.train",
+                "repro_torch.train", "repro_torch.train.optimizer",
+                "repro_torch.train.step", "repro_torch.data",
+                "repro_torch.data.pipeline",
+                "repro_torch.roofline.analysis"):
         assert mod in report["modules"]
 
 
@@ -128,12 +139,19 @@ def no_gpu(monkeypatch):
     lambda: ElasticMesh().current(),
     lambda: build_model(TC.get("qwen3_4b").reduced()),
     lambda: Model(TC.get("mamba2_130m").reduced()),
+    lambda: make_train_step(build_model(TC.get("qwen3_4b").reduced())),
+    lambda: init_train_state(build_model(TC.get("qwen3_4b").reduced()),
+                             torch.Generator()),
+    lambda: SyntheticLM(TC.get("qwen3_4b").reduced(), TRAIN_4K),
+    lambda: launch_train.main(["--arch", "qwen3_4b", "--reduced",
+                               "--steps", "1"]),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
         "zoo_stream", "engine_batched", "router", "serve_routed",
         "run_bp_resilient", "make_bp_mesh", "run_bp_sharded",
-        "elastic_mesh", "build_model", "model"])
+        "elastic_mesh", "build_model", "model", "make_train_step",
+        "init_train_state", "synthetic_lm", "launch_train"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -163,3 +181,17 @@ def test_bucket_on_cpu_stays_on_cpu(no_gpu):
         pgms, 0)
     assert all(r.beliefs.device.type == "cpu" and bool(r.converged)
                for r in res)
+
+
+def test_lm_training_on_cpu_stays_on_cpu(no_gpu):
+    import dataclasses
+    cfg = TC.get("qwen3_4b").reduced()
+    model = build_model(cfg, device="cpu")
+    state = init_train_state(model, torch.Generator())
+    pipe = SyntheticLM(cfg, dataclasses.replace(TRAIN_4K, seq_len=8,
+                                                global_batch=2),
+                       device="cpu")
+    state, metrics = make_train_step(model)(state, pipe.batch(0))
+    assert all(t.device.type == "cpu" for t in metrics.values())
+    assert all(p.device.type == "cpu" for p in state.params.values())
+    assert state.step.device.type == "cpu"
