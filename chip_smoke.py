@@ -63,7 +63,23 @@ main paths and its serving path at full size and measures them:
   Qwen3-4B as published (36 layers, bf16 compute over float32 masters)
   trained 10 steps at B = 1, S = 2,048: ms/step, tokens/s, model FLOPs and
   their share of the card's dense bf16 peak (``mfu``), peak memory, a
-  profiler trace of two steps, the loss falling (phase 19).
+  profiler trace of two steps, the loss falling (phase 19);
+- the LM stack's sharded serving path (``repro_torch.launch.sharding``,
+  tensor-parallel prefill and decode over a ("data", "model") mesh), which
+  runs none of the BP kernels: the reduced families that shard over
+  "model" on a world of one over NCCL, bitwise one device, and on two gloo
+  ranks sharing the card (meshes (1, 2) and (2, 1)) within 1e-4, ranks
+  bitwise equal, cache blocks the slices of the one-device caches; the
+  families that must raise there; Granite-MoE 3B-a800m as published (32
+  layers, bf16) served at B = 4 on one device (prefill over 1,024 tokens,
+  ``generate`` 64 + 32 with decode ms/step beside the bytes bound, host
+  syncs of a decode step), its prefill on a world of one bitwise, and
+  decode against prefill at full depth within 1e-4 in float32 (in bf16
+  reported with its routing flips); then over the two gloo ranks with the
+  "sharded" dispatch at full depth: float32 with one device's routing
+  pinned within 1e-4 of one device, bf16 pinned and as it routes
+  reported, with each rank's parameter bytes, decode ms/step, collectives
+  and staged bytes per step (phase 20).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -77,7 +93,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the nine paths (``launches_by_path``), its largest
+  and on each of the ten paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -197,6 +213,26 @@ LM_TRAIN_EVAL = 3                    # (c): batches 0..2 evaluated on the
 LM_TRAIN_DROP = 0.1                  # masters before and after training,
 #                                      their mean lower by this much
 #                                      (the prediction in PERF.md)
+# The LM stack's sharded serving path (phase 20): the reduced families that
+# run tensor-parallel over "model" on a world of one over NCCL (bitwise one
+# device) and on two gloo ranks sharing the card (within LM_TOL); the
+# families that must raise there (item 14c-2); Granite-MoE 3B-a800m as
+# src/repro/configs/granite_moe_3b_a800m.py publishes it (32 layers, bf16)
+# served on one device at B = 4, then over the two ranks with the
+# "sharded" dispatch at full depth, in float32 and bf16.
+LM_SHARD_FAMILIES = (("qwen3_4b", None), ("gemma_7b", None),
+                     ("mistral_large_123b", None), ("starcoder2_3b", None),
+                     ("pixtral_12b", None), ("granite_moe_3b_a800m", "ragged"),
+                     ("granite_moe_3b_a800m", "dense"),
+                     ("granite_moe_3b_a800m", "sharded"))
+LM_SHARD_RAISE = ("mamba2_130m", "hymba_1_5b", "deepseek_v3_671b",
+                  "whisper_medium")
+LM_SHARD_FAMILY = dict(b=2, s=8, steps=8)
+LM_SHARD_RANKS = 2
+LM_SHARD_TIMEOUT_S = 420
+LM_MOE_SERVE = dict(b=4, prefill_len=1024, prompt_len=64, gen=32,
+                    trace_steps=8)
+LM_MOE_SHARDED = dict(s=256, steps=16)
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -2294,8 +2330,8 @@ def routes_recorded():
     from repro_torch.models.layers import moe as M
     real, seen = M._route, []
 
-    def record(p, xt, top_k):
-        out = real(p, xt, top_k)
+    def record(p, xt, top_k, *rest):
+        out = real(p, xt, top_k, *rest)
         seen.append(out[3].cpu())
         return out
     M._route = record
@@ -2428,12 +2464,16 @@ def percentile(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
-def lm_served(cfg, device, bw, b, prefill_len, prompt_len, gen, trace_steps):
+def lm_served(cfg, device, bw, b, prefill_len, prompt_len, gen, trace_steps,
+              after=None, check_decode=True):
     """Phase 18 (c): ``cfg`` with weights drawn on the card, timed
     ``prefill`` over ``prefill_len`` tokens, ``launch.serve.generate``
     (``prompt_len`` prompt tokens, ``gen`` generated), its last prompt
     logits against ``prefill`` on the same prompt, and a profiler trace of
-    ``trace_steps`` decode steps beside the decode bound."""
+    ``trace_steps`` decode steps beside the decode bound. ``after(model,
+    tokens)``, when given, runs last on the served model and the prompt
+    tokens; its result is ``out["after"]``. ``check_decode=False``
+    reports decode against prefill without bounding it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2498,7 +2538,7 @@ def lm_served(cfg, device, bw, b, prefill_len, prompt_len, gen, trace_steps):
     finite("decode after the prompt", timings["logits"])
     rel = float((timings["logits"].float() - full.float()).abs().max()
                 / full.float().abs().max())
-    if not rel <= LM_DECODE_REL:
+    if check_decode and not rel <= LM_DECODE_REL:
         raise AssertionError(f"decode vs prefill: max|d| / max|logit| = "
                              f"{rel:.3g} beyond {LM_DECODE_REL}")
     steps = timings["step_ms"][prompt_len:]
@@ -2560,6 +2600,8 @@ def lm_served(cfg, device, bw, b, prefill_len, prompt_len, gen, trace_steps):
         busy_share=busy_s * 1e3 / wall_ms,
         device_ops_per_step=n_ops / trace_steps,
         top_ms_per_step={k: v / trace_steps for k, v in top})
+    if after is not None:
+        out["after"] = after(model, tokens)
     return out
 
 
@@ -3059,18 +3101,559 @@ def log_lm_train(out) -> None:
     log(f"  kernel launches on the LM training path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 20 --
+
+def shard_key(cfg) -> str:
+    """A case of phase 20: the config's name, and its MoE dispatch."""
+    return f"{cfg.name}/{cfg.moe_dispatch}" if cfg.n_experts else cfg.name
+
+
+def shard_families(families=LM_SHARD_FAMILIES):
+    """The reduced configs phase 20 shards over "model"."""
+    from repro_torch import configs as TC
+    return [dataclasses.replace(TC.get(a).reduced(), moe_dispatch=d)
+            if d else TC.get(a).reduced() for a, d in families]
+
+
+def one_device_cfg(cfg):
+    """``cfg`` as one device runs it: the "sharded" dispatch needs a mesh,
+    and on one device it is the "ragged" one."""
+    return dataclasses.replace(cfg, moe_dispatch="ragged") \
+        if cfg.moe_dispatch == "sharded" else cfg
+
+
+def moe_prompt(cfg, b, n, s, seed=1):
+    """The first ``s`` of phase 18's (b, n) prompt tokens for ``cfg``."""
+    import torch
+    return torch.randint(0, cfg.vocab, (b, n),
+                         generator=torch.Generator().manual_seed(seed))[:, :s]
+
+
+def decode_run(model, batch, toks, cache_len, caches=True, timed=False,
+               routes=False):
+    """``prefill(batch)``, then ``len(toks)`` decode steps from
+    ``init_cache(B, cache_len)``; host copies of the logits (and of the
+    caches, as this rank holds them; and of every MoE routing choice with
+    ``routes``). With ``timed``: each step's seconds (a synchronize each
+    side). The collectives and staged bytes of the decode steps come from
+    ``dist.comm.STATS``."""
+    import torch
+    from repro_torch.dist import comm
+    dev = model.device
+    b = batch["tokens"].shape[0]
+    record = routes_recorded() if routes else contextlib.nullcontext([])
+    with record as seen:
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch)
+        sync(dev)
+        out = dict(prefill_s=time.perf_counter() - t0, logits=logits.cpu())
+        if caches:
+            out["cache"] = {g: {k: v.cpu() for k, v in leaves.items()}
+                            for g, leaves in cache.items()}
+            out["specs"] = getattr(cache, "specs", None)
+        del cache
+        dcache = model.init_cache(b, cache_len)
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        comm.reset_stats()
+        steps, step_s = [], []
+        for tok in toks:
+            sync(dev)
+            t0 = time.perf_counter()
+            lg, dcache = model.decode_step(dcache, tok.to(dev), pos)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            steps.append(lg.cpu())
+            pos = pos + 1
+    out.update(steps=steps, collectives=comm.STATS["collectives"],
+               staged_bytes=comm.STATS["staged_bytes"])
+    if timed:
+        out["step_s"] = step_s
+    if routes:
+        out["routes"] = list(seen)
+    if caches:
+        out["dcache"] = {g: {k: v.cpu() for k, v in leaves.items()}
+                         for g, leaves in dcache.items()}
+        out["dspecs"] = getattr(dcache, "specs", None)
+    return out
+
+
+def family_run(cfg, device, b, s, steps, mesh=None):
+    """A reduced family's ``decode_run`` on ``device`` (on ``mesh`` when
+    given), weights from ``init_params`` with a CPU generator of seed 0."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, device=device, mesh=mesh).init_params(
+        torch.Generator().manual_seed(0))
+    batch = {k: v.to(device) for k, v in lm_inputs(cfg, b, s).items()}
+    toks = torch.randint(0, cfg.vocab, (steps, b, 1),
+                         generator=torch.Generator().manual_seed(2))
+    return decode_run(model, batch, toks, s + steps)
+
+
+def prompt_run(model, prompt, steps, **kw):
+    """``decode_run`` over ``prompt`` (B, S): its prefill, then its first
+    ``steps`` tokens fed one by one from an empty cache of ``steps``."""
+    return decode_run(model, {"tokens": prompt},
+                      [t[:, None] for t in prompt.T[:steps]], steps,
+                      caches=False, **kw)
+
+
+def same_run(name, got, want) -> None:
+    """Raise unless two ``decode_run``s are bitwise equal: logits, every
+    step, every cache leaf."""
+    import torch
+    pairs = [("prefill logits", got["logits"], want["logits"])]
+    pairs += [(f"step {t}", a, c) for t, (a, c) in enumerate(
+        zip(got["steps"], want["steps"]))]
+    for which in ("cache", "dcache"):
+        pairs += [(f"{which} {g}/{k}", got[which][g][k], v)
+                  for g in want.get(which, {})
+                  for k, v in want[which][g].items()]
+    for what, a, c in pairs:
+        if not torch.equal(a, c):
+            raise AssertionError(f"{name}: {what} differs")
+
+
+def rel_logit_err(name, got, want, limit=None) -> float:
+    """max|got - want| / max|want|; raises on a non-finite logit and
+    beyond ``limit`` (when one is given)."""
+    import torch
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    rel = float((got - want).abs().max() / want.abs().max())
+    if limit is not None and not rel <= limit:
+        raise AssertionError(f"{name}: max|d| / max|logit| = {rel:.3g} "
+                             f"beyond {limit}")
+    return rel
+
+
+@contextlib.contextmanager
+def routes_pinned(table):
+    """Inside, the n-th MoE routing call takes the experts ``table[n]``
+    (a recorded run's ``top_e``, in call order) with weights from its own
+    probabilities at them, renormalized as ``_route`` does; yields the
+    list of how many rows of each call would have chosen other experts."""
+    from repro_torch.models.layers import moe as M
+    real, flips = M._route, []
+
+    def pinned(p, xt, top_k, *rest):
+        logits, probs, _, own = real(p, xt, top_k, *rest)
+        want = table[len(flips)]
+        flips.append(route_flips([own.cpu()], [want])[0])
+        top_e = want.to(own.device)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        return logits, probs, top_p, top_e
+    M._route = pinned
+    try:
+        yield flips
+    finally:
+        M._route = real
+
+
+def route_flips(got, want):
+    """The routing decisions (token, MoE layer) of two runs' recorded
+    routes that chose other experts: per recorded call, the rows whose
+    expert sets differ."""
+    return [int((a.sort(-1).values != c.sort(-1).values).any(-1).sum())
+            for a, c in zip(got, want)]
+
+
+def decode_vs_prefill(model, prompt, limit=None):
+    """The reference's decode-matches-prefill statistic at full depth:
+    ``prefill(prompt)`` against the prompt fed through ``decode_step``
+    (``generate`` with one new token), max|d| / max|logit| of the last
+    prompt position (bounded by ``limit`` when given), and the routing
+    decisions of the decode steps that differ from the prefill's, per MoE
+    layer."""
+    from repro_torch.launch.serve import generate
+    b, s = prompt.shape
+    with routes_recorded() as pre:
+        logits, _ = model.prefill({"tokens": prompt})
+    with routes_recorded() as dec:
+        _, timings = generate(model, prompt, 1)
+    layers = len(pre)
+    flips = [sum(route_flips([dec[t * layers + i]],
+                             [pre[i].view(b, s, -1)[:, t]])[0]
+                 for t in range(s)) for i in range(layers)]
+    return dict(rel=rel_logit_err(f"{model.cfg.name} {model.cfg.dtype} "
+                                  "decode vs prefill", timings["logits"],
+                                  logits.cpu(), limit),
+                flips_per_layer=flips, decisions_per_layer=b * s)
+
+
+def lm_moe_refs(model, tokens, prompt_len, sharded, limit=None):
+    """One device's numbers for phase 20 on ``model``: decode against
+    prefill over ``prompt_len`` tokens (within ``limit``, when given); the
+    logits and routes of
+    ``prompt_run`` over ``sharded["s"]`` tokens (what (c)'s ranks are held
+    to); the host syncs of one decode step."""
+    import torch
+    dev = model.device
+    out = decode_vs_prefill(model, tokens[:, :prompt_len], limit)
+    out["run"] = prompt_run(model, tokens[:, :sharded["s"]],
+                            sharded["steps"], routes=True)
+    cache = model.init_cache(tokens.shape[0], 4)
+    tok, pos = tokens[:, :1], torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step():
+        model.decode_step(cache, tok, pos)
+    step()
+    where = host_syncs(step, dev)
+    out.update(syncs_per_step=None if where is None else len(where),
+               sync_sites=sorted(set(where or ())),
+               moe_layers=sum(1 for p_l in model.blocks if "moe" in p_l),
+               traced_syncs_per_step=traced_syncs(step, dev))
+    return out
+
+
+def lm_moe_one(cfg, device, store, prompt, want, backend):
+    """(b)'s world of one over ``backend`` at full depth: ``prefill`` on
+    the ``(1, 1)`` mesh, weights drawn as (b) drew them, bitwise (b)'s
+    logits ``want``."""
+    import torch
+    from repro_torch.ft import ElasticMesh
+    from repro_torch.models import build_model
+    with world(backend, store):
+        mesh = ElasticMesh(1, device=device).current()
+        model = build_model(cfg, device=device, mesh=mesh).init_params(
+            torch.Generator(device=device).manual_seed(0))
+        logits, _ = model.prefill({"tokens": prompt.to(device)})
+        del model
+    if not torch.equal(logits.cpu(), want):
+        raise AssertionError("granite at full depth on a world of one "
+                             "differs from the one-device prefill")
+    return True
+
+
+def _lm_shard_rank(rank, size, out_dir, device_type, job):
+    """One rank of phase 20's gloo world, in its own process, every tensor
+    on ``device_type``: (a) each reduced family of ``job["families"]`` on
+    the meshes whose "model" axis has ``job["mps"]`` ranks (and each of
+    ``job["raise"]`` must raise when that axis is split); (c) Granite at
+    full depth over all ranks on "model" (``job["full"]``): in float32
+    with one device's routing pinned (``job["pin"]``), in bf16 pinned the
+    same way, then in bf16 as it routes, timed. Writes ``rank<r>.pt``."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.dist import comm
+    from repro_torch.ft import ElasticMesh
+    from repro_torch.models import build_model
+    device = torch.device(device_type)
+    if device.type != "cuda":
+        torch.set_num_threads(1)
+    out = dict(families={}, raised={}, full={})
+    with world("gloo", Path(out_dir) / "store", size, rank):
+        for mp_ in job["mps"]:
+            mesh = ElasticMesh(mp_, device=device).current()
+            shape = tuple(mesh.mesh.shape)
+            for cfg in job["families"]:
+                out["families"][(shape, shard_key(cfg))] = dict(
+                    family_run(cfg, device, mesh=mesh, **job["family"]),
+                    coord=tuple(mesh.get_coordinate()))
+            if shape[1] > 1:
+                for cfg in job["raise"]:
+                    try:
+                        build_model(cfg, device=device, mesh=mesh)
+                    except NotImplementedError as e:
+                        out["raised"][cfg.name] = str(e)
+        mesh = ElasticMesh(size, device=device).current()
+        cfg, f = job["full"]
+        prompt = moe_prompt(cfg, f["b"], f["n"], f["s"]).to(device)
+        for dtype, runs in (("float32", ("pinned",)),
+                            ("bfloat16", ("pinned", "own"))):
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = build_model(dataclasses.replace(cfg, dtype=dtype),
+                                device=device, mesh=mesh).init_params(
+                torch.Generator(device=device).manual_seed(0))
+            sync(device)
+            init_s = time.perf_counter() - t0
+            model.prefill({"tokens": prompt})          # warm
+            for routing in runs:
+                pin = job["pin"][dtype] if routing == "pinned" else None
+                with routes_pinned(pin) if pin else \
+                        contextlib.nullcontext() as flips:
+                    run = prompt_run(model, prompt, f["steps"], timed=True,
+                                     routes=pin is None)
+                out["full"][f"{dtype}/{routing}"] = dict(
+                    run, init_s=init_s, pinned_flips=flips,
+                    transport=comm.transport(mesh.get_group("model"),
+                                             device),
+                    param_bytes=sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated()
+                    if device.type == "cuda" else None)
+            del model
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def lm_shard_one(device, store, families, refs, family, backend):
+    """Phase 20 (a), a world of one over ``backend``: each family on the
+    ``(1, 1)`` mesh bitwise its one-device run ``refs[key]``."""
+    from repro_torch.ft import ElasticMesh
+    out = {}
+    with world(backend, store):
+        mesh = ElasticMesh(1, device=device).current()
+        for cfg in families:
+            got = family_run(cfg, device, mesh=mesh, **family)
+            same_run(f"{shard_key(cfg)} on a world of one vs one device",
+                     got, refs[shard_key(cfg)])
+            out[shard_key(cfg)] = True
+    return out
+
+
+def check_families(ranks, refs):
+    """Phase 20 (a) over the gloo ranks: every case within ``LM_TOL`` of
+    one device, ranks bitwise equal, each rank's cache blocks its slices
+    of the one-device caches."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.sharding import shard_tensor
+    out = {}
+    for (shape, key), run in ranks[0]["families"].items():
+        ref = refs[key]
+        mesh = AbstractMesh(shape, ("data", "model"))
+        errs = [lm_err(f"{key} {shape} prefill", run["logits"],
+                       ref["logits"])]
+        errs += [lm_err(f"{key} {shape} step {t}", a, c)
+                 for t, (a, c) in enumerate(zip(run["steps"],
+                                                ref["steps"]))]
+        cache_err = 0.0
+        for r in ranks:
+            mine = r["families"][(shape, key)]
+            same_run(f"{key} {shape} rank vs rank 0",
+                     dict(logits=mine["logits"], steps=mine["steps"]),
+                     dict(logits=run["logits"], steps=run["steps"]))
+            for which, specs in (("cache", "specs"), ("dcache", "dspecs")):
+                for g, leaves in ref[which].items():
+                    for k, v in leaves.items():
+                        cache_err = max(cache_err, lm_err(
+                            f"{key} {shape} {which} {g}/{k} block",
+                            mine[which][g][k],
+                            shard_tensor(v, mine[specs][g][k], mesh,
+                                         coordinate=mine["coord"])))
+        out[f"{key} {shape[0]}x{shape[1]}"] = dict(
+            err=max(errs), cache_err=cache_err,
+            collectives_per_step=run["collectives"] / max(
+                len(run["steps"]), 1))
+    return out
+
+
+def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
+                   raise_cfgs=None, moe_cfg=None, backend="nccl",
+                   family=LM_SHARD_FAMILY, serve=LM_MOE_SERVE,
+                   sharded=LM_MOE_SHARDED, size=LM_SHARD_RANKS,
+                   timeout_s=LM_SHARD_TIMEOUT_S):
+    """Phase 20, the LM stack's sharded serving path: (a) the reduced
+    families on a world of one over ``backend`` bitwise one device, then
+    over ``size`` gloo ranks sharing ``device`` (meshes ``(1, size)`` and
+    ``(size, 1)``) within ``LM_TOL``; (b) Granite-MoE 3B as published
+    (``moe_cfg``) served on one device in bf16, its prefill on a world of
+    one bitwise, and decode against prefill at full depth in float32
+    within ``LM_TOL`` (in bf16 routing flips between the two passes
+    cascade through the layers: reported, not bounded); (c) Granite at
+    full depth over the gloo ranks with the "sharded" dispatch: in float32
+    within ``LM_TOL`` of one device, then in bf16, timed, against the
+    one-device bf16 logits (reported with its routing flips). The BP
+    kernels run nowhere here: their counts go from 0."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import configs as TC
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.models import build_model
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    out_dir = Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    families = families or shard_families()
+    raise_cfgs = raise_cfgs or [TC.get(a).reduced() for a in LM_SHARD_RAISE]
+    moe_cfg = moe_cfg or TC.get("granite_moe_3b_a800m")
+    out = {}
+    t0 = time.perf_counter()
+    refs = {shard_key(cfg): family_run(one_device_cfg(cfg), device, **family)
+            for cfg in families}
+    out["one"] = lm_shard_one(device, out_dir / "store_one", families, refs,
+                              family, backend)
+    out["a_one_s"] = time.perf_counter() - t0
+    log(f"  (a) one device and a world of one: {out['a_one_s']:.1f} s")
+
+    # (b) Granite-MoE 3B as published, one device, "ragged": served in
+    # bf16, then the same weights in float32
+    t0 = time.perf_counter()
+    served = lm_served(moe_cfg, device, bw, **serve, check_decode=False,
+                       after=lambda m, tokens: lm_moe_refs(
+                           m, tokens, serve["prompt_len"], sharded))
+    mrefs = {"bfloat16": served.pop("after")}
+    prompt = moe_prompt(moe_cfg, serve["b"], serve["prefill_len"],
+                        sharded["s"])
+    served["world_of_one_bitwise"] = lm_moe_one(
+        moe_cfg, device, out_dir / "store_moe", prompt,
+        mrefs["bfloat16"]["run"]["logits"], backend)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    f32 = build_model(dataclasses.replace(moe_cfg, dtype="float32"),
+                      device=device).init_params(
+        torch.Generator(device=device).manual_seed(0))
+    mrefs["float32"] = lm_moe_refs(f32, moe_prompt(
+        moe_cfg, serve["b"], serve["prefill_len"],
+        serve["prefill_len"]).to(device), serve["prompt_len"], sharded,
+        limit=LM_TOL)
+    del f32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    served.update(
+        {k: mrefs["bfloat16"][k] for k in ("syncs_per_step", "sync_sites",
+                                           "moe_layers",
+                                           "traced_syncs_per_step")},
+        decode_vs_prefill={d: dict(rel=m["rel"],
+                                   flips_per_layer=m["flips_per_layer"],
+                                   decisions_per_layer=m[
+                                       "decisions_per_layer"])
+                           for d, m in mrefs.items()})
+    out["served"] = served
+    out["b_s"] = time.perf_counter() - t0
+    log(f"  (b) served, references, world of one: {out['b_s']:.1f} s")
+
+    # (a) and (c) over the gloo ranks, one spawn
+    job = {"families": families, "raise": raise_cfgs, "mps": (size, 1),
+           "family": family,
+           "pin": {d: m["run"]["routes"] for d, m in mrefs.items()},
+           "full": (dataclasses.replace(moe_cfg, moe_dispatch="sharded"),
+                    dict(sharded, n=serve["prefill_len"], b=serve["b"]))}
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_lm_shard_rank, args=(size, str(out_dir),
+                                                   device.type, job),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=0.5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 20's gloo world did not finish in "
+                                 f"{timeout_s} s")
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    log(f"  (a), (c) gloo ranks: {out['gloo_wall_s']:.1f} s with the spawn")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(size)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    out["families"] = check_families(ranks, refs)
+    missing = {c.name for c in raise_cfgs} - set(ranks[0]["raised"])
+    if missing or not all("14c-2" in m
+                          for m in ranks[0]["raised"].values()):
+        raise AssertionError(f"families that must raise over 'model' did "
+                             f"not: {sorted(missing)}")
+    out["raised"] = sorted(ranks[0]["raised"])
+
+    # (c) full depth over the ranks: float32 with one device's routing
+    # pinned, held to LM_TOL; bf16 pinned and as it routes, reported
+    out["sharded"] = {}
+    for key, full in ranks[0]["full"].items():
+        dtype, routing = key.split("/")
+        ref = mrefs[dtype]["run"]
+        for r in ranks[1:]:
+            same_run(f"granite {key} rank vs rank 0", r["full"][key], full)
+        limit = LM_TOL if dtype == "float32" else None
+        n = len(full["steps"])
+        flips = full["pinned_flips"] if routing == "pinned" \
+            else route_flips(full["routes"], ref["routes"])
+        out["sharded"][key] = dict(
+            b=serve["b"], s=sharded["s"], steps=n,
+            transport=full["transport"],
+            prefill_rel=rel_logit_err(f"granite {key} sharded prefill",
+                                      full["logits"], ref["logits"], limit),
+            step_rel=max(rel_logit_err(f"granite {key} sharded step {t}",
+                                       a, c, limit)
+                         for t, (a, c) in enumerate(zip(full["steps"],
+                                                        ref["steps"]))),
+            routes_pinned=routing == "pinned", route_flips=sum(flips),
+            route_decisions=sum(int(t.shape[0]) for t in ref["routes"]),
+            prefill_s=full["prefill_s"], init_s=full["init_s"],
+            decode_step_ms_p50=percentile(full["step_s"], 50) * 1e3,
+            decode_step_ms_p90=percentile(full["step_s"], 90) * 1e3,
+            collectives_per_step=full["collectives"] / n,
+            staged_bytes_per_step=full["staged_bytes"] / n,
+            rank_param_bytes=[r["full"][key]["param_bytes"] for r in ranks],
+            rank_peak_memory_bytes=[r["full"][key]["peak_memory_bytes"]
+                                    for r in ranks])
+    if max(out["sharded"]["bfloat16/own"]["rank_param_bytes"]) > \
+            0.6 * served["param_bytes"]:
+        raise AssertionError("a rank holds more than 0.6 of the model")
+    out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"]}
+    return out
+
+
+def log_lm_shard(out) -> None:
+    """Phase 20's progress lines."""
+    log(f"  (a) world of one: {len(out['one'])} cases bitwise the "
+        f"one-device run ({out['a_one_s']:.1f} s with the references)")
+    for key, f in out["families"].items():
+        log(f"  (a) {key}: vs one device {f['err']:.3g}, cache blocks "
+            f"{f['cache_err']:.3g}, {f['collectives_per_step']:.0f} "
+            "collectives/decode step; ranks bitwise equal")
+    log(f"  (a) raise over 'model' (item 14c-2): {out['raised']}")
+    sv = out["served"]
+    p, s, bd = sv["prefill"], sv["serve"], sv["bound"]
+    log(f"  (b) {sv['arch']} {sv['layers']} layers {sv['dtype']}: "
+        f"{sv['params']:,} parameters, {sv['param_bytes'] / 1e9:.3f} GB, "
+        f"drawn in {sv['init_s']:.2f} s; prefill B={sv['b']} x "
+        f"{p['tokens'] // sv['b']}: {p['tokens_per_s']:.0f} tokens/s "
+        f"({p['host_s']:.4f} s), peak {p['peak_memory_bytes']} B")
+    log(f"  (b) generate prompt {s['prompt_len']} + {s['gen']}: "
+        f"{s['generated_tokens_per_s']:.1f} generated tokens/s; decode "
+        f"ms/step p50 {s['decode_step_ms_p50']:.3f} p90 "
+        f"{s['decode_step_ms_p90']:.3f} against a bound of "
+        f"{bd['decode_ms']:.3f} ms ({bd['bytes'] / 1e9:.3f} GB); peak "
+        f"{s['peak_memory_bytes']} B")
+    for dtype, d in sv["decode_vs_prefill"].items():
+        log(f"  (b) decode vs prefill, {dtype}: max|d| / max|logit| "
+            f"{d['rel']:.4g}; routing decisions that differ, per MoE layer "
+            f"(of {d['decisions_per_layer']}): {d['flips_per_layer']}")
+    log(f"  (b) host syncs per decode step: {sv['syncs_per_step']} "
+        f"{sv['sync_sites']} (sync debug mode; {sv['moe_layers']} MoE "
+        f"layers), {sv['traced_syncs_per_step']} (runtime calls in a "
+        f"trace); trace busy share {sv['trace']['busy_share']:.3f}, "
+        f"{sv['trace']['device_ops_per_step']:.0f} device ops/step; world "
+        f"of one prefill bitwise: {sv['world_of_one_bitwise']}")
+    for key, c in out["sharded"].items():
+        log(f"  (c) granite full depth {key}, {c['transport']}: prefill "
+            f"B={c['b']} x {c['s']} rel {c['prefill_rel']:.3g}, "
+            f"{c['steps']} decode steps rel {c['step_rel']:.3g} (against one "
+            f"device; its routing pinned: {c['routes_pinned']}); routing "
+            f"decisions of its own that differ {c['route_flips']} of "
+            f"{c['route_decisions']}; prefill {c['prefill_s']:.3f} s, decode "
+            f"ms/step p50 {c['decode_step_ms_p50']:.3f} p90 "
+            f"{c['decode_step_ms_p90']:.3f}; {c['collectives_per_step']:.0f} "
+            f"collectives and {c['staged_bytes_per_step']:.0f} B staged per "
+            f"step; rank parameter bytes {c['rank_param_bytes']}, peaks "
+            f"{c['rank_peak_memory_bytes']}")
+    log(f"  (c) one device holds {sv['param_bytes']} B in bf16; gloo world "
+        f"{out['gloo_wall_s']:.1f} s with the spawn")
+    log(f"  kernel launches on the sharded LM path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one, lm, lm_train):
+                     dist_one, lm, lm_train, lm_shard):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
     path (phase 15: run (a), the deadline run, the skewed runs; each
     counted from 0), the resilient run (phase 16), the multi-device
     paths of phase 17 (a): ``sharded`` and ``banded``, the LM stack's
-    serving path (phase 18, ``lm``) and its training path (phase 19,
-    ``lm_train``)."""
+    serving path (phase 18, ``lm``), its training path (phase 19,
+    ``lm_train``) and its sharded serving path (phase 20, ``lm_sharded``:
+    the parent's launches; its spawned ranks run no BP kernel either)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
-    lmt = lm_train["launches"]
+    lmt, lms = lm_train["launches"], lm_shard["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -3080,7 +3663,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    sharded=dist_one["sharded"]["launches"],
                                    banded=dist_one["banded"]["launches"],
                                    lm=lm["fused_update_e/sum"],
-                                   lm_train=lmt["fused_update_e/sum"]),
+                                   lm_train=lmt["fused_update_e/sum"],
+                                   lm_sharded=lms["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -3088,14 +3672,16 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    resilient=resilient["launches"]["max"],
                                    sharded=0, banded=0,
                                    lm=lm["fused_update_e/max"],
-                                   lm_train=lmt["fused_update_e/max"]),
+                                   lm_train=lmt["fused_update_e/max"],
+                                   lm_sharded=lms["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
                                    routed=rt.get("fused_update_t/sum", 0),
                                    resilient=0, sharded=0, banded=0,
                                    lm=lm["fused_update_t/sum"],
-                                   lm_train=lmt["fused_update_t/sum"])}
+                                   lm_train=lmt["fused_update_t/sum"],
+                                   lm_sharded=lms["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -3368,6 +3954,16 @@ def main() -> int:
     lm_train = phase_lm_train(device)
     log_lm_train(lm_train)
 
+    log("== 20. the LM stack's sharded serving path (launch.sharding, "
+        "tensor-parallel prefill and decode, MoE \"sharded\"): reduced "
+        "families on meshes, Granite-MoE 3B")
+    t0 = time.perf_counter()
+    lm_shard = phase_lm_shard(device, REPO / "chiprun_out" / "lm_shard",
+                              bw=bw)
+    lm_shard["phase_s"] = time.perf_counter() - t0
+    log_lm_shard(lm_shard)
+    log(f"  phase 20 in {lm_shard['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -3381,7 +3977,8 @@ def main() -> int:
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
-                                            dist_out["one"], lm, lm_train),
+                                            dist_out["one"], lm, lm_train,
+                                            lm_shard),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -3391,6 +3988,7 @@ def main() -> int:
                   batched_timing=btiming, protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
+                  lm_shard=lm_shard,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

@@ -17,7 +17,9 @@ from nothing else:
 No backend is ever swapped for another. Floating-point data is only ever
 gathered, never reduced: a float ``all_reduce`` adds in an order the library
 picks, and the callers combine gathered parts in rank order instead.
-``all_reduce_count`` sums integers, which is exact in any order.
+``all_reduce_count`` sums integers, which is exact in any order, and
+``rank_order_sum`` adds gathered float parts in rank order, so every rank of
+the group holds bitwise the same sum.
 
 ``STATS["collectives"]`` counts the calls of the functions below.
 """
@@ -30,7 +32,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "transport", "all_gather",
-           "all_gather_into", "all_reduce_count", "exchange"]
+           "all_gather_into", "all_gather_cat", "rank_order_sum",
+           "all_reduce_count", "exchange"]
 
 #: collective calls and host-staged bytes since the last ``reset_stats``
 STATS: Dict[str, int] = {"collectives": 0, "staged_bytes": 0}
@@ -96,6 +99,22 @@ def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
     rank order (``out`` holds world-size times ``t``'s rows)."""
     _host_staged(group, [t], [out],
                  lambda i, o: _GATHER_INTO(o[0], i[0], group=group))
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (one
+    gather)."""
+    return torch.cat(all_gather(t.contiguous(), group), dim=dim)
+
+
+def rank_order_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t``, added in rank order after one gather:
+    the same bits on every rank of the group, whatever the transport."""
+    parts = all_gather(t.contiguous(), group)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
 
 
 def all_reduce_count(t: torch.Tensor, group) -> torch.Tensor:

@@ -6,8 +6,8 @@ exact data-cursor resume (checkpoints in the reference's layout, so either
 package resumes the other's), straggler monitoring, cosine LR and
 microbatch gradient accumulation. Without a process group it makes a world
 of one (a ``FileStore`` in a temporary directory, gloo on the CPU, NCCL on
-the GPU) and tears it down at the end. ``--model-parallel`` above 1 needs
-the sharding rules, which are not ported yet (ROADMAP queue 1, item 14c).
+the GPU) and tears it down at the end. ``--model-parallel`` above 1 is
+sharded training, not ported yet (ROADMAP queue 1, item 14c-2).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \
@@ -79,8 +79,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the sharding rules, which are not "
-            "ported yet (ROADMAP queue 1, item 14c)")
+            "--model-parallel > 1 is sharded training, which is not "
+            "ported yet (ROADMAP queue 1, item 14c-2)")
 
     cfg = get(args.arch)
     if args.reduced:

@@ -121,9 +121,10 @@ def _ring_seed(k, v, w: int):
 
 
 def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
-                  causal: bool = True):
+                  causal: bool = True, sh=None):
     """Full-sequence pass. Returns (x, cache, aux) where cache is the
-    layer's decode state seed and aux = (lb_loss, z_loss) zeros if non-moe."""
+    layer's decode state seed and aux = (lb_loss, z_loss) zeros if non-moe.
+    ``sh``: this rank on a "model" axis (attention, MLP and MoE only)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     zero_aux = (zero, zero)
     h = rms_norm(p["ln1"], x)
@@ -147,20 +148,22 @@ def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         a_out, (k, v) = A.attn_forward(p["attn"], h, positions,
-                                       causal=causal, **_attn_kwargs(cfg))
+                                       causal=causal, sh=sh,
+                                       **_attn_kwargs(cfg))
         x = x + a_out
         cache = {"k": k, "v": v}
     h2 = rms_norm(p["ln2"], x)
     if kind == "moe":
         m_out, aux = moe(p["moe"], h2, n_experts=cfg.n_experts,
                          top_k=cfg.experts_per_token, act=cfg.mlp_act,
-                         dispatch=cfg.moe_dispatch)
+                         dispatch=cfg.moe_dispatch, sh=sh)
         return x + m_out, cache, aux
-    return x + mlp(p["mlp"], h2, act=cfg.mlp_act), cache, zero_aux
+    return x + mlp(p["mlp"], h2, act=cfg.mlp_act, sh=sh), cache, zero_aux
 
 
-def block_decode(p, x1, cache, pos, cfg: ArchConfig, kind: str):
-    """One-token decode. Updates ``cache`` in place; returns (x1, cache)."""
+def block_decode(p, x1, cache, pos, cfg: ArchConfig, kind: str, sh=None):
+    """One-token decode. Updates ``cache`` in place; returns (x1, cache).
+    ``sh``: this rank on a "model" axis (attention, MLP and MoE only)."""
     h = rms_norm(p["ln1"], x1)
     if kind == "ssm":
         out, ssm_state, conv_state = S.ssm_decode(
@@ -183,15 +186,15 @@ def block_decode(p, x1, cache, pos, cfg: ArchConfig, kind: str):
         x1 = x1 + a_out
     else:
         a_out, _, _ = A.attn_decode(p["attn"], h, cache["k"], cache["v"],
-                                    pos, **_attn_kwargs(cfg))
+                                    pos, sh=sh, **_attn_kwargs(cfg))
         x1 = x1 + a_out
     h2 = rms_norm(p["ln2"], x1)
     if kind == "moe":
         m_out, _ = moe(p["moe"], h2, n_experts=cfg.n_experts,
                        top_k=cfg.experts_per_token, act=cfg.mlp_act,
-                       dispatch=cfg.moe_dispatch)
+                       dispatch=cfg.moe_dispatch, sh=sh)
         return x1 + m_out, cache
-    return x1 + mlp(p["mlp"], h2, act=cfg.mlp_act), cache
+    return x1 + mlp(p["mlp"], h2, act=cfg.mlp_act, sh=sh), cache
 
 
 def _xattn_kwargs(cfg: ArchConfig) -> Dict[str, Any]:

@@ -10,6 +10,10 @@ Matmul weights keep the reference's (in, out) layout, so nothing is
 transposed. Then ``model.load_state_dict(...)`` makes the port compute the
 reference's function.
 
+``shard_state_dict(cfg, state, mesh)`` keeps this rank's blocks of such a
+``state_dict``, as ``param_shardings`` places them, for a model built on
+that mesh.
+
 ``params_to_reference(params)`` is the inverse: it stacks the per-layer
 entries back on a leading L axis, in float32 numpy on the host, so a port
 tree (parameters, or AdamW moments) saves under the reference's checkpoint
@@ -24,8 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import (STACKS, model_dtype, param_tree,
-                                      storage_dtype)
+from repro_torch.launch.sharding import param_shardings, shard_tensor
+from repro_torch.models.model import (STACKS, model_dtype, param_specs,
+                                      param_tree, storage_dtype)
 
 
 def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
@@ -59,6 +64,15 @@ def params_from_reference(cfg: ArchConfig, tree) -> Dict[str, torch.Tensor]:
     return {name: torch.from_numpy(np.array(arr, np.float32)).to(
                 storage_dtype(name, dt))
             for name, arr in unstack_reference(tree).items()}
+
+
+def shard_state_dict(cfg: ArchConfig, state: Mapping[str, torch.Tensor],
+                     mesh, mode: str = "tp") -> Dict[str, torch.Tensor]:
+    """This rank's blocks of a whole ``state_dict`` of ``Model(cfg)``, for
+    ``build_model(cfg, mesh=mesh, mode=mode)``."""
+    specs = param_shardings(mesh, param_specs(cfg), mode)
+    return {name: shard_tensor(t, specs[name], mesh)
+            for name, t in state.items()}
 
 
 def stack_like_reference(flat: Mapping[str, Any],

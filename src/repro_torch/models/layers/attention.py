@@ -9,6 +9,13 @@ cross-attention (a port of ``repro.models.layers.attention``):
   * ``attn_decode_ring`` -- the same over a sliding-window ring buffer.
   * ``cross_attn``    -- decoder-over-encoder (whisper), no mask, static KV.
 
+On a "model" axis (``sh``, ``layers.parallel``) ``attn_forward`` and
+``attn_decode`` run tensor-parallel: a rank computes its own heads when the
+rules' column splits fall on head boundaries, else every head from gathered
+projections; ``wo`` is row-parallel; decode attends the rank's block of a
+sequence-split cache and combines the ranks' softmax partials in rank
+order (flash-decoding).
+
 ``pos`` may be a Python int or a 0-d integer tensor on the model's device;
 a tensor keeps the decode loop free of host reads. Caches are written in
 place (the reference returns updated copies); the functions also return
@@ -49,12 +56,32 @@ def as_pos(pos, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).to(torch.int64).reshape(())
 
 
+def _heads_local(p, n_heads, n_kv_heads, sh) -> bool:
+    """Whether this rank of a "model" axis computes its own heads: the
+    rules split ``wq``, ``wk`` and ``wv`` by columns and the splits fall on
+    head boundaries (H and KV divisible by the axis)."""
+    return (sh is not None and n_heads % sh.mp == 0
+            and n_kv_heads % sh.mp == 0
+            and all(sh.split(p, w, 1) for w in ("wq", "wk", "wv")))
+
+
 def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, rope_theta,
-                 qk_norm):
+                 qk_norm, sh=None, local=False):
+    """q, k, v with RoPE and qk-norm. On a "model" axis (``sh``): the
+    rank's own heads when ``local``, else every head, the column-split
+    projections gathered whole (one gather)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, n_kv_heads, head_dim)
+    proj = {w: x @ p[w].to(x.dtype) for w in ("wq", "wk", "wv")}
+    if local:
+        n_heads, n_kv_heads = n_heads // sh.mp, n_kv_heads // sh.mp
+    elif sh is not None:
+        split = [w for w in proj if sh.split(p, w, 1)]
+        if split:
+            proj.update(zip(split, sh.gather_parts([proj[w]
+                                                    for w in split])))
+    q = proj["wq"].reshape(b, s, n_heads, head_dim)
+    k = proj["wk"].reshape(b, s, n_kv_heads, head_dim)
+    v = proj["wv"].reshape(b, s, n_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
@@ -62,6 +89,17 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, rope_theta,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def _out_proj(p, out, sh=None, local=False):
+    """``out @ wo``; on a "model" axis a row-split ``wo`` takes the rank's
+    slice of the flattened heads (its own heads when ``local``) and the
+    partial products are summed in rank order."""
+    if sh is not None and sh.split(p, "wo", 0):
+        if not local:
+            out = out[..., sh.block(out.shape[-1])]
+        return sh.sum(out @ p["wo"].to(out.dtype))
+    return out @ p["wo"].to(out.dtype)
 
 
 def _gqa_scores_block(qb, k, scale):
@@ -92,14 +130,20 @@ def _mask(qpos, kpos, causal, sliding_window):
 
 def attn_forward(p, x, positions, *, n_heads, n_kv_heads, head_dim,
                  rope_theta=1e4, qk_norm=False, causal=True,
-                 sliding_window=0, q_block=512):
-    """Full-sequence attention; returns (out (B,S,d_model-ish), (k, v))."""
+                 sliding_window=0, q_block=512, sh=None):
+    """Full-sequence attention; returns (out (B,S,d_model-ish), (k, v)).
+
+    On a "model" axis (``sh``) a rank attends with its own heads when the
+    column splits fall on head boundaries, else with every head; ``wo`` is
+    row-parallel. The returned k and v hold every KV head either way (the
+    decode cache's layout)."""
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
+    local = _heads_local(p, n_heads, n_kv_heads, sh)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions,
-                           rope_theta, qk_norm)
+                           rope_theta, qk_norm, sh, local)
     scale = scale_of(head_dim)
-    qg = q.reshape(b, s, n_kv_heads, g, head_dim)
+    qg = q.reshape(b, s, k.shape[2], g, head_dim)
     kpos = positions.expand(b, s) if positions.dim() == 1 else positions
 
     if s <= q_block:
@@ -113,16 +157,26 @@ def attn_forward(p, x, positions, *, n_heads, n_kv_heads, head_dim,
                                 sliding_window), scale)
             for i in range(0, s, q_block)], dim=1)
 
-    out = out.reshape(b, s, n_heads * head_dim)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    out = _out_proj(p, out.reshape(b, s, -1), sh, local)
+    if local:
+        k, v = (t.reshape(b, s, -1, head_dim) for t in sh.gather_parts(
+            [k.reshape(b, s, -1), v.reshape(b, s, -1)]))
+    return out, (k, v)
 
 
 def attn_decode(p, x1, cache_k, cache_v, pos, *, n_heads, n_kv_heads,
-                head_dim, rope_theta=1e4, qk_norm=False, sliding_window=0):
+                head_dim, rope_theta=1e4, qk_norm=False, sliding_window=0,
+                sh=None):
     """One-token decode. x1: (B, 1, d); cache: (B, S, KVH, D); pos: () int.
 
     Writes the new key and value into the caches at ``pos`` and returns
-    (out (B,1,d_model), cache_k, cache_v)."""
+    (out (B,1,d_model), cache_k, cache_v). On a "model" axis (``sh``) see
+    ``_decode_sharded``."""
+    if sh is not None and sh.mp > 1:
+        return _decode_sharded(p, x1, cache_k, cache_v, pos, sh,
+                               n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               head_dim=head_dim, rope_theta=rope_theta,
+                               qk_norm=qk_norm, sliding_window=sliding_window)
     b = x1.shape[0]
     s_cache = cache_k.shape[1]
     g = n_heads // n_kv_heads
@@ -142,6 +196,55 @@ def attn_decode(p, x1, cache_k, cache_v, pos, *, n_heads, n_kv_heads,
     out = _attend_block(qg, cache_k, cache_v, mask, scale_of(head_dim))
     out = out.reshape(b, 1, n_heads * head_dim)
     return out @ p["wo"].to(x1.dtype), cache_k, cache_v
+
+
+def _decode_sharded(p, x1, cache_k, cache_v, pos, sh, *, n_heads,
+                    n_kv_heads, head_dim, rope_theta, qk_norm,
+                    sliding_window):
+    """One-token decode on a "model" axis. Every rank projects every head
+    (the column-split projections gathered). When the cache is split along
+    its sequence (``sh.seq``), the rank holds keys ``[r * S_r, (r+1) *
+    S_r)``: it writes the new key and value only if ``pos`` falls in its
+    block, attends every head over its block with masks on global
+    positions, and keeps float32 partials (max, sum, weighted values); the
+    partials are gathered and combined in rank order (flash-decoding).
+    Otherwise every rank holds and attends the whole cache. The rank's
+    slice of the heads then goes into the row-split ``wo``."""
+    b = x1.shape[0]
+    s_loc = cache_k.shape[1]
+    g = n_heads // n_kv_heads
+    pos = as_pos(pos, x1.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    q, k, v = _project_qkv(p, x1, n_heads, n_kv_heads, head_dim, positions,
+                           rope_theta, qk_norm, sh)
+    start = sh.rank * s_loc if sh.seq else 0
+    held = (pos >= start) & (pos < start + s_loc)
+    at = (pos - start).clamp(0, s_loc - 1).reshape(1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache.index_copy_(1, at, torch.where(held, new.to(cache.dtype),
+                                             cache.index_select(1, at)))
+    kpos = start + torch.arange(s_loc, device=x1.device)
+    valid = kpos <= pos
+    if sliding_window > 0:
+        valid = valid & (kpos > pos - sliding_window)
+    qg = q.reshape(b, 1, n_kv_heads, g, head_dim)
+    s = _gqa_scores_block(qg, cache_k, scale_of(head_dim))
+    s = torch.where(valid[None, None, None, None, :], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)                        # (B,KVH,G,1,1)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    num = torch.einsum("bhgqs,bshd->bhgqd", e, cache_v.float())
+    if sh.seq:
+        parts = sh.all(torch.cat([m, den, num], dim=-1))
+        top = torch.stack([part[..., :1] for part in parts]).amax(dim=0)
+        num = den = None
+        for part in parts:                                  # rank order
+            w = torch.exp(part[..., :1] - top)
+            pn, pd = w * part[..., 2:], w * part[..., 1:2]
+            num, den = (pn, pd) if num is None else (num + pn, den + pd)
+    out = (num / den).permute(0, 3, 1, 2, 4).to(x1.dtype)  # (B,1,KVH,G,D)
+    out = _out_proj(p, out.reshape(b, 1, n_heads * head_dim), sh)
+    return out, cache_k, cache_v
 
 
 def attn_decode_ring(p, x1, cache_k, cache_v, cache_pos, pos, *, n_heads,

@@ -109,10 +109,33 @@ def init_embedding(vocab: int, d_model: int):
     return {"table": dense((vocab, d_model), scale=0.02)}
 
 
-def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["table"][tokens].to(dtype)
+def embed(params, tokens: torch.Tensor, dtype, sh=None) -> torch.Tensor:
+    """Rows of the table. On a "model" axis (``sh``): a vocab-split table
+    looks up the rank's rows, zeros elsewhere, and the ranks' lookups are
+    summed (exact: one rank holds each row); a ``d``-split table's columns
+    are gathered."""
+    table = params["table"]
+    if sh is not None and sh.split(params, "table", 0):
+        rows = sh.block(table.shape[0] * sh.mp)
+        local = tokens - rows.start
+        held = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)].to(dtype)
+        return sh.sum(torch.where(held[..., None], x, x.new_zeros(())))
+    x = table[tokens].to(dtype)
+    if sh is not None and sh.split(params, "table", 1):
+        x = sh.gather(x, -1)
+    return x
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32 (loss stability)."""
-    return x.float() @ params["table"].float().T
+def unembed(params, x: torch.Tensor, sh=None) -> torch.Tensor:
+    """Logits in f32 (loss stability). On a "model" axis (``sh``): a
+    vocab-split table's logits are gathered (exact); a ``d``-split table
+    takes the rank's columns of ``x`` and the partial logits are summed."""
+    table = params["table"]
+    if sh is not None and sh.split(params, "table", 1):
+        x = x[..., sh.block(table.shape[1] * sh.mp)]
+        return sh.sum(x.float() @ table.float().T)
+    logits = x.float() @ table.float().T
+    if sh is not None and sh.split(params, "table", 0):
+        logits = sh.gather(logits, -1)
+    return logits

@@ -13,10 +13,16 @@ def init_mlp(d_model: int, d_ff: int, gated: bool = True):
     return p
 
 
-def mlp(p, x, act: str = "silu"):
+def mlp(p, x, act: str = "silu", sh=None):
+    """On a "model" axis (``sh``), ``w_in``/``w_gate`` are column-parallel
+    and ``w_out`` row-parallel on the same ``d_ff`` split: the ranks'
+    partial outputs are summed once. Replicated weights compute whole."""
     h = x @ p["w_in"].to(x.dtype)
     if "w_gate" in p:
         h = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = act_fn(act)(h)
-    return h @ p["w_out"].to(x.dtype)
+    out = h @ p["w_out"].to(x.dtype)
+    if sh is not None and sh.split(p, "w_out", 0):
+        out = sh.sum(out)
+    return out

@@ -12,7 +12,20 @@ Dispatch:
             deterministic on the GPU.
   "dense"   every expert on every token, combined with the routing
             weights (E/top_k x the active FLOPs, no dispatch).
-  "sharded" not ported yet (ROADMAP queue 1, item 14c): it raises.
+  "sharded" the reference's ``shard_map``: tokens stay on their data
+            shard, the sort-and-group runs per rank on the rank's ``d_ff``
+            slices of every expert, and one rank-order sum over "model"
+            follows the down-projection. It needs a mesh: the model's own
+            (``build_model(cfg, mesh=...)`` passes its ``Shard``) or the
+            one registered by ``set_shard_mesh``.
+
+On a "model" axis every dispatch runs on the rank's slices (the reference's
+pjit runs "ragged" and "dense" on them too): the expert stacks are split on
+``d_ff`` (all experts resident on every rank, no all-to-all), the router by
+columns when E divides, its logits gathered whole (exact) before routing,
+and the shared experts are column/row-parallel; the partial outputs are
+summed once. In the port every rank already holds only its data shard's
+tokens, so "sharded" and "ragged" compute the same function.
 
 Aux losses: the load-balance loss (Switch-style) and the router z-loss,
 returned as the reference returns them.
@@ -41,8 +54,21 @@ def init_moe(d_model: int, n_experts: int, d_ff: int, n_shared: int = 0,
     return p
 
 
-def _route(p, xt, top_k):
-    logits = (xt @ p["router"].to(xt.dtype)).float()                # (T, E)
+_SHARD_MESH = {"mesh": None}
+
+
+def set_shard_mesh(mesh) -> None:
+    """Register the mesh that dispatch="sharded" uses when the caller
+    passes no ``Shard`` (the reference's launcher registers its mesh the
+    same way before tracing)."""
+    _SHARD_MESH["mesh"] = mesh
+
+
+def _route(p, xt, top_k, sh=None):
+    logits = xt @ p["router"].to(xt.dtype)                          # (T, E)
+    if sh is not None and sh.split(p, "router", 1):
+        logits = sh.gather(logits, -1)
+    logits = logits.float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, top_k, dim=-1)                 # (T, K)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -81,12 +107,20 @@ def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
 
 
 def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
-        dispatch: str = "ragged"):
-    """x: (B, S, d). Returns (out, aux) with aux = (lb_loss, z_loss)."""
+        dispatch: str = "ragged", sh=None):
+    """x: (B, S, d), this rank's tokens. Returns (out, aux) with aux =
+    (lb_loss, z_loss). ``sh``: this rank on the "model" axis, or None."""
+    if dispatch == "sharded" and sh is None:
+        mesh = _SHARD_MESH["mesh"]
+        if mesh is None:
+            raise ValueError("moe dispatch='sharded' needs a mesh: build the "
+                             "model with mesh=..., or set_shard_mesh(mesh)")
+        from repro_torch.models.layers.parallel import Shard
+        sh = Shard.of(mesh)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    logits, probs, top_p, top_e = _route(p, xt, top_k)
+    logits, probs, top_p, top_e = _route(p, xt, top_k, sh)
 
     if dispatch == "dense":
         w_full = torch.zeros(top_e.shape + (n_experts,), dtype=x.dtype,
@@ -98,20 +132,24 @@ def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
         h = act_fn(act)(h_gate) * h_in
         out = torch.einsum("tef,efd,te->td", h, p["w_out"].to(x.dtype),
                            w_full)
-    elif dispatch == "sharded":
-        raise NotImplementedError(
-            "moe dispatch='sharded' is not ported yet (ROADMAP queue 1, "
-            "item 14c: the sharding rules and MoE 'sharded' dispatch over "
-            "torch.distributed); use 'ragged' or 'dense'")
     else:
         out = _ragged_experts(p["w_in"].to(x.dtype), p["w_gate"].to(x.dtype),
                               p["w_out"].to(x.dtype), xt, top_p, top_e,
                               n_experts, top_k, act)
+    partial = sh is not None and sh.split(p, "w_out", 1)
 
     if "shared_w_in" in p:
         hs = (act_fn(act)(xt @ p["shared_w_gate"].to(x.dtype))
               * (xt @ p["shared_w_in"].to(x.dtype)))
-        out = out + hs @ p["shared_w_out"].to(x.dtype)
+        shared = hs @ p["shared_w_out"].to(x.dtype)
+        shared_partial = sh is not None and sh.split(p, "shared_w_out", 0)
+        if shared_partial and not partial:
+            shared = sh.sum(shared)
+        elif partial and not shared_partial:
+            out, partial = sh.sum(out), False
+        out = out + shared          # both partial: one sum of both below
+    if partial:
+        out = sh.sum(out)
 
     # --- aux losses --------------------------------------------------------
     # load balance: E * sum_e f_e * P_e  (f = fraction routed, P = mean prob)

@@ -16,6 +16,21 @@ float32, since the reference uses them in float32 (``storage_dtype``).
 Training keeps float32 masters instead (``repro_torch.train``) and hands
 ``forward_train`` the tensors to compute with, by parameter name.
 
+On a mesh (``build_model(cfg, device, mesh=...)``, a ``DeviceMesh`` with
+axes ("data", "model")), the model allocates only this rank's blocks of the
+parameters, as ``repro_torch.launch.sharding.param_shardings`` places
+them, and serves with the same API: every rank passes the same whole
+batch, keeps its rows of it (``batch_shardings``: B over the data axes when
+divisible, else replicated), runs tensor-parallel attention, MLP and MoE
+over "model" (``layers.parallel``) and returns the whole logits, gathered
+over the data axes. Caches are this rank's blocks (``cache_shardings``:
+B on data, the sequence on "model") in a ``ShardedCache``, which records
+their layout for ``decode_step``. Over "model" only the attention-MLP and
+MoE families run (dense, vlm, granite); the SSM, hybrid, MLA and
+encoder-decoder blocks raise ``NotImplementedError`` at more than one
+"model" rank (ROADMAP item 14c-2) and run data-parallel. Training on a
+mesh of more than one rank is item 14c-2 too.
+
 Batch dict contract (all optional keys per family):
   tokens   (B, S)  int          text tokens (decoder tokens for enc-dec)
   labels   (B, S)  int          next-token labels, -1 = masked
@@ -26,6 +41,7 @@ Decode: tokens (B, 1), pos an int or a 0-d integer tensor, plus the cache.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
@@ -34,11 +50,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import resolve_device
+from repro_torch.launch.mesh import model_size
+from repro_torch.launch.sharding import (P, batch_shardings, cache_shardings,
+                                         gather_tensor, local_shape,
+                                         param_shardings, shard_tensor)
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.basic import (Leaf, const, dense, dense_init,
                                              embed, init_embedding, rms_norm,
                                              unembed)
+from repro_torch.models.layers.parallel import Shard
 
 # parameters the reference uses in float32 whatever the config's dtype
 F32_LEAVES = frozenset({
@@ -119,15 +140,38 @@ class CacheSpec(NamedTuple):
     dtype: torch.dtype
 
 
-class ParamTree(nn.Module):
+#: a parameter's global shape and storage dtype (``Model.param_specs``)
+ParamSpec = CacheSpec
+
+
+class ShardedCache(dict):
+    """A decode cache of a model on a mesh: ``{group: {name: this rank's
+    block}}`` as a dict, plus ``specs``, the ``cache_shardings`` of the
+    whole cache, which say how the blocks split it."""
+
+    def __init__(self, groups, specs):
+        super().__init__(groups)
+        self.specs = specs
+
+
+class _Specs:
+    """Per-parameter partition specs of a module (empty off a mesh)."""
+
+    def spec(self, key: str):
+        """The ``P`` this module's parameter ``key`` is placed by, or None
+        (a model on one device)."""
+        return self._specs.get(key)
+
+
+class ParamTree(_Specs, nn.Module):
     """A nested mapping of parameters built from a spec: a dict of
     ``Leaf``s, sub-dicts and lists of sub-dicts (per-layer stacks).
     ``p["attn"]["wq"]`` and ``"w_gate" in p`` read it as the reference's
     layer functions read a params dict."""
 
-    def __init__(self, spec, dtype, device, prefix, leaves):
+    def __init__(self, spec, dtype, device, prefix, leaves, place):
         super().__init__()
-        _register(self, spec, dtype, device, prefix, leaves)
+        _register(self, spec, dtype, device, prefix, leaves, place)
 
     def __getitem__(self, key):
         return getattr(self, key)
@@ -136,41 +180,148 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
-def _register(module: nn.Module, spec, dtype, device, prefix, leaves):
+def _register(module: nn.Module, spec, dtype, device, prefix, leaves,
+              place):
     """Add ``spec``'s parameters and subtrees to ``module``; record each
-    parameter's ``Leaf`` under its dotted name in ``leaves``."""
+    parameter's ``Leaf`` under its dotted name in ``leaves``. ``place``
+    maps a name to its ``(P, local shape)`` on the model's mesh, or is None
+    on one device."""
+    module._specs = {}
     for key, sub in spec.items():
         name = prefix + key
         if isinstance(sub, Leaf):
-            t = torch.empty(sub.shape, dtype=storage_dtype(name, dtype),
+            shape = sub.shape
+            if place is not None:
+                module._specs[key], shape = place(name)
+            t = torch.empty(shape, dtype=storage_dtype(name, dtype),
                             device=device)
             module.register_parameter(key, nn.Parameter(t,
                                                         requires_grad=False))
             leaves[name] = sub
         elif isinstance(sub, list):
             module.add_module(key, nn.ModuleList(
-                ParamTree(s, dtype, device, f"{name}.{i}.", leaves)
+                ParamTree(s, dtype, device, f"{name}.{i}.", leaves, place)
                 for i, s in enumerate(sub)))
         else:
             module.add_module(key, ParamTree(sub, dtype, device, name + ".",
-                                             leaves))
+                                             leaves, place))
 
 
-class Model(nn.Module):
+def layer_kinds(cfg: ArchConfig) -> Tuple[str, int, str, int]:
+    """(lead_kind, lead_n, main_kind, main_n)."""
+    if cfg.ssm:
+        return ("ssm", 0, "ssm", cfg.n_layers)
+    if cfg.hybrid:
+        return ("hybrid", 0, "hybrid", cfg.n_layers)
+    if cfg.n_experts > 0:
+        return ("dense", cfg.n_dense_layers, "moe",
+                cfg.n_layers - cfg.n_dense_layers)
+    return ("dense", 0, "dense", cfg.n_layers)
+
+
+def param_leaves(cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's parameter tree as ``Leaf`` specs, with each stacked
+    block tree as a list of per-layer trees."""
+    p: Dict[str, Any] = {"embed": init_embedding(cfg.padded_vocab,
+                                                 cfg.d_model),
+                         "final_norm": const((cfg.d_model,), 1.0)}
+    lead_kind, lead_n, main_kind, main_n = layer_kinds(cfg)
+    if cfg.enc_dec:
+        p["enc_blocks"] = [B.init_enc_block(cfg)
+                           for _ in range(cfg.n_enc_layers)]
+        p["enc_norm"] = const((cfg.d_model,), 1.0)
+        p["blocks"] = [B.init_xdec_block(cfg) for _ in range(cfg.n_layers)]
+    else:
+        if lead_n:
+            p["lead_blocks"] = [B.init_block(cfg, lead_kind)
+                                for _ in range(lead_n)]
+        p["blocks"] = [B.init_block(cfg, main_kind) for _ in range(main_n)]
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"table": dense((cfg.padded_vocab, cfg.d_model))}
+    if cfg.mtp:
+        p["mtp"] = {"proj": dense((2 * cfg.d_model, cfg.d_model)),
+                    "block": B.init_block(cfg, "dense"),
+                    "norm": const((cfg.d_model,), 1.0)}
+    return p
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    """``{parameter name: ParamSpec(global shape, storage dtype)}`` of
+    ``Model(cfg)``, in ``init_params``'s draw order, nothing allocated (the
+    twin of the reference's ``Model.param_specs``, under the port's
+    per-layer names)."""
+    out: Dict[str, ParamSpec] = {}
+
+    def walk(tree, prefix):
+        for key, sub in tree.items():
+            name = prefix + key
+            if isinstance(sub, Leaf):
+                out[name] = ParamSpec(sub.shape,
+                                      storage_dtype(name, model_dtype(cfg)))
+            elif isinstance(sub, list):
+                for i, layer in enumerate(sub):
+                    walk(layer, f"{name}.{i}.")
+            else:
+                walk(sub, name + ".")
+    walk(param_leaves(cfg), "")
+    return out
+
+
+def _tp_blocks(cfg: ArchConfig) -> bool:
+    """Whether every block of ``cfg`` runs tensor-parallel over "model"
+    (the SSM, hybrid, MLA and encoder-decoder blocks: item 14c-2)."""
+    return not (cfg.ssm or cfg.hybrid or cfg.mla or cfg.enc_dec)
+
+
+def _module_spec(module: nn.Module, name: str):
+    """The ``P`` of parameter ``name`` (dotted) of ``module``, or None."""
+    *path, leaf = name.split(".")
+    for part in path:
+        module = module._modules[part]
+    return module.spec(leaf)
+
+
+class Model(_Specs, nn.Module):
     """Family-polymorphic model bound to an ArchConfig, on ``device`` (the
     GPU unless the caller passes ``device="cpu"``). Parameters are
     allocated uninitialized; ``init_params`` fills them from a generator,
     or ``load_state_dict(params_from_reference(cfg, tree))`` carries the
-    reference's."""
+    reference's (``shard_state_dict`` of it on a mesh).
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    ``mesh``: a ``DeviceMesh`` with axes ("data", "model") (``ElasticMesh``
+    builds one) to hold and serve this rank's shards, placed by
+    ``param_shardings(mesh, ..., mode)``; ``mode="fsdp"`` places ZeRO-3
+    shards, which only a mesh of one rank can run yet (item 14c-2)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda", mesh=None,
+                 mode: str = "tp"):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
+        self.mesh = mesh
+        self.shard = None
+        place = None
+        if mesh is not None:
+            if mode == "fsdp" and mesh.size() > 1:
+                raise NotImplementedError(
+                    "serving ZeRO-3 (mode='fsdp') shards is ROADMAP queue 1, "
+                    "item 14c-2; build with mode='tp'")
+            if model_size(mesh) > 1 and not _tp_blocks(cfg):
+                raise NotImplementedError(
+                    f"{cfg.name}: tensor parallelism for the SSM, hybrid, "
+                    "MLA and encoder-decoder blocks is ROADMAP queue 1, item "
+                    "14c-2; run it on a mesh with one 'model' rank")
+            shapes = param_specs(cfg)
+            pspecs = param_shardings(mesh, shapes, mode)
+
+            def place(name):
+                return pspecs[name], local_shape(shapes[name].shape,
+                                                 pspecs[name], mesh)
+            self.shard = Shard.of(mesh)
         self._leaves: Dict[str, Leaf] = {}
-        _register(self, self._param_spec(), self.dtype, self.device, "",
-                  self._leaves)
+        _register(self, param_leaves(cfg), self.dtype, self.device, "",
+                  self._leaves, place)
 
     def __getitem__(self, key):
         """``model["blocks"]`` reads the model as ``param_tree`` reads a
@@ -181,56 +332,82 @@ class Model(nn.Module):
 
     def _layer_kinds(self) -> Tuple[str, int, str, int]:
         """(lead_kind, lead_n, main_kind, main_n)."""
-        cfg = self.cfg
-        if cfg.ssm:
-            return ("ssm", 0, "ssm", cfg.n_layers)
-        if cfg.hybrid:
-            return ("hybrid", 0, "hybrid", cfg.n_layers)
-        if cfg.n_experts > 0:
-            return ("dense", cfg.n_dense_layers, "moe",
-                    cfg.n_layers - cfg.n_dense_layers)
-        return ("dense", 0, "dense", cfg.n_layers)
+        return layer_kinds(self.cfg)
 
-    def _param_spec(self) -> Dict[str, Any]:
-        """The reference's parameter tree as ``Leaf`` specs, with each
-        stacked block tree as a list of per-layer trees."""
-        cfg = self.cfg
-        p: Dict[str, Any] = {"embed": init_embedding(cfg.padded_vocab,
-                                                     cfg.d_model),
-                             "final_norm": const((cfg.d_model,), 1.0)}
-        lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
-        if cfg.enc_dec:
-            p["enc_blocks"] = [B.init_enc_block(cfg)
-                               for _ in range(cfg.n_enc_layers)]
-            p["enc_norm"] = const((cfg.d_model,), 1.0)
-            p["blocks"] = [B.init_xdec_block(cfg) for _ in range(cfg.n_layers)]
-        else:
-            if lead_n:
-                p["lead_blocks"] = [B.init_block(cfg, lead_kind)
-                                    for _ in range(lead_n)]
-            p["blocks"] = [B.init_block(cfg, main_kind)
-                           for _ in range(main_n)]
-        if not cfg.tie_embeddings:
-            p["lm_head"] = {"table": dense((cfg.padded_vocab, cfg.d_model))}
-        if cfg.mtp:
-            p["mtp"] = {"proj": dense((2 * cfg.d_model, cfg.d_model)),
-                        "block": B.init_block(cfg, "dense"),
-                        "norm": const((cfg.d_model,), 1.0)}
-        return p
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        """Every parameter's global shape and storage dtype, nothing
+        allocated (``param_specs(cfg)``)."""
+        return param_specs(self.cfg)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Model":
         """Fill every parameter: dense weights drawn N(0, scale^2) in
         float32 on the generator's device (then cast and moved to the
-        model's), the rest constant. Returns the model."""
+        model's), the rest constant. On a mesh each whole leaf is drawn,
+        in the same order, and this rank keeps its block, so the shards
+        are those of the one-device model of the same generator. Returns
+        the model."""
         params = dict(self.named_parameters())
         for name, leaf in self._leaves.items():
             if leaf.scale is None:
                 params[name].fill_(leaf.fill)
-            else:
-                params[name].copy_(dense_init(generator, leaf.shape,
-                                              leaf.scale))
+                continue
+            full = dense_init(generator, leaf.shape, leaf.scale)
+            spec = _module_spec(self, name)
+            if spec:
+                full = shard_tensor(full, spec, self.mesh)
+            params[name].copy_(full)
         return self
+
+    # ------------------------------------------------------------- mesh --
+
+    def _batch_spec(self, shape) -> P:
+        return batch_shardings(self.mesh, {"x": tuple(shape)})["x"]
+
+    def _rows(self, t):
+        """This rank's rows of a whole-batch tensor (``batch_shardings``)."""
+        if self.mesh is None or t is None:
+            return t
+        return shard_tensor(t, self._batch_spec(t.shape), self.mesh)
+
+    def _all_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """The whole batch (of ``b`` rows) from this rank's rows of it."""
+        if self.mesh is None:
+            return t
+        return gather_tensor(t, self._batch_spec((b,) + tuple(t.shape[1:])),
+                             self.mesh)
+
+    def _shard_cache(self, caches, b: int):
+        """Per-layer-stacked caches with this rank's batch rows and every
+        other dimension whole -> ``ShardedCache`` of this rank's blocks."""
+        if self.mesh is None:
+            return caches
+        specs = cache_shardings(self.mesh, {
+            g: {k: tuple(t.shape) if k == "pos"
+                else (t.shape[0], b) + tuple(t.shape[2:])
+                for k, t in leaves.items()}
+            for g, leaves in caches.items()})
+        out = {}
+        for g, leaves in caches.items():
+            out[g] = {}
+            for k, t in leaves.items():
+                model_only = P(*(e if e == "model" else None
+                                 for e in specs[g][k]))
+                out[g][k] = shard_tensor(t, model_only, self.mesh) \
+                    if "model" in model_only and self.shard.mp > 1 else t
+        return ShardedCache(out, specs)
+
+    def _decode_shard(self, cache, group: str):
+        """The layers' ``Shard`` for decoding ``cache[group]``: whether its
+        sequence is split over "model" comes from the cache's specs."""
+        if self.shard is None or self.shard.mp == 1:
+            return self.shard
+        if not isinstance(cache, ShardedCache):
+            raise TypeError("a model sharded over 'model' decodes from a "
+                            "ShardedCache (its init_cache or prefill)")
+        spec = cache.specs[group].get("k")
+        return dataclasses.replace(self.shard, seq=bool(spec)
+                                   and spec[2] == "model")
 
     # ------------------------------------------------------- embeddings --
 
@@ -238,12 +415,14 @@ class Model(nn.Module):
         """Returns (x (B,S,d), positions (B,S), labels-or-None); for the
         vision frontend the labels are padded with -1 over the patches."""
         cfg = self.cfg
-        x = embed(p["embed"], batch["tokens"].to(self.device), self.dtype)
-        labels = batch.get("labels")
+        x = embed(p["embed"], self._rows(batch["tokens"].to(self.device)),
+                  self.dtype, self.shard)
+        labels = self._rows(batch.get("labels"))
         if labels is not None:
             labels = labels.to(self.device)
         if cfg.frontend == "vision" and "frontend_embeds" in batch:
-            fe = batch["frontend_embeds"].to(self.device, self.dtype)
+            fe = self._rows(batch["frontend_embeds"].to(self.device,
+                                                        self.dtype))
             x = torch.cat([fe, x], dim=1)
             if labels is not None:
                 labels = torch.cat([labels.new_full(fe.shape[:2], -1),
@@ -257,7 +436,7 @@ class Model(nn.Module):
 
     def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
         head = p["embed"] if self.cfg.tie_embeddings else p["lm_head"]
-        return unembed(head, x)
+        return unembed(head, x, self.shard)
 
     # ----------------------------------------------------------- encode --
 
@@ -288,6 +467,10 @@ class Model(nn.Module):
         copies); gradients flow back to those tensors. With ``remat`` each
         block is recomputed in the backward pass."""
         cfg = self.cfg
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise NotImplementedError(
+                "training on a mesh of more than one rank is ROADMAP queue "
+                "1, item 14c-2")
         p = param_tree(params)
         if cfg.enc_dec:
             return self._forward_train_encdec(p, batch, remat=remat)
@@ -360,10 +543,12 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor]):
-        """Full-prompt forward; returns (last-position logits, cache)."""
+        """Full-prompt forward; returns (last-position logits, cache). On a
+        mesh: the whole batch's logits and this rank's cache blocks."""
         cfg = self.cfg
+        b = batch["tokens"].shape[0]
         if cfg.enc_dec:
-            return self._prefill_encdec(batch)
+            return self._prefill_encdec(batch, b)
         x, positions, _ = self._embed_inputs(self, batch)
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
         caches = {}
@@ -373,16 +558,18 @@ class Model(nn.Module):
                 continue
             per_layer = []
             for p_l in self._modules[stack]:
-                x, cache, _ = B.block_forward(p_l, x, positions, cfg, kind)
+                x, cache, _ = B.block_forward(p_l, x, positions, cfg, kind,
+                                              sh=self.shard)
                 per_layer.append(cache)
             caches[name] = _stack(per_layer)
         x = rms_norm(self.final_norm, x)
         logits = self._unembed(self, x[:, -1:])
-        return logits[:, 0], caches
+        return (self._all_rows(logits[:, 0], b),
+                self._shard_cache(caches, b))
 
-    def _prefill_encdec(self, batch):
+    def _prefill_encdec(self, batch, b):
         cfg = self.cfg
-        enc_out = self._encode(self, batch["frontend_embeds"])
+        enc_out = self._encode(self, self._rows(batch["frontend_embeds"]))
         x, positions, _ = self._embed_inputs(self, batch)
         per_layer = []
         for p_l in self.blocks:
@@ -392,7 +579,8 @@ class Model(nn.Module):
             per_layer.append(dict(cache, cross_k=ek, cross_v=ev))
         x = rms_norm(self.final_norm, x)
         logits = self._unembed(self, x[:, -1:])
-        return logits[:, 0], {"main": _stack(per_layer)}
+        return (self._all_rows(logits[:, 0], b),
+                self._shard_cache({"main": _stack(per_layer)}, b))
 
     # ----------------------------------------------------------- decode --
 
@@ -402,10 +590,13 @@ class Model(nn.Module):
         or ``prefill`` (padded to the serve length), updated in place.
         ``pos`` is an int or a 0-d integer tensor; a tensor on the model's
         device keeps the step free of host reads. Returns (logits (B,
-        vocab), cache)."""
+        vocab), cache). On a mesh ``tokens`` is the whole batch, the logits
+        are the whole batch's and ``cache`` holds this rank's blocks."""
         cfg = self.cfg
+        b = tokens.shape[0]
         pos = A.as_pos(pos, self.device)
-        x = embed(self.embed, tokens.to(self.device), self.dtype)
+        x = embed(self.embed, self._rows(tokens.to(self.device)), self.dtype,
+                  self.shard)
         if cfg.rope_theta == 0.0:
             # absolute sinusoidal at position `pos` (whisper)
             x = x + sinusoid(pos, cfg.d_model).to(self.dtype)
@@ -422,13 +613,14 @@ class Model(nn.Module):
                                       ("main", "blocks", main_kind)):
                 if stack not in self._modules:
                     continue
+                sh = self._decode_shard(cache, name)
                 for i, p_l in enumerate(self._modules[stack]):
                     c_l = {k: v[i] for k, v in cache[name].items()}
-                    x, _ = B.block_decode(p_l, x, c_l, pos, cfg, kind)
+                    x, _ = B.block_decode(p_l, x, c_l, pos, cfg, kind, sh)
 
         x = rms_norm(self.final_norm, x)
         logits = self._unembed(self, x)
-        return logits[:, 0], cache
+        return self._all_rows(logits[:, 0], b), cache
 
     # ------------------------------------------------------ cache specs --
 
@@ -461,7 +653,8 @@ class Model(nn.Module):
 
     def init_cache_specs(self, batch_size: int, seq_len: int):
         """{"main": {name: CacheSpec}, "lead": ...} for the decode cache at
-        serve length, each stacked on a leading layer axis."""
+        serve length, each stacked on a leading layer axis (global shapes
+        on a mesh too)."""
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
 
         def stack(spec, n):
@@ -476,15 +669,18 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, seq_len: int):
         """Zero-initialized cache on the model's device (hybrid 'pos'
-        slots = -1)."""
-        cache = {group: {k: torch.zeros(sd.shape, dtype=sd.dtype,
-                                        device=self.device)
-                         for k, sd in spec.items()}
-                 for group, spec in self.init_cache_specs(batch_size,
-                                                          seq_len).items()}
+        slots = -1); on a mesh a ``ShardedCache`` of this rank's blocks."""
+        specs = self.init_cache_specs(batch_size, seq_len)
+        place = None if self.mesh is None else cache_shardings(self.mesh,
+                                                               specs)
+        cache = {group: {k: torch.zeros(
+            sd.shape if place is None
+            else local_shape(sd.shape, place[group][k], self.mesh),
+            dtype=sd.dtype, device=self.device) for k, sd in spec.items()}
+            for group, spec in specs.items()}
         if self.cfg.hybrid:
             cache["main"]["pos"].fill_(-1)
-        return cache
+        return cache if place is None else ShardedCache(cache, place)
 
 
 def _stack(per_layer):
@@ -492,5 +688,8 @@ def _stack(per_layer):
     return {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
 
 
-def build_model(cfg: ArchConfig, device="cuda") -> Model:
-    return Model(cfg, device=device)
+def build_model(cfg: ArchConfig, device="cuda", mesh=None,
+                mode: str = "tp") -> Model:
+    """``Model(cfg)`` on ``device``; on ``mesh`` it holds this rank's
+    shards only (see ``Model``)."""
+    return Model(cfg, device=device, mesh=mesh, mode=mode)

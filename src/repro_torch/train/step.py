@@ -93,8 +93,8 @@ def make_train_step(model: Model, *, base_lr: float = 3e-4,
     unless None."""
     if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings is not ported yet (ROADMAP queue 1, item 14c: "
-            "the sharding rules over torch.distributed); pass None")
+            "grad_shardings is not ported yet (ROADMAP queue 1, item 14c-2: "
+            "sharded training over torch.distributed); pass None")
 
     def split(x):
         b = x.shape[0]

@@ -227,7 +227,14 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"fused_update_e/sum": 8, "fused_update_e/max": 9,
                       "fused_update_t/sum": 10}},
         {"launches": {"fused_update_e/sum": 11, "fused_update_e/max": 12,
-                      "fused_update_t/sum": 13}})
+                      "fused_update_t/sum": 13}},
+        {"launches": {"fused_update_e/sum": 14, "fused_update_e/max": 15,
+                      "fused_update_t/sum": 16}})
+    assert [by_path[k]["lm_sharded"] for k in ("fused_update_e/sum",
+                                               "fused_update_e/max",
+                                               "fused_update_t/sum")] == [
+        14, 15, 16]
+    assert all(len(by_path[k]) == 10 for k in by_path)
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -385,6 +392,8 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}},
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
@@ -506,3 +515,117 @@ def test_lm_train_checks_reject_a_wrong_card_result(monkeypatch):
         cs.lm_trained(dataclasses.replace(cfg, n_layers=1), CPU, b=2, s=16,
                       steps=3, base_lr=1e-3, warmup=1, synced=1,
                       traced=(1, 2), peak_bf16=989e12)
+
+
+def test_lm_shard_phase_constants():
+    """Phase 20 serves the families the port shards over "model" (and
+    checks that the others raise), Granite as published at B = 4 with
+    phase 18's serving sizes, then over two ranks at 256 tokens."""
+    from repro_torch import configs as TC
+    assert [a for a, _ in cs.LM_SHARD_FAMILIES] == [
+        "qwen3_4b", "gemma_7b", "mistral_large_123b", "starcoder2_3b",
+        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 3
+    assert [d for _, d in cs.LM_SHARD_FAMILIES][-3:] == [
+        "ragged", "dense", "sharded"]
+    assert set(cs.LM_SHARD_RAISE) | {a for a, _ in cs.LM_SHARD_FAMILIES} \
+        == set(TC.ARCH_IDS)
+    assert cs.LM_SHARD_FAMILY == dict(b=2, s=8, steps=8)
+    assert cs.LM_SHARD_RANKS == 2
+    assert cs.LM_MOE_SERVE == dict(b=4, prefill_len=1024, prompt_len=64,
+                                   gen=32, trace_steps=8)
+    assert cs.LM_MOE_SHARDED == dict(s=256, steps=16)
+    g = TC.get("granite_moe_3b_a800m")
+    assert (g.n_layers, g.d_model, g.n_heads, g.n_kv_heads, g.head_dim,
+            g.n_experts, g.d_ff, g.experts_per_token, g.padded_vocab,
+            g.tie_embeddings, g.dtype) == (32, 1536, 24, 8, 64, 40, 512, 8,
+                                           49408, True, "bfloat16")
+
+
+def test_lm_shard_phase_on_cpu(tmp_path):
+    """Phase 20's control flow and checks at tiny sizes: a world of one
+    over gloo, two gloo ranks on the CPU, a two-layer reduced Granite
+    served whole in bf16, decode against prefill in both dtypes, and over
+    the ranks in float32 (held to one device) and bf16."""
+    import dataclasses
+    from repro_torch import configs as TC
+    families = cs.shard_families((("qwen3_4b", None),
+                                  ("granite_moe_3b_a800m", "sharded")))
+    granite = TC.get("granite_moe_3b_a800m").reduced()
+    out = cs.phase_lm_shard(
+        CPU, tmp_path / "shard", families=families,
+        raise_cfgs=[TC.get("mamba2_130m").reduced(),
+                    TC.get("whisper_medium").reduced()],
+        moe_cfg=dataclasses.replace(granite, dtype="bfloat16"),
+        backend="gloo", family=dict(b=2, s=4, steps=2),
+        serve=dict(b=2, prefill_len=16, prompt_len=8, gen=4, trace_steps=2),
+        sharded=dict(s=8, steps=2), size=2)
+    assert set(out["one"]) == {cs.shard_key(c) for c in families}
+    assert set(out["families"]) == {
+        f"{cs.shard_key(c)} {m}" for c in families for m in ("1x2", "2x1")}
+    for f in out["families"].values():
+        assert f["err"] <= cs.LM_TOL and f["cache_err"] <= cs.LM_TOL
+    assert out["raised"] == ["mamba2-130m-reduced", "whisper-medium-reduced"]
+    sv = out["served"]
+    assert sv["world_of_one_bitwise"] and sv["moe_layers"] == 2
+    assert sv["syncs_per_step"] is None          # counted on the card only
+    d = sv["decode_vs_prefill"]
+    assert d["float32"]["rel"] <= cs.LM_TOL
+    assert d["float32"]["decisions_per_layer"] == 2 * 8
+    assert len(d["bfloat16"]["flips_per_layer"]) == 2
+    c = out["sharded"]
+    assert set(c) == {"float32/pinned", "bfloat16/pinned", "bfloat16/own"}
+    f32 = c["float32/pinned"]
+    assert f32["prefill_rel"] <= cs.LM_TOL >= f32["step_rel"]
+    assert f32["routes_pinned"] and f32["route_flips"] == 0
+    assert f32["route_decisions"] == 2 * (2 * 8 + 2 * 2)
+    assert c["bfloat16/pinned"]["routes_pinned"]
+    b16 = c["bfloat16/own"]
+    assert not b16["routes_pinned"]
+    assert b16["transport"] == "gloo" and b16["steps"] == 2
+    assert b16["collectives_per_step"] > 0
+    assert b16["staged_bytes_per_step"] == 0     # CPU tensors: no staging
+    assert max(b16["rank_param_bytes"]) < 0.6 * sv["param_bytes"]
+    assert out["launches"] == {"fused_update_t/sum": 0,
+                               "fused_update_e/sum": 0,
+                               "fused_update_e/max": 0}
+    assert not (tmp_path / "shard").exists()
+    cs.log_lm_shard(out)
+
+
+def test_lm_shard_checks_reject_a_wrong_result():
+    """``same_run`` raises on one differing bit, ``rel_logit_err`` beyond
+    its limit."""
+    a = dict(logits=torch.ones(2, 3), steps=[torch.zeros(2, 3)],
+             cache={"main": {"k": torch.zeros(1, 2)}})
+    b = {k: v for k, v in a.items()}
+    cs.same_run("x", a, b)
+    b["cache"] = {"main": {"k": torch.tensor([[0.0, 1e-30]])}}
+    with pytest.raises(AssertionError, match="cache main/k"):
+        cs.same_run("x", a, b)
+    b = dict(a, steps=[torch.full((2, 3), 1e-7)])
+    with pytest.raises(AssertionError, match="step 0"):
+        cs.same_run("x", a, b)
+    assert cs.rel_logit_err("x", torch.ones(3), torch.ones(3), 0.03) == 0.0
+    with pytest.raises(AssertionError, match="beyond"):
+        cs.rel_logit_err("x", torch.ones(3) * 1.05, torch.ones(3), 0.03)
+
+
+def test_routes_pinned_replays_a_recorded_routing():
+    """Pinned to its own recorded routes a model computes what it computed;
+    pinned to other experts it computes something else and counts every
+    row as a flip."""
+    from repro_torch import configs as TC
+    from repro_torch.models import build_model
+    cfg = TC.get("granite_moe_3b_a800m").reduced()
+    model = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    batch = cs.lm_inputs(cfg, 2, 5)
+    with cs.routes_recorded() as seen:
+        want, _ = model.prefill(batch)
+    with cs.routes_pinned(seen) as flips:
+        got, _ = model.prefill(batch)
+    assert torch.equal(got, want) and flips == [0] * cfg.n_layers
+    other = [(t + 1) % cfg.n_experts for t in seen]
+    with cs.routes_pinned(other) as flips:
+        got, _ = model.prefill(batch)
+    assert not torch.allclose(got, want) and flips == [10] * cfg.n_layers

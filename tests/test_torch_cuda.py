@@ -498,3 +498,47 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
     card = SyntheticLM(cfg, shape, device=cuda).batch(4)
     host = SyntheticLM(cfg, shape, device="cpu").batch(4)
     assert all(torch.equal(card[k].cpu(), host[k]) for k in host)
+
+
+def test_lm_sharded_world_of_one_is_bitwise_on_card(cuda, tmp_path):
+    """The sharded serving path on a world of one over NCCL (mesh (1, 1),
+    ``chip_smoke.py`` phase 20 (a)): prefill logits, caches and 8 decode
+    steps bitwise the one-device card run."""
+    cs = _chip_smoke()
+    families = cs.shard_families((("qwen3_4b", None), ("pixtral_12b", None),
+                                  ("granite_moe_3b_a800m", "sharded")))
+    refs = {cs.shard_key(c): cs.family_run(cs.one_device_cfg(c), cuda,
+                                           **cs.LM_SHARD_FAMILY)
+            for c in families}
+    out = cs.lm_shard_one(cuda, tmp_path / "store", families, refs,
+                          cs.LM_SHARD_FAMILY, "nccl")
+    assert all(out.values()) and len(out) == 3
+
+
+def test_lm_sharded_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Phase 20 at small sizes on the card: two gloo ranks sharing it on
+    meshes (1, 2) and (2, 1) within 1e-4 of one device, ranks bitwise
+    equal; a two-layer reduced Granite in bf16 served whole and over the
+    ranks with the "sharded" dispatch."""
+    import dataclasses
+    from repro_torch import configs as TC
+    cs = _chip_smoke()
+    granite = TC.get("granite_moe_3b_a800m").reduced()
+    out = cs.phase_lm_shard(
+        cuda, tmp_path / "shard",
+        families=cs.shard_families((("qwen3_4b", None),
+                                    ("granite_moe_3b_a800m", "sharded"))),
+        raise_cfgs=[TC.get("deepseek_v3_671b").reduced()],
+        moe_cfg=dataclasses.replace(granite, dtype="bfloat16"),
+        family=cs.LM_SHARD_FAMILY,
+        serve=dict(b=2, prefill_len=64, prompt_len=8, gen=4, trace_steps=2),
+        sharded=dict(s=16, steps=4), size=2)
+    assert all(f["err"] <= cs.LM_TOL for f in out["families"].values())
+    assert out["served"]["world_of_one_bitwise"]
+    assert out["served"]["syncs_per_step"] == 2       # one per MoE layer
+    assert out["served"]["decode_vs_prefill"]["float32"]["rel"] <= cs.LM_TOL
+    c = out["sharded"]
+    assert c["float32/pinned"]["step_rel"] <= cs.LM_TOL
+    assert c["bfloat16/own"]["transport"] == "gloo, host-staged"
+    assert c["bfloat16/own"]["staged_bytes_per_step"] > 0
+    assert out["raised"] == ["deepseek-v3-671b-reduced"]

@@ -6,7 +6,8 @@ A fresh interpreter imports every module of ``repro_torch`` and imports
 ``run_bp_resilient`` and the multi-device entry points (``make_bp_mesh``,
 ``run_bp_sharded``, ``ElasticMesh``), the LM stack's ``build_model`` and
 ``Model``, its training entry points (``make_train_step``'s model,
-``init_train_state``, ``SyntheticLM``) and the training launcher called
+``init_train_state``, ``SyntheticLM``), the training launcher,
+``make_production_mesh`` and ``build_model`` on a mesh, called
 without ``device=`` / ``--device cpu`` must raise when there is no GPU
 rather than carry on on the CPU.
 """
@@ -28,6 +29,7 @@ from repro_torch.ft import ElasticMesh, run_bp_resilient
 from repro_torch.models import Model, build_model
 from repro_torch.pgm import datasets as TD
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.serve import Router, serve_routed
 from repro_torch.train import make_train_step
 from repro_torch.train.step import init_train_state
@@ -89,7 +91,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.train", "repro_torch.train.optimizer",
                 "repro_torch.train.step", "repro_torch.data",
                 "repro_torch.data.pipeline",
-                "repro_torch.roofline.analysis"):
+                "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
+                "repro_torch.launch.sharding",
+                "repro_torch.models.layers.parallel"):
         assert mod in report["modules"]
 
 
@@ -145,13 +149,16 @@ def no_gpu(monkeypatch):
     lambda: SyntheticLM(TC.get("qwen3_4b").reduced(), TRAIN_4K),
     lambda: launch_train.main(["--arch", "qwen3_4b", "--reduced",
                                "--steps", "1"]),
+    lambda: make_production_mesh(),
+    lambda: build_model(TC.get("qwen3_4b").reduced(), mesh=object()),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
         "zoo_stream", "engine_batched", "router", "serve_routed",
         "run_bp_resilient", "make_bp_mesh", "run_bp_sharded",
         "elastic_mesh", "build_model", "model", "make_train_step",
-        "init_train_state", "synthetic_lm", "launch_train"])
+        "init_train_state", "synthetic_lm", "launch_train",
+        "make_production_mesh", "build_model_on_a_mesh"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -413,8 +413,11 @@ def test_moe_ragged_and_dense_agree():
 
 
 def test_moe_sharded_dispatch_raises():
+    """Without a mesh (the model's or ``set_shard_mesh``'s) the "sharded"
+    dispatch raises, as the reference asserts; with one it runs
+    (``tests/test_torch_lm_sharded.py``)."""
     rng = np.random.default_rng(16)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(ValueError, match="set_shard_mesh"):
         TMOE.moe(th(moe_params(rng, 0)), th(normal(rng, 1, 2, 32)),
                  n_experts=6, top_k=2, dispatch="sharded")
 
