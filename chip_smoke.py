@@ -79,7 +79,19 @@ main paths and its serving path at full size and measures them:
   "sharded" dispatch at full depth: float32 with one device's routing
   pinned within 1e-4 of one device, bf16 pinned and as it routes
   reported, with each rank's parameter bytes, decode ms/step, collectives
-  and staged bytes per step (phase 20).
+  and staged bytes per step (phase 20);
+- the LM stack's sharded training path (tensor-parallel and ZeRO-3 train
+  steps over ``torch.distributed``, gradients through the collectives),
+  which runs none of the BP kernels: the CPU tests' cases -- the
+  tensor-parallel families at ``reduced()``, every family under "fsdp"
+  widened so ZeRO-3 shards its leaves -- 3 steps on a world of one over
+  NCCL, bitwise one device's (metrics, step 0's gradients, masters and
+  moments), and on two gloo ranks sharing the card within 1e-4 of one
+  device, ranks bitwise; Granite's published widths at two layers in
+  float32 over the ranks within 1e-4 of one device; Granite-MoE 3B-a800m
+  as published trained 5 steps over the ranks at (1, 2): ms/step,
+  tokens/s, collectives and bytes staged per step, state bytes and peak
+  per rank, the loss over batches 0..2 before and after (phase 21).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -93,7 +105,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the ten paths (``launches_by_path``), its largest
+  and on each of the eleven paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -216,7 +228,7 @@ LM_TRAIN_DROP = 0.1                  # masters before and after training,
 # The LM stack's sharded serving path (phase 20): the reduced families that
 # run tensor-parallel over "model" on a world of one over NCCL (bitwise one
 # device) and on two gloo ranks sharing the card (within LM_TOL); the
-# families that must raise there (item 14c-2); Granite-MoE 3B-a800m as
+# families that must raise there (item 14c-3); Granite-MoE 3B-a800m as
 # src/repro/configs/granite_moe_3b_a800m.py publishes it (32 layers, bf16)
 # served on one device at B = 4, then over the two ranks with the
 # "sharded" dispatch at full depth, in float32 and bf16.
@@ -233,6 +245,30 @@ LM_SHARD_TIMEOUT_S = 420
 LM_MOE_SERVE = dict(b=4, prefill_len=1024, prompt_len=64, gen=32,
                     trace_steps=8)
 LM_MOE_SHARDED = dict(s=256, steps=16)
+# The LM stack's sharded training path (phase 21): (a) the cases of the
+# CPU tests (tests/test_torch_lm_sharded_train.py) -- the families that run
+# tensor-parallel at reduced(), every family under "fsdp" at reduced()
+# widened so ZeRO-3 shards the table and block matrices -- 3 steps, on a
+# world of one over NCCL (bitwise one device's) and on two gloo ranks
+# sharing the card (within LM_TOL, ranks bitwise); (b) Granite's published
+# widths at 2 of 32 layers in float32 over the two ranks, gradients and
+# masters within LM_TOL of one device; (c) Granite-MoE 3B-a800m as
+# src/repro/configs/granite_moe_3b_a800m.py publishes it (32 layers, bf16
+# over float32 masters, "sharded" dispatch) trained 5 steps over the two
+# ranks at (1, 2), tensor-parallel, at base_lr 3e-5 (a schedule that does
+# not spike: PERF.md, PR 18).
+LM_STRAIN_TP = (("qwen3_4b", None), ("gemma_7b", None),
+                ("mistral_large_123b", None), ("starcoder2_3b", None),
+                ("pixtral_12b", None), ("granite_moe_3b_a800m", "ragged"),
+                ("granite_moe_3b_a800m", "sharded"))
+# S counts pixtral's 8 stub patches: at S = 8 it would have no text token
+LM_STRAIN_FAMILY = dict(b=4, s=16, steps=3, base_lr=1e-4, warmup=1)
+LM_STRAIN_WIDE = dict(layers=2, b=2, s=512, steps=3, base_lr=1e-4,
+                      warmup=1)
+LM_STRAIN = dict(b=2, s=1024, steps=5, base_lr=3e-5, warmup=2)
+LM_STRAIN_RANKS = 2
+LM_STRAIN_SHARE = 0.6        # (c): a rank's state over one device's, at most
+LM_STRAIN_TIMEOUT_S = 600
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -3546,7 +3582,7 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
 
     out["families"] = check_families(ranks, refs)
     missing = {c.name for c in raise_cfgs} - set(ranks[0]["raised"])
-    if missing or not all("14c-2" in m
+    if missing or not all("14c-3" in m
                           for m in ranks[0]["raised"].values()):
         raise AssertionError(f"families that must raise over 'model' did "
                              f"not: {sorted(missing)}")
@@ -3600,7 +3636,7 @@ def log_lm_shard(out) -> None:
         log(f"  (a) {key}: vs one device {f['err']:.3g}, cache blocks "
             f"{f['cache_err']:.3g}, {f['collectives_per_step']:.0f} "
             "collectives/decode step; ranks bitwise equal")
-    log(f"  (a) raise over 'model' (item 14c-2): {out['raised']}")
+    log(f"  (a) raise over 'model' (item 14c-3): {out['raised']}")
     sv = out["served"]
     p, s, bd = sv["prefill"], sv["serve"], sv["bound"]
     log(f"  (b) {sv['arch']} {sv['layers']} layers {sv['dtype']}: "
@@ -3641,8 +3677,452 @@ def log_lm_shard(out) -> None:
     log(f"  kernel launches on the sharded LM path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 21 --
+
+def strain_cases(tp=LM_STRAIN_TP):
+    """Phase 21 (a)'s cases, ``(key, mode, cfg)``: the tensor-parallel
+    families at ``reduced()``; every family under "fsdp" at ``reduced()``
+    with a vocabulary of 16,384 and ``d_ff`` 16,384 (2,048 per expert), so
+    that ZeRO-3 shards the table and the block matrices (the CPU tests'
+    configs)."""
+    from repro_torch import configs as TC
+    out = [(f"tp {shard_key(cfg)}", "tp", cfg) for cfg in shard_families(tp)]
+    for a in TC.ARCH_IDS:
+        cfg = TC.get(a).reduced()
+        out.append((f"fsdp {cfg.name}", "fsdp", dataclasses.replace(
+            cfg, vocab=16384, d_ff=2048 if cfg.n_experts else 16384)))
+    return out
+
+
+def strain_run(cfg, device, b, s, steps, base_lr, warmup, mesh=None,
+               mode="tp", gen_device="cpu"):
+    """``steps`` train steps of ``cfg`` on ``device`` (on ``mesh`` in
+    ``mode`` when given), warmup ``warmup``, on ``SyntheticLM`` batches;
+    the masters drawn from a generator of seed 0 on ``gen_device`` (each
+    rank keeps its shards of the one-device draw). Returns (model, state,
+    {"metrics": each step's as floats, "g0": step 0's gradients, the
+    rank's shards, summed over the ranks; "step_s": each step's seconds,
+    host clock to a synchronize; "collectives", "staged_bytes": of the
+    steps, from ``dist.comm.STATS``})."""
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_train_state
+    model = build_model(cfg, device=device, mesh=mesh, mode=mode)
+    state = init_train_state(model, torch.Generator(device=gen_device)
+                             .manual_seed(0))
+    step = make_train_step(model, base_lr=base_lr, warmup=warmup,
+                           total_steps=steps)
+    pipe = train_pipe(cfg, device, b, s)
+    g0, _ = step.gradients(state, pipe.batch(0))
+    metrics, step_s = [], []
+    comm.reset_stats()
+    for i in range(steps):
+        sync(device)
+        t0 = time.perf_counter()
+        m = step(state, pipe.batch(i))[1]
+        sync(device)
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return model, state, dict(metrics=metrics, g0=g0, step_s=step_s,
+                              **comm.STATS)
+
+
+def strain_whole(model, state, g0):
+    """Step 0's gradients, the masters and both moments, every leaf whole
+    (gathered over the model's mesh: every rank takes part)."""
+    from repro_torch.launch.sharding import gather_tensor
+
+    def whole(n, t):
+        spec = model.spec_of(n)
+        t = t.detach()
+        return t if spec is None else gather_tensor(t, spec, model.mesh)
+    return {f"{w}/{n}": whole(n, t) for w, tree in (
+        ("g0", g0), ("params", state.params), ("mu", state.opt.mu),
+        ("nu", state.opt.nu)) for n, t in tree.items()}
+
+
+def strain_err(name, metrics, whole, ref_metrics, ref_whole,
+               tol=LM_TOL) -> dict:
+    """Raise unless every step's metrics are within ``tol`` of the
+    reference's (``grad_norm`` relative) and every leaf of ``whole`` within
+    ``tol`` of the reference leaf's largest magnitude; the worst of both."""
+    worst = 0.0
+    for i, (m, r) in enumerate(zip(metrics, ref_metrics)):
+        for k, v in r.items():
+            err = abs(m[k] - v) / (max(1.0, abs(v)) if k == "grad_norm"
+                                   else 1.0)
+            if not err <= tol:
+                raise AssertionError(f"{name} step {i} {k}: {m[k]} vs "
+                                     f"{v}, beyond {tol}")
+            worst = max(worst, err)
+    leaf = max(rel_err(f"{name} {k}", t, ref_whole[k].cpu(), tol)
+               for k, t in whole.items())
+    return dict(metric_err=worst, leaf_err=leaf)
+
+
+def strain_same(name, got, want) -> None:
+    """Raise unless two ``strain_run``s (their results and states) are
+    bitwise equal."""
+    import torch
+    (gs, gr), (ws, wr) = got, want
+    if gr["metrics"] != wr["metrics"]:
+        raise AssertionError(f"{name}: metrics differ")
+    differ = [n for n, g in wr["g0"].items()
+              if not torch.equal(gr["g0"][n], g)]
+    if differ:
+        raise AssertionError(f"{name}: step 0 gradients differ at "
+                             f"{differ[:3]}")
+    same_state(name, gs, ws)
+
+
+def digest(t) -> str:
+    """A hash of a tensor's bits."""
+    import hashlib
+    import torch
+    return hashlib.sha1(t.detach().reshape(-1).contiguous().view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def ranks_agree(name, model, state, metrics) -> int:
+    """Raise unless every rank holds bitwise the same metrics and the same
+    bits of every master it holds whole (replicated over the mesh); returns
+    how many such masters were compared."""
+    import torch.distributed as dist
+    shapes = model.param_specs()
+    mine = (metrics, {n: digest(t) for n, t in state.params.items()
+                      if tuple(t.shape) == tuple(shapes[n].shape)})
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if any(e != every[0] for e in every[1:]):
+        raise AssertionError(f"{name}: the ranks' metrics or replicated "
+                             "masters differ")
+    return len(mine[1])
+
+
+def strain_eval(model, state, pipe, n):
+    """The loss of batches ``0..n-1`` on the masters (no update)."""
+    import torch
+    from repro_torch.train.step import compute_params
+    with torch.no_grad():
+        return [float(model.forward_train(
+            compute_params(model, state.params), pipe.batch(i),
+            remat=False)[0]) for i in range(n)]
+
+
+def strain_full(cfg, device, b, s, steps, base_lr, warmup):
+    """Phase 21 (c) in one rank: ``cfg`` on the mesh over every rank's
+    "model" axis, tensor-parallel, masters drawn on the card; the eval
+    loss of batches 0..2 before and after, each step timed by CUDA events
+    (a host clock off the card) with its collectives and staged bytes, the
+    state's bytes and the peak, the ranks' replicated masters compared."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    from repro_torch.ft import ElasticMesh
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_train_state
+    on_card = device.type == "cuda"
+    mesh = ElasticMesh(dist.get_world_size(), device=device).current()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, mesh=mesh)
+    state = init_train_state(model, torch.Generator(device=device)
+                             .manual_seed(0))
+    sync(device)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               dispatch=cfg.moe_dispatch, b=b, s=s, steps=steps,
+               base_lr=base_lr, warmup=warmup, mesh=tuple(mesh.mesh.shape),
+               init_s=time.perf_counter() - t0,
+               transport=comm.transport(mesh.get_group("model"), device))
+    shapes = model.param_specs()
+    whole = sum(math.prod(sp.shape) for sp in shapes.values())
+    held = sum(t.numel() * t.element_size() for tree in (
+        state.params, state.opt.mu, state.opt.nu) for t in tree.values())
+    out.update(params=whole, state_bytes=held,
+               one_device_state_bytes=3 * 4 * whole,
+               state_share=held / (3 * 4 * whole))
+    pipe = train_pipe(cfg, device, b, s)
+    step = make_train_step(model, base_lr=base_lr, warmup=warmup,
+                           total_steps=steps)
+    before = strain_eval(model, state, pipe, LM_TRAIN_EVAL)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ms, per_step, metrics = [], [], []
+    for i in range(steps):
+        comm.reset_stats()
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t1 = time.perf_counter()
+        _, m = step(state, pipe.batch(i))
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        else:
+            ms.append((time.perf_counter() - t1) * 1e3)
+        per_step.append(dict(comm.STATS))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() \
+        if on_card else None
+    after = strain_eval(model, state, pipe, LM_TRAIN_EVAL)
+    out["replicated_masters"] = ranks_agree(f"{cfg.name} (c)", model, state,
+                                            metrics)
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(c) non-finite loss or grad_norm: {losses} "
+                             f"{gnorms}")
+    if not sum(after) < sum(before):
+        raise AssertionError(f"(c) mean loss over batches 0..2 {before} "
+                             f"before training, {after} after: not lower")
+    if not out["state_share"] <= LM_STRAIN_SHARE:
+        raise AssertionError(f"(c) a rank holds {out['state_share']:.3f} "
+                             f"of one device's state (limit "
+                             f"{LM_STRAIN_SHARE})")
+    p50 = percentile(ms, 50)
+    out.update(losses=losses, grad_norms=gnorms, eval_before=before,
+               eval_after=after,
+               eval_drop=(sum(before) - sum(after)) / LM_TRAIN_EVAL,
+               step_ms=ms, step_ms_p50=p50, step_ms_p90=percentile(ms, 90),
+               tokens_per_s=b * s / (p50 / 1e3),
+               collectives_per_step=percentile(
+                   [x["collectives"] for x in per_step], 50),
+               staged_bytes_per_step=percentile(
+                   [x["staged_bytes"] for x in per_step], 50))
+    del model, state, step
+    return out
+
+
+def _lm_strain_rank(rank, size, out_dir, device_type, job):
+    """One rank of phase 21's gloo world, in its own process, every tensor
+    on ``device_type``: (a) each case of ``job["cases"]`` on the meshes
+    ``(1, size)`` and ``(size, 1)`` (the "fsdp" cases on the first: over
+    both axes they are the same), rank 0 holding one device's run of the
+    case beside and checking the gathered results against it, every rank
+    checking the ranks agree; (b) ``job["wide"]`` the same on ``(1, size)``,
+    in both modes;
+    (c) ``strain_full`` of ``job["full"]``. Writes ``rank<r>.pt``."""
+    import faulthandler
+    import signal
+    import traceback
+    import torch
+    sys.path.insert(0, str(SRC))
+    device = torch.device(device_type)
+    if device.type != "cuda":
+        torch.set_num_threads(1)
+    # where a rank stood when it failed or was stopped, for the parent
+    stack = open(Path(out_dir) / f"rank{rank}.stack", "w")
+    faulthandler.enable(file=stack, all_threads=True)
+    faulthandler.register(signal.SIGTERM, file=stack, all_threads=True)
+    try:
+        _lm_strain_work(rank, size, out_dir, device, job)
+    except BaseException:
+        (Path(out_dir) / f"rank{rank}.err").write_text(
+            traceback.format_exc())
+        raise
+
+
+def _lm_strain_work(rank, size, out_dir, device, job):
+    """The body of ``_lm_strain_rank``."""
+    import torch
+    from repro_torch.ft import ElasticMesh
+    out = dict(a={}, wide=None, full=None)
+    fam = job["family"]
+    with world("gloo", Path(out_dir) / "store", size, rank):
+        refs = {}
+        for mp_ in (size, 1):
+            mesh = ElasticMesh(mp_, device=device).current()
+            shape = tuple(mesh.mesh.shape)
+            for key, mode, cfg in job["cases"]:
+                if mode == "fsdp" and mp_ == 1:
+                    continue
+                if rank == 0 and key not in refs:
+                    m, st, r = strain_run(one_device_cfg(cfg), device, **fam)
+                    refs[key] = (r["metrics"], strain_whole(m, st, r["g0"]))
+                    del m, st, r
+                model, state, run = strain_run(cfg, device, mesh=mesh,
+                                               mode=mode, **fam)
+                whole = strain_whole(model, state, run["g0"])
+                n_rep = ranks_agree(f"{key} {shape}", model, state,
+                                    run["metrics"])
+                if rank == 0:
+                    out["a"][(key, shape)] = dict(
+                        strain_err(f"{key} {shape}", run["metrics"], whole,
+                                   *refs[key]),
+                        replicated_masters=n_rep,
+                        collectives_per_step=run["collectives"]
+                        / fam["steps"])
+                del model, state, run, whole
+        refs.clear()
+        if job["wide"] is not None:
+            cfg, wide = job["wide"]
+            kw = {k: v for k, v in wide.items() if k != "layers"}
+            mesh = ElasticMesh(size, device=device).current()
+            ref = None
+            if rank == 0:
+                m, st, r = strain_run(one_device_cfg(cfg), device, **kw)
+                ref = (r["metrics"], strain_whole(m, st, r["g0"]))
+                del m, st, r
+            out["wide"] = {}
+            for mode in ("tp", "fsdp"):
+                model, state, run = strain_run(cfg, device, mesh=mesh,
+                                               mode=mode, **kw)
+                whole = strain_whole(model, state, run["g0"])
+                ranks_agree(f"{cfg.name} (b) {mode}", model, state,
+                            run["metrics"])
+                if rank == 0:
+                    n = kw["steps"]
+                    out["wide"][mode] = dict(
+                        strain_err(f"{cfg.name} (b) {mode}", run["metrics"],
+                                   whole, *ref),
+                        arch=cfg.name, layers=cfg.n_layers, b=kw["b"],
+                        s=kw["s"], steps=n, loss=run["metrics"][0]["loss"],
+                        step_ms_p50=percentile(run["step_s"], 50) * 1e3,
+                        collectives_per_step=run["collectives"] / n,
+                        staged_bytes_per_step=run["staged_bytes"] / n)
+                del model, state, run, whole
+            del ref
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if job["full"] is not None:
+            cfg, full = job["full"]
+            out["full"] = strain_full(cfg, device, **full)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_lm_strain(device, out_dir, cases=None, wide_cfg=None,
+                    full_cfg=None, backend="nccl", family=LM_STRAIN_FAMILY,
+                    wide=LM_STRAIN_WIDE, full=LM_STRAIN,
+                    size=LM_STRAIN_RANKS, timeout_s=LM_STRAIN_TIMEOUT_S):
+    """Phase 21, the LM stack's sharded training path: (a) each case of
+    ``strain_cases`` on a world of one over ``backend``, in its mode,
+    bitwise one device's run (metrics, step 0's gradients, masters and
+    moments after the steps), then over ``size`` gloo ranks sharing
+    ``device`` within ``LM_TOL`` of one device, ranks bitwise; (b)
+    Granite's published widths at ``wide["layers"]`` layers in float32 over
+    the ranks, in both modes, within ``LM_TOL``, timed; (c) Granite-MoE 3B
+    as published
+    (``full_cfg``) trained over the ranks. The BP kernels run nowhere
+    here: their counts go from 0."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import configs as TC
+    from repro_torch.ft import ElasticMesh
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    out_dir = Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cases = cases or strain_cases()
+    granite = TC.get("granite_moe_3b_a800m")
+    wide_cfg = wide_cfg or dataclasses.replace(
+        granite, n_layers=wide["layers"], dtype="float32",
+        moe_dispatch="sharded")
+    full_cfg = full_cfg or dataclasses.replace(granite,
+                                               moe_dispatch="sharded")
+    out = dict(cases=[k for k, _, _ in cases])
+    t0 = time.perf_counter()
+    one = {}
+    with world(backend, out_dir / "store_one"):
+        mesh = ElasticMesh(1, device=device).current()
+        for key, mode, cfg in cases:
+            a = strain_run(one_device_cfg(cfg), device, **family)
+            b = strain_run(cfg, device, mesh=mesh, mode=mode, **family)
+            strain_same(f"{key} on a world of one vs one device", b[1:],
+                        a[1:])
+            one[key] = True
+            del a, b
+    out["one"] = one
+    out["a_one_s"] = time.perf_counter() - t0
+    log(f"  (a) one device and a world of one: {out['a_one_s']:.1f} s")
+
+    job = dict(cases=cases, family=family, wide=(wide_cfg, wide),
+               full=(full_cfg, full))
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_lm_strain_rank, args=(size, str(out_dir),
+                                                    device.type, job),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=0.5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"phase 21's gloo world did not finish "
+                                     f"in {timeout_s} s")
+    except Exception as e:
+        notes = [f"{p.name}:\n{p.read_text()[-3000:]}"
+                 for p in sorted(out_dir.glob("rank*.err"))
+                 + sorted(out_dir.glob("rank*.stack")) if p.stat().st_size]
+        raise AssertionError(f"phase 21's ranks failed: {e}\n"
+                             + "\n".join(notes)) from e
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(size)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out["families"] = {f"{k} {s[0]}x{s[1]}": v
+                       for (k, s), v in ranks[0]["a"].items()}
+    out["wide"] = ranks[0]["wide"]
+    out["full"] = ranks[0]["full"]
+    out["full"]["rank_state_bytes"] = [r["full"]["state_bytes"]
+                                       for r in ranks]
+    out["full"]["rank_peak_memory_bytes"] = [r["full"]["peak_memory_bytes"]
+                                             for r in ranks]
+    out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"]}
+    return out
+
+
+def log_lm_strain(out) -> None:
+    """Phase 21's progress lines."""
+    log(f"  (a) world of one: {len(out['one'])} cases bitwise the "
+        f"one-device run ({out['a_one_s']:.1f} s)")
+    for key, f in out["families"].items():
+        log(f"  (a) {key}: vs one device metrics {f['metric_err']:.3g}, "
+            f"leaves {f['leaf_err']:.3g} (of max); "
+            f"{f['replicated_masters']} replicated masters and the metrics "
+            f"bitwise on every rank; {f['collectives_per_step']:.0f} "
+            "collectives/step")
+    for mode, w in out["wide"].items():
+        log(f"  (b) {w['arch']} {w['layers']} layers float32 B={w['b']} "
+            f"S={w['s']} {w['steps']} steps over the ranks, {mode}: "
+            f"metrics {w['metric_err']:.3g}, gradients, masters and moments "
+            f"{w['leaf_err']:.3g} (of max) vs one device; "
+            f"{w['step_ms_p50']:.1f} ms/step p50, "
+            f"{w['collectives_per_step']:.0f} collectives and "
+            f"{w['staged_bytes_per_step']:.0f} B staged per step")
+    c = out["full"]
+    log(f"  (c) {c['arch']} {c['layers']} layers {c['dtype']} "
+        f"({c['dispatch']}) on {c['mesh']} over {c['transport']}: "
+        f"{c['params']:,} parameters, drawn in {c['init_s']:.1f} s; state "
+        f"{c['rank_state_bytes']} B per rank = {c['state_share']:.3f} of "
+        f"one device's {c['one_device_state_bytes']} B; peak "
+        f"{c['rank_peak_memory_bytes']} B")
+    log(f"  (c) B={c['b']} S={c['s']}: {c['step_ms_p50']:.1f} ms/step p50 "
+        f"({c['step_ms_p90']:.1f} p90) = {c['tokens_per_s']:.0f} tokens/s; "
+        f"{c['collectives_per_step']:.0f} collectives and "
+        f"{c['staged_bytes_per_step']:.0f} B staged per step")
+    log("  (c) loss " + ", ".join(f"{x:.4f}" for x in c["losses"])
+        + "; grad_norm " + ", ".join(f"{x:.4f}" for x in c["grad_norms"]))
+    log(f"  (c) eval loss over batches 0..2: {c['eval_before']} before, "
+        f"{c['eval_after']} after (drop {c['eval_drop']:.4f}); "
+        f"{c['replicated_masters']} replicated masters bitwise across ranks")
+    log(f"  gloo ranks: {out['gloo_wall_s']:.1f} s with the spawn; kernel "
+        f"launches on the sharded training path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one, lm, lm_train, lm_shard):
+                     dist_one, lm, lm_train, lm_shard, lm_strain):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -3650,10 +4130,12 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     counted from 0), the resilient run (phase 16), the multi-device
     paths of phase 17 (a): ``sharded`` and ``banded``, the LM stack's
     serving path (phase 18, ``lm``), its training path (phase 19,
-    ``lm_train``) and its sharded serving path (phase 20, ``lm_sharded``:
-    the parent's launches; its spawned ranks run no BP kernel either)."""
+    ``lm_train``), its sharded serving path (phase 20, ``lm_sharded``: the
+    parent's launches; its spawned ranks run no BP kernel either) and its
+    sharded training path (phase 21, ``lm_sharded_train``, the same)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     lmt, lms = lm_train["launches"], lm_shard["launches"]
+    lmst = lm_strain["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -3664,7 +4146,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    banded=dist_one["banded"]["launches"],
                                    lm=lm["fused_update_e/sum"],
                                    lm_train=lmt["fused_update_e/sum"],
-                                   lm_sharded=lms["fused_update_e/sum"]),
+                                   lm_sharded=lms["fused_update_e/sum"],
+                                   lm_sharded_train=lmst["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -3673,7 +4156,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    sharded=0, banded=0,
                                    lm=lm["fused_update_e/max"],
                                    lm_train=lmt["fused_update_e/max"],
-                                   lm_sharded=lms["fused_update_e/max"]),
+                                   lm_sharded=lms["fused_update_e/max"],
+                                   lm_sharded_train=lmst["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -3681,7 +4165,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    resilient=0, sharded=0, banded=0,
                                    lm=lm["fused_update_t/sum"],
                                    lm_train=lmt["fused_update_t/sum"],
-                                   lm_sharded=lms["fused_update_t/sum"])}
+                                   lm_sharded=lms["fused_update_t/sum"],
+                                   lm_sharded_train=lmst["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -3964,6 +4449,15 @@ def main() -> int:
     log_lm_shard(lm_shard)
     log(f"  phase 20 in {lm_shard['phase_s']:.1f} s")
 
+    log("== 21. the LM stack's sharded training path (tensor-parallel and "
+        "ZeRO-3 train steps, sharded checkpoints' placement): the CPU "
+        "tests' cases on meshes, Granite-MoE 3B trained over two ranks")
+    t0 = time.perf_counter()
+    lm_strain = phase_lm_strain(device, REPO / "chiprun_out" / "lm_strain")
+    lm_strain["phase_s"] = time.perf_counter() - t0
+    log_lm_strain(lm_strain)
+    log(f"  phase 21 in {lm_strain['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -3978,7 +4472,7 @@ def main() -> int:
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
-                                            lm_shard),
+                                            lm_shard, lm_strain),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -3988,7 +4482,7 @@ def main() -> int:
                   batched_timing=btiming, protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
-                  lm_shard=lm_shard,
+                  lm_shard=lm_shard, lm_strain=lm_strain,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

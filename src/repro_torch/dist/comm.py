@@ -21,7 +21,29 @@ picks, and the callers combine gathered parts in rank order instead.
 ``rank_order_sum`` adds gathered float parts in rank order, so every rank of
 the group holds bitwise the same sum.
 
-``STATS["collectives"]`` counts the calls of the functions below.
+Gradients. ``rank_order_sum``, ``all_gather_cat`` and ``enter`` are
+``torch.autograd.Function``s, so a tensor-parallel or ZeRO-3 forward
+differentiates through its collectives. Every rank of the group runs the
+same global function, and a replicated tensor carries the same gradient on
+every rank:
+
+- ``rank_order_sum``: the backward is the identity (each rank's part gets
+  the sum's whole gradient);
+- ``all_gather_cat``: the backward takes this rank's slice of the gradient
+  (``grad="slice"``, the consumers replicated), or the rank-order sum of
+  every rank's slice (``grad="sum"``, the consumers partial: ZeRO-3's
+  gathered weights, whose gradient is a reduce-scatter);
+- ``enter``: the identity, for a replicated tensor that feeds a rank-local
+  computation (column-parallel weights, or a replicated weight applied to
+  the rank's heads); its backward is the rank-order sum of the ranks'
+  partial gradients.
+
+The host staging of a gloo group runs inside ``forward`` and ``backward``.
+Every backward sum runs in rank order, so the ranks' gradients of a
+replicated tensor are bitwise equal.
+
+``STATS["collectives"]`` counts the calls of the collectives below, those
+of the backward passes included.
 """
 
 from __future__ import annotations
@@ -32,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "transport", "all_gather",
-           "all_gather_into", "all_gather_cat", "rank_order_sum",
+           "all_gather_into", "all_gather_cat", "rank_order_sum", "enter",
            "all_reduce_count", "exchange"]
 
 #: collective calls and host-staged bytes since the last ``reset_stats``
@@ -101,20 +123,100 @@ def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
                  lambda i, o: _GATHER_INTO(o[0], i[0], group=group))
 
 
-def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order (one
-    gather)."""
-    return torch.cat(all_gather(t.contiguous(), group), dim=dim)
-
-
-def rank_order_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``t``, added in rank order after one gather:
-    the same bits on every rank of the group, whatever the transport."""
-    parts = all_gather(t.contiguous(), group)
+def _add_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     out = parts[0]
     for part in parts[1:]:
         out = out + part
     return out
+
+
+def _slice(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (``t`` splits evenly over
+    the group)."""
+    size = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * size, size)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``,
+    added in rank order in float32 (at least) and rounded once to ``t``'s
+    dtype: every rank sends block ``s`` of its ``t`` to rank ``s`` (one
+    all-to-all), so each rank moves one tensor's worth of bytes."""
+    n = dist.get_world_size(group)
+    blocks = torch.stack(torch.chunk(t, n, dim=dim)).contiguous()
+    got = torch.empty_like(blocks)
+    _host_staged(group, [blocks], [got], lambda i, o: dist.all_to_all_single(
+        o[0], i[0], group=group))
+    acc = torch.promote_types(t.dtype, torch.float32)
+    return _add_in_order([b.to(acc) for b in got.unbind(0)]).to(t.dtype)
+
+
+class _RankOrderSum(torch.autograd.Function):
+    """Forward: the rank-order sum. Backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _add_in_order(all_gather(t.contiguous(), group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherCat(torch.autograd.Function):
+    """Forward: every rank's block concatenated along ``dim``. Backward:
+    this rank's slice of the gradient (``"slice"``), or of the rank-order
+    sum of every rank's gradient (``"sum"``)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, grad):
+        ctx.dim, ctx.group, ctx.grad = dim, group, grad
+        return torch.cat(all_gather(t.contiguous(), group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            return _reduce_scatter(g, ctx.dim, ctx.group), None, None, None
+        return _slice(g, ctx.dim, ctx.group), None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity. Backward: the rank-order sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _add_in_order(all_gather(grad.contiguous(), ctx.group)), None
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group,
+                   grad: str = "slice") -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (one
+    gather). Its backward gives this rank the slice of the gradient
+    (``grad="slice"``: every rank computed the same gradient) or the
+    rank-order sum of every rank's slice (``grad="sum"``: each rank's
+    gradient is a partial one)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be 'slice' or 'sum', got {grad!r}")
+    return _GatherCat.apply(t, dim % t.dim(), group, grad)
+
+
+def rank_order_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t``, added in rank order after one gather:
+    the same bits on every rank of the group, whatever the transport. Its
+    backward is the identity."""
+    return _RankOrderSum.apply(t, group)
+
+
+def enter(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself, replicated over the group, entering a computation each
+    rank does on its own share (Megatron's "copy to the model-parallel
+    region"); the backward sums the ranks' gradients in rank order."""
+    return _Enter.apply(t, group)
 
 
 def all_reduce_count(t: torch.Tensor, group) -> torch.Tensor:

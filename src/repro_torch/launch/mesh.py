@@ -19,8 +19,8 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
-__all__ = ["AbstractMesh", "axis_sizes", "data_axes", "data_size",
-           "model_size", "make_production_mesh"]
+__all__ = ["AbstractMesh", "axis_sizes", "axes_group", "data_axes",
+           "data_size", "model_size", "make_production_mesh"]
 
 
 class AbstractMesh:
@@ -65,6 +65,36 @@ def data_size(mesh) -> int:
 
 def model_size(mesh) -> int:
     return axis_sizes(mesh)["model"]
+
+
+def axes_group(mesh, axes) -> Tuple[int, object]:
+    """``(size, process group)`` of the ranks of ``mesh`` that differ from
+    this one only along ``axes`` (a name or a tuple of names), ordered
+    row-major over them as ``NamedSharding`` lays out a dimension split
+    over that tuple; ``(1, None)`` when those axes hold one rank. Axes of
+    one rank are skipped; several others are flattened into one group
+    (the world's own group when they span it in order)."""
+    import torch.distributed as dist
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = axis_sizes(mesh)
+    live = tuple(a for a in axes if sizes[a] > 1)
+    size = 1
+    for a in live:
+        size *= sizes[a]
+    if not live:
+        return 1, None
+    if len(live) == 1:
+        return size, mesh.get_group(live[0])
+    names = tuple(mesh.mesh_dim_names)
+    spans_world = (size == dist.get_world_size() and
+                   live == tuple(a for a in names if sizes[a] > 1) and
+                   mesh.mesh.flatten().tolist() == list(range(size)))
+    if spans_world:
+        return size, dist.group.WORLD
+    cache = mesh.__dict__.setdefault("_flat_groups", {})
+    if live not in cache:
+        cache[live] = mesh[live]._flatten("_".join(live)).get_group()
+    return size, cache[live]
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):

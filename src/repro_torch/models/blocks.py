@@ -121,10 +121,14 @@ def _ring_seed(k, v, w: int):
 
 
 def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
-                  causal: bool = True, sh=None):
+                  causal: bool = True, sh=None, rows=None,
+                  keep_cache=True):
     """Full-sequence pass. Returns (x, cache, aux) where cache is the
     layer's decode state seed and aux = (lb_loss, z_loss) zeros if non-moe.
-    ``sh``: this rank on a "model" axis (attention, MLP and MoE only)."""
+    ``sh``: this rank on a "model" axis (attention, MLP and MoE only);
+    ``rows``: the ranks the batch's rows are split over (``Rows``), over
+    which the MoE aux losses are the global batch's. ``keep_cache=False``
+    (training) spares the gathers that only the decode cache needs."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     zero_aux = (zero, zero)
     h = rms_norm(p["ln1"], x)
@@ -149,6 +153,7 @@ def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
     else:
         a_out, (k, v) = A.attn_forward(p["attn"], h, positions,
                                        causal=causal, sh=sh,
+                                       whole_kv=keep_cache,
                                        **_attn_kwargs(cfg))
         x = x + a_out
         cache = {"k": k, "v": v}
@@ -156,7 +161,7 @@ def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
     if kind == "moe":
         m_out, aux = moe(p["moe"], h2, n_experts=cfg.n_experts,
                          top_k=cfg.experts_per_token, act=cfg.mlp_act,
-                         dispatch=cfg.moe_dispatch, sh=sh)
+                         dispatch=cfg.moe_dispatch, sh=sh, rows=rows)
         return x + m_out, cache, aux
     return x + mlp(p["mlp"], h2, act=cfg.mlp_act, sh=sh), cache, zero_aux
 

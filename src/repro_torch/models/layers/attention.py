@@ -71,20 +71,22 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, rope_theta,
     rank's own heads when ``local``, else every head, the column-split
     projections gathered whole (one gather)."""
     b, s, _ = x.shape
-    proj = {w: x @ p[w].to(x.dtype) for w in ("wq", "wk", "wv")}
+    split = [w for w in ("wq", "wk", "wv")
+             if sh is not None and sh.split(p, w, 1)]
+    xe = sh.enter(x) if split else x
+    proj = {w: (xe if w in split else x) @ p[w].to(x.dtype)
+            for w in ("wq", "wk", "wv")}
     if local:
         n_heads, n_kv_heads = n_heads // sh.mp, n_kv_heads // sh.mp
-    elif sh is not None:
-        split = [w for w in proj if sh.split(p, w, 1)]
-        if split:
-            proj.update(zip(split, sh.gather_parts([proj[w]
-                                                    for w in split])))
+    elif split:
+        proj.update(zip(split, sh.gather_parts([proj[w] for w in split])))
     q = proj["wq"].reshape(b, s, n_heads, head_dim)
     k = proj["wk"].reshape(b, s, n_kv_heads, head_dim)
     v = proj["wv"].reshape(b, s, n_kv_heads, head_dim)
     if qk_norm:
-        q = rms_norm(p["q_norm"], q)
-        k = rms_norm(p["k_norm"], k)
+        # on the rank's own heads the replicated norm weights enter the split
+        q = rms_norm(sh.enter(p["q_norm"]) if local else p["q_norm"], q)
+        k = rms_norm(sh.enter(p["k_norm"]) if local else p["k_norm"], k)
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -96,8 +98,8 @@ def _out_proj(p, out, sh=None, local=False):
     slice of the flattened heads (its own heads when ``local``) and the
     partial products are summed in rank order."""
     if sh is not None and sh.split(p, "wo", 0):
-        if not local:
-            out = out[..., sh.block(out.shape[-1])]
+        if not local:       # every head, replicated: the rank's slice
+            out = sh.enter(out)[..., sh.block(out.shape[-1])]
         return sh.sum(out @ p["wo"].to(out.dtype))
     return out @ p["wo"].to(out.dtype)
 
@@ -130,13 +132,14 @@ def _mask(qpos, kpos, causal, sliding_window):
 
 def attn_forward(p, x, positions, *, n_heads, n_kv_heads, head_dim,
                  rope_theta=1e4, qk_norm=False, causal=True,
-                 sliding_window=0, q_block=512, sh=None):
+                 sliding_window=0, q_block=512, sh=None, whole_kv=True):
     """Full-sequence attention; returns (out (B,S,d_model-ish), (k, v)).
 
     On a "model" axis (``sh``) a rank attends with its own heads when the
     column splits fall on head boundaries, else with every head; ``wo`` is
     row-parallel. The returned k and v hold every KV head either way (the
-    decode cache's layout)."""
+    decode cache's layout), unless ``whole_kv`` is False (training, which
+    keeps no cache): then a rank attending its own heads returns its own."""
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
     local = _heads_local(p, n_heads, n_kv_heads, sh)
@@ -158,7 +161,7 @@ def attn_forward(p, x, positions, *, n_heads, n_kv_heads, head_dim,
             for i in range(0, s, q_block)], dim=1)
 
     out = _out_proj(p, out.reshape(b, s, -1), sh, local)
-    if local:
+    if local and whole_kv:
         k, v = (t.reshape(b, s, -1, head_dim) for t in sh.gather_parts(
             [k.reshape(b, s, -1), v.reshape(b, s, -1)]))
     return out, (k, v)

@@ -130,12 +130,13 @@ def embed(params, tokens: torch.Tensor, dtype, sh=None) -> torch.Tensor:
 def unembed(params, x: torch.Tensor, sh=None) -> torch.Tensor:
     """Logits in f32 (loss stability). On a "model" axis (``sh``): a
     vocab-split table's logits are gathered (exact); a ``d``-split table
-    takes the rank's columns of ``x`` and the partial logits are summed."""
+    takes the rank's columns of ``x`` and the partial logits are summed.
+    Either way ``x``, replicated, enters the rank's share (``sh.enter``),
+    so its gradient is summed over the ranks."""
     table = params["table"]
     if sh is not None and sh.split(params, "table", 1):
-        x = x[..., sh.block(table.shape[1] * sh.mp)]
+        x = sh.enter(x)[..., sh.block(table.shape[1] * sh.mp)]
         return sh.sum(x.float() @ table.float().T)
-    logits = x.float() @ table.float().T
     if sh is not None and sh.split(params, "table", 0):
-        logits = sh.gather(logits, -1)
-    return logits
+        return sh.gather(sh.enter(x).float() @ table.float().T, -1)
+    return x.float() @ table.float().T

@@ -16,7 +16,10 @@ def init_mlp(d_model: int, d_ff: int, gated: bool = True):
 def mlp(p, x, act: str = "silu", sh=None):
     """On a "model" axis (``sh``), ``w_in``/``w_gate`` are column-parallel
     and ``w_out`` row-parallel on the same ``d_ff`` split: the ranks'
-    partial outputs are summed once. Replicated weights compute whole."""
+    partial outputs are summed once; ``x`` enters the split (its gradient
+    is summed over the ranks). Replicated weights compute whole."""
+    if sh is not None and sh.split(p, "w_in", 1):
+        x = sh.enter(x)
     h = x @ p["w_in"].to(x.dtype)
     if "w_gate" in p:
         h = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * h

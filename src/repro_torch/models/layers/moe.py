@@ -27,8 +27,18 @@ and the shared experts are column/row-parallel; the partial outputs are
 summed once. In the port every rank already holds only its data shard's
 tokens, so "sharded" and "ragged" compute the same function.
 
+Training on a "model" axis: the replicated tokens and routing weights
+enter the rank's share of the split experts (``Shard.enter``), so their
+gradients are summed over the ranks, and a split router's gathered logits
+give each rank its slice of their gradient. Both dispatches run backward
+on split expert stacks.
+
 Aux losses: the load-balance loss (Switch-style) and the router z-loss,
-returned as the reference returns them.
+returned as the reference returns them, over the global batch: when the
+batch's rows are split over data ranks (``rows``), the expert counts, the
+probability sums and the squared log-partition sums are summed over those
+ranks in rank order before the losses are formed (a product of means is not
+a mean of products).
 """
 
 from __future__ import annotations
@@ -64,10 +74,15 @@ def set_shard_mesh(mesh) -> None:
     _SHARD_MESH["mesh"] = mesh
 
 
-def _route(p, xt, top_k, sh=None):
-    logits = xt @ p["router"].to(xt.dtype)                          # (T, E)
+def _route(p, xt, top_k, sh=None, xe=None):
+    """(logits, probs, top_p, top_e) of tokens ``xt``; a router split by
+    columns multiplies ``xe`` (``xt`` entered into the rank's share, by
+    default here) and its logits are gathered whole."""
     if sh is not None and sh.split(p, "router", 1):
-        logits = sh.gather(logits, -1)
+        xe = sh.enter(xt) if xe is None else xe
+        logits = sh.gather(xe @ p["router"].to(xt.dtype), -1)
+    else:
+        logits = xt @ p["router"].to(xt.dtype)                      # (T, E)
     logits = logits.float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, top_k, dim=-1)                 # (T, K)
@@ -106,10 +121,31 @@ def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
     return torch.einsum("tkd,tk->td", out_rows, top_p.to(xt.dtype))
 
 
+def _aux_losses(logits, probs, top_e, n_experts, top_k, rows):
+    """(lb_loss, z_loss) of the global batch; ``rows`` (or None) are the
+    ranks this rank's tokens are one share of."""
+    t = logits.shape[0]
+    counts = _counts(top_e.reshape(-1), n_experts)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if rows is None:
+        # load balance: E * sum_e f_e * P_e  (f = fraction routed, P = mean
+        # prob)
+        f = counts.float() / (t * top_k)
+        pbar = probs.mean(dim=0)
+        return n_experts * torch.sum(f * pbar), torch.mean(lse2)
+    sums = rows.sum(torch.cat([counts.float(), probs.sum(dim=0),
+                               lse2.sum()[None]]))
+    n = t * rows.size
+    f = sums[:n_experts] / (n * top_k)
+    pbar = sums[n_experts:2 * n_experts] / n
+    return n_experts * torch.sum(f * pbar), sums[-1] / n
+
+
 def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
-        dispatch: str = "ragged", sh=None):
+        dispatch: str = "ragged", sh=None, rows=None):
     """x: (B, S, d), this rank's tokens. Returns (out, aux) with aux =
-    (lb_loss, z_loss). ``sh``: this rank on the "model" axis, or None."""
+    (lb_loss, z_loss). ``sh``: this rank on the "model" axis, or None;
+    ``rows``: the ranks the batch's rows are split over, or None."""
     if dispatch == "sharded" and sh is None:
         mesh = _SHARD_MESH["mesh"]
         if mesh is None:
@@ -120,29 +156,37 @@ def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    logits, probs, top_p, top_e = _route(p, xt, top_k, sh)
+    partial = sh is not None and sh.split(p, "w_out", 1)
+    shared_partial = "shared_w_in" in p and sh is not None and \
+        sh.split(p, "shared_w_out", 0)
+    # the replicated tokens (and routing weights) entering the rank's share,
+    # once for the router, the experts and the shared experts
+    split = partial or shared_partial or (
+        sh is not None and sh.split(p, "router", 1))
+    xe = sh.enter(xt) if split else xt
+    logits, probs, top_p, top_e = _route(p, xt, top_k, sh, xe)
+    xs = xe if shared_partial else xt
+    xr, pr = (xe, sh.enter(top_p)) if partial else (xt, top_p)
 
     if dispatch == "dense":
         w_full = torch.zeros(top_e.shape + (n_experts,), dtype=x.dtype,
                              device=x.device).scatter_(
             -1, top_e[..., None], 1.0)                               # (T,K,E)
-        w_full = torch.einsum("tke,tk->te", w_full, top_p.to(x.dtype))
-        h_in = torch.einsum("td,edf->tef", xt, p["w_in"].to(x.dtype))
-        h_gate = torch.einsum("td,edf->tef", xt, p["w_gate"].to(x.dtype))
+        w_full = torch.einsum("tke,tk->te", w_full, pr.to(x.dtype))
+        h_in = torch.einsum("td,edf->tef", xr, p["w_in"].to(x.dtype))
+        h_gate = torch.einsum("td,edf->tef", xr, p["w_gate"].to(x.dtype))
         h = act_fn(act)(h_gate) * h_in
         out = torch.einsum("tef,efd,te->td", h, p["w_out"].to(x.dtype),
                            w_full)
     else:
         out = _ragged_experts(p["w_in"].to(x.dtype), p["w_gate"].to(x.dtype),
-                              p["w_out"].to(x.dtype), xt, top_p, top_e,
+                              p["w_out"].to(x.dtype), xr, pr, top_e,
                               n_experts, top_k, act)
-    partial = sh is not None and sh.split(p, "w_out", 1)
 
     if "shared_w_in" in p:
-        hs = (act_fn(act)(xt @ p["shared_w_gate"].to(x.dtype))
-              * (xt @ p["shared_w_in"].to(x.dtype)))
+        hs = (act_fn(act)(xs @ p["shared_w_gate"].to(x.dtype))
+              * (xs @ p["shared_w_in"].to(x.dtype)))
         shared = hs @ p["shared_w_out"].to(x.dtype)
-        shared_partial = sh is not None and sh.split(p, "shared_w_out", 0)
         if shared_partial and not partial:
             shared = sh.sum(shared)
         elif partial and not shared_partial:
@@ -151,10 +195,5 @@ def moe(p, x, *, n_experts: int, top_k: int, act: str = "silu",
     if partial:
         out = sh.sum(out)
 
-    # --- aux losses --------------------------------------------------------
-    # load balance: E * sum_e f_e * P_e  (f = fraction routed, P = mean prob)
-    f = _counts(top_e.reshape(-1), n_experts).float() / (t * top_k)
-    pbar = probs.mean(dim=0)
-    lb_loss = n_experts * torch.sum(f * pbar)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return out.reshape(b, s, d), (lb_loss, z_loss)
+    aux = _aux_losses(logits, probs, top_e, n_experts, top_k, rows)
+    return out.reshape(b, s, d), aux

@@ -10,7 +10,14 @@ leaf: a replicated leaf computes whole, with no collective.
 
 The collectives are ``repro_torch.dist.comm``'s: floats are gathered, never
 ``all_reduce``d, and a partial sum is added in rank order, so every rank of
-the axis holds bitwise the same activations.
+the axis holds bitwise the same activations. They carry gradients: the sum's
+backward is the identity, a gather's takes the rank's slice, and ``enter``
+(the identity) marks where a replicated tensor feeds the rank's share of a
+split computation, so its gradient, partial on each rank, is summed in rank
+order. Every rank then holds the same gradient of a replicated tensor.
+
+``Rows`` is the data-axis counterpart: the ranks over which the batch's
+rows are split, for the sums that make a loss the global batch's.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import dataclasses
 from typing import List, Sequence
 
 import torch
+
+from repro_torch.dist import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,26 +62,54 @@ class Shard:
         return slice(self.rank * size, (self.rank + 1) * size)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The rank-order sum of every rank's ``t``."""
-        from repro_torch.dist import comm
+        """The rank-order sum of every rank's ``t`` (backward: the
+        identity)."""
         return comm.rank_order_sum(t, self.group)
 
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, replicated on the axis, as the input of this rank's share
+        of a split computation (backward: the rank-order sum)."""
+        return comm.enter(t, self.group) if self.mp > 1 else t
+
     def all(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """Every rank's ``t``, in rank order."""
-        from repro_torch.dist import comm
+        """Every rank's ``t``, in rank order (no autograd: decoding)."""
         return comm.all_gather(t.contiguous(), self.group)
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
-        from repro_torch.dist import comm
+        """Every rank's ``t`` concatenated along ``dim`` in rank order
+        (backward: the rank's slice)."""
         return comm.all_gather_cat(t, dim, self.group)
 
     def gather_parts(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each of ``ts`` (equal but for the last dimension) concatenated
         over the ranks along its last dimension, with one gather."""
-        from repro_torch.dist import comm
         widths = [t.shape[-1] for t in ts]
-        parts = comm.all_gather(torch.cat(list(ts), dim=-1), self.group)
-        pieces = [torch.split(part, widths, dim=-1) for part in parts]
-        return [torch.cat([pc[i] for pc in pieces], dim=-1)
-                for i in range(len(ts))]
+        parts = comm.all_gather_cat(torch.cat(list(ts), dim=-1)[None], 0,
+                                    self.group)          # (mp, ..., sum w)
+        out, at = [], 0
+        for w in widths:
+            piece = parts[..., at:at + w].movedim(0, -2)  # (..., mp, w)
+            out.append(piece.reshape(*piece.shape[:-2], -1))
+            at += w
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """The ranks over which a batch's rows are split (``batch_shardings``):
+    ``size`` of them in ``group``, along the mesh axes ``axes``, each
+    holding as many rows. ``sum`` and ``count`` turn a rank's share of a
+    loss's sums into the global batch's, the same on every rank."""
+    size: int
+    group: object
+    axes: tuple
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank-order sum over the rows' ranks (backward: the
+        identity: every rank's loss is the global one)."""
+        return comm.rank_order_sum(t, self.group)
+
+    def count(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of an integer tensor over the rows' ranks (exact)."""
+        return comm.all_reduce_count(t.clone(), self.group)
+

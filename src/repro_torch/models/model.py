@@ -28,8 +28,19 @@ B on data, the sequence on "model") in a ``ShardedCache``, which records
 their layout for ``decode_step``. Over "model" only the attention-MLP and
 MoE families run (dense, vlm, granite); the SSM, hybrid, MLA and
 encoder-decoder blocks raise ``NotImplementedError`` at more than one
-"model" rank (ROADMAP item 14c-2) and run data-parallel. Training on a
-mesh of more than one rank is item 14c-2 too.
+"model" rank (ROADMAP item 14c-3) and run data-parallel.
+
+Training on a mesh (``forward_train``) computes the loss of the global
+batch on every rank: the rank's rows go through the tensor-parallel layers,
+whose collectives carry gradients (``layers.parallel``), and the loss's
+sums and the MoE aux losses' sums are added over the ranks that split the
+rows (``Rows``), in rank order. The train step then sums each parameter's
+gradient over those ranks. ``mode="fsdp"`` holds ZeRO-3 shards (the rules'
+``_fsdp_pspec``) and runs every family without tensor parallelism: the
+batch's rows split over every axis, each layer's shards gathered whole
+inside the layer's remat block (the cast copy, so the gathered weight dies
+with the layer), their gradient reduce-scattered in rank order on the way
+back. It serves the same way, every leaf gathered for the call.
 
 Batch dict contract (all optional keys per family):
   tokens   (B, S)  int          text tokens (decoder tokens for enc-dec)
@@ -50,7 +61,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import resolve_device
-from repro_torch.launch.mesh import model_size
+from repro_torch.dist import comm
+from repro_torch.launch.mesh import axes_group, model_size
 from repro_torch.launch.sharding import (P, batch_shardings, cache_shardings,
                                          gather_tensor, local_shape,
                                          param_shardings, shard_tensor)
@@ -59,7 +71,7 @@ from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.basic import (Leaf, const, dense, dense_init,
                                              embed, init_embedding, rms_norm,
                                              unembed)
-from repro_torch.models.layers.parallel import Shard
+from repro_torch.models.layers.parallel import Rows, Shard
 
 # parameters the reference uses in float32 whatever the config's dtype
 F32_LEAVES = frozenset({
@@ -100,16 +112,23 @@ def param_tree(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor):
+def _xent(logits: torch.Tensor, labels: torch.Tensor, rows=None):
     """Masked mean cross-entropy; labels -1 are ignored. logits f32.
-    Returns (loss, number of unmasked labels)."""
+    Returns (loss, number of unmasked labels). With ``rows`` (this rank's
+    rows are one share of the batch) the sum and the count are the global
+    batch's, added over the ranks (the sum in rank order, its backward the
+    identity): the mean of per-rank means would weigh each rank's labels
+    by its own count."""
     mask = labels >= 0
     safe = labels.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.where(mask, logz - gold, 0.0)
-    denom = mask.sum().clamp_min(1)
-    return nll.sum() / denom, denom
+    total, count = nll.sum(), mask.sum()
+    if rows is not None:
+        total, count = rows.sum(total), rows.count(count)
+    denom = count.clamp_min(1)
+    return total / denom, denom
 
 
 def _remat(fn, remat: bool, *args):
@@ -161,6 +180,29 @@ class _Specs:
         """The ``P`` this module's parameter ``key`` is placed by, or None
         (a model on one device)."""
         return self._specs.get(key)
+
+
+class _SpecDict(_Specs, dict):
+    """A dict of one module's tensors that answers ``spec`` as the module
+    does, so a layer reads a split of the tensors a step computes with."""
+
+    def __init__(self, items, specs):
+        super().__init__(items)
+        self._specs = specs
+
+
+def _with_specs(tree, module):
+    """``param_tree``'s nested dicts of ``module``'s tensors as
+    ``_SpecDict``s carrying the module's (and each submodule's) specs."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, list):
+            out[key] = [_with_specs(t, m) for t, m in zip(sub, module[key])]
+        elif isinstance(sub, Mapping):
+            out[key] = _with_specs(sub, module[key])
+        else:
+            out[key] = sub
+    return _SpecDict(out, module._specs)
 
 
 class ParamTree(_Specs, nn.Module):
@@ -289,36 +331,42 @@ class Model(_Specs, nn.Module):
     reference's (``shard_state_dict`` of it on a mesh).
 
     ``mesh``: a ``DeviceMesh`` with axes ("data", "model") (``ElasticMesh``
-    builds one) to hold and serve this rank's shards, placed by
-    ``param_shardings(mesh, ..., mode)``; ``mode="fsdp"`` places ZeRO-3
-    shards, which only a mesh of one rank can run yet (item 14c-2)."""
+    builds one) to hold, serve and train this rank's shards, placed by
+    ``param_shardings(mesh, ..., mode)``: ``mode="tp"`` (tensor-parallel
+    over "model", batch over "data") or ``mode="fsdp"`` (ZeRO-3 shards over
+    both axes, batch over both, no tensor parallelism)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", mesh=None,
                  mode: str = "tp"):
         super().__init__()
+        if mode not in ("tp", "fsdp"):
+            raise ValueError(f"mode must be 'tp' or 'fsdp', got {mode!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
         self.mesh = mesh
+        self.mode = mode
         self.shard = None
+        self.zero3 = None       # (size, group) of the ZeRO-3 shards
         place = None
         if mesh is not None:
-            if mode == "fsdp" and mesh.size() > 1:
-                raise NotImplementedError(
-                    "serving ZeRO-3 (mode='fsdp') shards is ROADMAP queue 1, "
-                    "item 14c-2; build with mode='tp'")
-            if model_size(mesh) > 1 and not _tp_blocks(cfg):
+            if mode == "tp" and model_size(mesh) > 1 and not _tp_blocks(cfg):
                 raise NotImplementedError(
                     f"{cfg.name}: tensor parallelism for the SSM, hybrid, "
                     "MLA and encoder-decoder blocks is ROADMAP queue 1, item "
-                    "14c-2; run it on a mesh with one 'model' rank")
+                    "14c-3; run it on a mesh with one 'model' rank, or with "
+                    "mode='fsdp'")
             shapes = param_specs(cfg)
             pspecs = param_shardings(mesh, shapes, mode)
 
             def place(name):
                 return pspecs[name], local_shape(shapes[name].shape,
                                                  pspecs[name], mesh)
-            self.shard = Shard.of(mesh)
+            if mode == "tp":
+                self.shard = Shard.of(mesh)
+            else:   # the layers compute whole: a "model" axis of one rank
+                self.shard = Shard(mp=1, rank=0, group=None)
+                self.zero3 = axes_group(mesh, ("data", "model"))
         self._leaves: Dict[str, Leaf] = {}
         _register(self, param_leaves(cfg), self.dtype, self.device, "",
                   self._leaves, place)
@@ -327,6 +375,9 @@ class Model(_Specs, nn.Module):
         """``model["blocks"]`` reads the model as ``param_tree`` reads a
         flat mapping, so one set of helpers serves both."""
         return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or key in self._modules
 
     # ------------------------------------------------------------- init --
 
@@ -338,6 +389,11 @@ class Model(_Specs, nn.Module):
         """Every parameter's global shape and storage dtype, nothing
         allocated (``param_specs(cfg)``)."""
         return param_specs(self.cfg)
+
+    def spec_of(self, name: str):
+        """The ``P`` that parameter ``name`` (dotted) is placed by on the
+        model's mesh, or None on one device."""
+        return _module_spec(self, name)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Model":
@@ -353,7 +409,7 @@ class Model(_Specs, nn.Module):
                 params[name].fill_(leaf.fill)
                 continue
             full = dense_init(generator, leaf.shape, leaf.scale)
-            spec = _module_spec(self, name)
+            spec = self.spec_of(name)
             if spec:
                 full = shard_tensor(full, spec, self.mesh)
             params[name].copy_(full)
@@ -362,7 +418,42 @@ class Model(_Specs, nn.Module):
     # ------------------------------------------------------------- mesh --
 
     def _batch_spec(self, shape) -> P:
-        return batch_shardings(self.mesh, {"x": tuple(shape)})["x"]
+        return batch_shardings(self.mesh, {"x": tuple(shape)},
+                               self.mode)["x"]
+
+    def rows(self, b: int):
+        """The ``Rows`` that a batch of ``b`` rows is split over on this
+        model's mesh (``batch_shardings``), or None: no mesh, or the batch
+        replicated (``b`` does not divide), when every rank holds every
+        row."""
+        if self.mesh is None:
+            return None
+        first = self._batch_spec((b,))[0]
+        axes = () if first is None else \
+            ((first,) if isinstance(first, str) else tuple(first))
+        size, group = axes_group(self.mesh, axes)
+        return Rows(size, group, axes) if size > 1 else None
+
+    def _whole(self, tree, module, rows):
+        """``tree`` (nested dicts of ``module``'s parameters as computed
+        with: the rank's ZeRO-3 shards) with every split leaf gathered
+        whole. The gather's backward gives the rank its slice of the
+        rank-order sum of the ranks' gradients when they hold different
+        rows (a reduce-scatter), of its own gradient otherwise. Off ZeRO-3
+        ``tree`` itself."""
+        if self.zero3 is None or self.zero3[0] == 1:
+            return tree
+        out = {}
+        for key, sub in tree.items():
+            if isinstance(sub, Mapping):
+                out[key] = self._whole(sub, module[key], rows)
+                continue
+            spec = module.spec(key) or ()
+            dims = [d for d, e in enumerate(spec) if e is not None]
+            out[key] = sub if not dims else comm.all_gather_cat(
+                sub, dims[0], self.zero3[1],
+                grad="slice" if rows is None else "sum")
+        return out
 
     def _rows(self, t):
         """This rank's rows of a whole-batch tensor (``batch_shardings``)."""
@@ -382,11 +473,12 @@ class Model(_Specs, nn.Module):
         other dimension whole -> ``ShardedCache`` of this rank's blocks."""
         if self.mesh is None:
             return caches
-        specs = cache_shardings(self.mesh, {
+        specs = self._cache_place({
             g: {k: tuple(t.shape) if k == "pos"
                 else (t.shape[0], b) + tuple(t.shape[2:])
                 for k, t in leaves.items()}
             for g, leaves in caches.items()})
+        split = self.shard is not None and self.shard.mp > 1
         out = {}
         for g, leaves in caches.items():
             out[g] = {}
@@ -394,8 +486,25 @@ class Model(_Specs, nn.Module):
                 model_only = P(*(e if e == "model" else None
                                  for e in specs[g][k]))
                 out[g][k] = shard_tensor(t, model_only, self.mesh) \
-                    if "model" in model_only and self.shard.mp > 1 else t
+                    if "model" in model_only and split else t
         return ShardedCache(out, specs)
+
+    def _cache_place(self, shapes):
+        """The specs ``{group: {name: P}}`` of a cache of global ``shapes``
+        on the mesh: ``cache_shardings`` (B on data, the sequence on
+        "model"), or under ZeRO-3 the batch's rows only (B as
+        ``batch_shardings(mode="fsdp")`` splits it)."""
+        if self.mode == "tp":
+            return cache_shardings(self.mesh, shapes)
+
+        def rule(k, shape):
+            shape = tuple(getattr(shape, "shape", shape))
+            if k == "pos" or len(shape) <= 1:
+                return P()
+            return P(None, self._batch_spec((shape[1],))[0],
+                     *([None] * (len(shape) - 2)))
+        return {g: {k: rule(k, v) for k, v in leaves.items()}
+                for g, leaves in shapes.items()}
 
     def _decode_shard(self, cache, group: str):
         """The layers' ``Shard`` for decoding ``cache[group]``: whether its
@@ -412,8 +521,9 @@ class Model(_Specs, nn.Module):
     # ------------------------------------------------------- embeddings --
 
     def _embed_inputs(self, p, batch: Dict[str, torch.Tensor]):
-        """Returns (x (B,S,d), positions (B,S), labels-or-None); for the
-        vision frontend the labels are padded with -1 over the patches."""
+        """Returns (x (B,S,d), positions (B,S), labels-or-None) of this
+        rank's rows; for the vision frontend the labels are padded with -1
+        over the patches."""
         cfg = self.cfg
         x = embed(p["embed"], self._rows(batch["tokens"].to(self.device)),
                   self.dtype, self.shard)
@@ -438,17 +548,27 @@ class Model(_Specs, nn.Module):
         head = p["embed"] if self.cfg.tie_embeddings else p["lm_head"]
         return unembed(head, x, self.shard)
 
+    def _top(self, p, rows):
+        """The parameters outside the block stacks (and the MTP head), the
+        ZeRO-3 shards gathered whole: the tied table once for both uses."""
+        top = {k: v for k, v in p.items() if k not in STACKS + ("mtp",)}
+        return dict(p, **self._whole(top, self, rows))
+
     # ----------------------------------------------------------- encode --
 
-    def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
-        """Whisper encoder over stub frame embeddings (B, S_enc, d)."""
+    def _encode(self, p, frames: torch.Tensor,
+                whole=lambda p_l, module: p_l) -> torch.Tensor:
+        """Whisper encoder over stub frame embeddings (B, S_enc, d);
+        ``whole(p_l, module)`` gives a layer's parameters to compute with
+        (training gathers ZeRO-3 shards there)."""
         x = frames.to(self.device, self.dtype)
         s = x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device).expand(x.shape[0], s)
         x = x + sinusoid(positions, self.cfg.d_model).to(self.dtype)
-        for p_l in p["enc_blocks"]:
-            x = B.enc_block_forward(p_l, x, positions, self.cfg)
+        for i, p_l in enumerate(p["enc_blocks"]):
+            x = B.enc_block_forward(whole(p_l, self.enc_blocks[i]), x,
+                                    positions, self.cfg)
         return rms_norm(p["enc_norm"], x)
 
     # ------------------------------------------------------------ train --
@@ -465,29 +585,38 @@ class Model(_Specs, nn.Module):
         ``params`` maps every parameter name to the tensor to compute with
         (``dict(model.named_parameters())``, or a train step's cast
         copies); gradients flow back to those tensors. With ``remat`` each
-        block is recomputed in the backward pass."""
+        block is recomputed in the backward pass.
+
+        On a mesh every rank passes the whole batch and computes the loss
+        of the whole batch from its rows (see the module docstring); the
+        parameters are the rank's shards, and so are their gradients,
+        which are partial over the ranks that split the rows
+        (``rows``): the train step sums them."""
         cfg = self.cfg
-        if self.mesh is not None and self.mesh.size() > 1:
-            raise NotImplementedError(
-                "training on a mesh of more than one rank is ROADMAP queue "
-                "1, item 14c-2")
+        rows = self.rows(batch["tokens"].shape[0])
         p = param_tree(params)
+        if self.shard is not None:
+            p = _with_specs(p, self)
+        p = self._top(p, rows)
         if cfg.enc_dec:
-            return self._forward_train_encdec(p, batch, remat=remat)
+            return self._forward_train_encdec(p, batch, rows, remat=remat)
         x, positions, labels = self._embed_inputs(p, batch)
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
         lb_loss = z_loss = torch.zeros((), dtype=torch.float32,
                                        device=self.device)
         for stack, kind in (("lead_blocks", lead_kind), ("blocks", main_kind)):
-            def block(p_l, x, kind=kind):
-                x, _, (l1, l2) = B.block_forward(p_l, x, positions, cfg, kind)
-                return x, l1, l2
-            for p_l in p.get(stack, ()):
+            for i, p_l in enumerate(p.get(stack, ())):
+                def block(p_l, x, kind=kind, module=self._modules[stack][i]):
+                    p_l = self._whole(p_l, module, rows)
+                    x, _, (l1, l2) = B.block_forward(
+                        p_l, x, positions, cfg, kind, sh=self.shard,
+                        rows=rows, keep_cache=False)
+                    return x, l1, l2
                 x, l1, l2 = _remat(block, remat, p_l, x)
                 lb_loss, z_loss = lb_loss + l1, z_loss + l2
         x = rms_norm(p["final_norm"], x)
         logits = self._unembed(p, x)
-        loss, n_tok = _xent(logits, labels)
+        loss, n_tok = _xent(logits, labels, rows)
         metrics = {"xent": loss, "n_tokens": n_tok}
         total = loss
         if cfg.n_experts:
@@ -496,50 +625,63 @@ class Model(_Specs, nn.Module):
             total = total + 0.01 * metrics["lb_loss"] \
                 + 1e-3 * metrics["z_loss"]
         if cfg.mtp:
-            mtp_loss = self._mtp_loss(p, x, batch, positions)
+            mtp_loss = self._mtp_loss(p, x, batch, positions, rows)
             metrics["mtp_loss"] = mtp_loss
             total = total + 0.3 * mtp_loss
         metrics["loss"] = total
         return total, metrics
 
-    def _mtp_loss(self, p, h, batch, positions):
+    def _mtp_loss(self, p, h, batch, positions, rows=None):
         """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from
         [h_t ; emb(tok_{t+1})]."""
         cfg = self.cfg
-        tokens = batch["tokens"].to(self.device)
-        labels = batch["labels"].to(self.device)
+        tokens = self._rows(batch["tokens"].to(self.device))
+        labels = self._rows(batch["labels"].to(self.device))
+        mtp = self._whole(p["mtp"], self.mtp, rows)
         emb_next = embed(p["embed"], torch.roll(tokens, -1, dims=1),
-                         self.dtype)
+                         self.dtype, self.shard)
         z = torch.cat([h.to(self.dtype), emb_next], dim=-1)
-        z = z @ p["mtp"]["proj"].to(self.dtype)
-        z, _, _ = B.block_forward(p["mtp"]["block"], z, positions, cfg,
-                                  "dense")
-        z = rms_norm(p["mtp"]["norm"], z)
+        z = z @ mtp["proj"].to(self.dtype)
+        z, _, _ = B.block_forward(mtp["block"], z, positions, cfg, "dense",
+                                  keep_cache=False)
+        z = rms_norm(mtp["norm"], z)
         logits = self._unembed(p, z)
         mtp_labels = torch.roll(labels, -1, dims=1)
         mtp_labels[:, -2:] = -1
-        loss, _ = _xent(logits, mtp_labels)
+        loss, _ = _xent(logits, mtp_labels, rows)
         return loss
 
-    def _forward_train_encdec(self, p, batch, *, remat: bool = True):
+    def _forward_train_encdec(self, p, batch, rows, *, remat: bool = True):
         cfg = self.cfg
-        enc_out = self._encode(p, batch["frontend_embeds"])
+        enc_out = self._encode(p, self._rows(batch["frontend_embeds"]),
+                               lambda p_l, m: self._whole(p_l, m, rows))
         x, positions, labels = self._embed_inputs(p, batch)
 
-        def block(p_l, x):
-            ek, ev = A.cross_kv(p_l["xattn"], enc_out, n_heads=cfg.n_heads,
-                                head_dim=cfg.resolved_head_dim)
-            out, _ = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
-            return out
-
-        for p_l in p["blocks"]:
+        for i, p_l in enumerate(p["blocks"]):
+            def block(p_l, x, module=self.blocks[i]):
+                p_l = self._whole(p_l, module, rows)
+                ek, ev = A.cross_kv(p_l["xattn"], enc_out,
+                                    n_heads=cfg.n_heads,
+                                    head_dim=cfg.resolved_head_dim)
+                out, _ = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
+                return out
             x = _remat(block, remat, p_l, x)
         x = rms_norm(p["final_norm"], x)
         logits = self._unembed(p, x)
-        loss, n_tok = _xent(logits, labels)
+        loss, n_tok = _xent(logits, labels, rows)
         return loss, {"xent": loss, "loss": loss, "n_tokens": n_tok}
 
     # ---------------------------------------------------------- prefill --
+
+    def _served(self):
+        """The parameters to serve with: the model itself, or on ZeRO-3
+        shards over more than one rank a tree of every leaf gathered whole
+        for the call."""
+        if self.zero3 is None or self.zero3[0] == 1:
+            return self
+        return param_tree({
+            n: gather_tensor(t, self.spec_of(n) or P(), self.mesh)
+            for n, t in self.named_parameters()})
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor]):
@@ -547,38 +689,39 @@ class Model(_Specs, nn.Module):
         mesh: the whole batch's logits and this rank's cache blocks."""
         cfg = self.cfg
         b = batch["tokens"].shape[0]
+        p = self._served()
         if cfg.enc_dec:
-            return self._prefill_encdec(batch, b)
-        x, positions, _ = self._embed_inputs(self, batch)
+            return self._prefill_encdec(p, batch, b)
+        x, positions, _ = self._embed_inputs(p, batch)
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
         caches = {}
         for name, stack, kind in (("lead", "lead_blocks", lead_kind),
                                   ("main", "blocks", main_kind)):
-            if stack not in self._modules:
+            if stack not in p:
                 continue
             per_layer = []
-            for p_l in self._modules[stack]:
+            for p_l in p[stack]:
                 x, cache, _ = B.block_forward(p_l, x, positions, cfg, kind,
                                               sh=self.shard)
                 per_layer.append(cache)
             caches[name] = _stack(per_layer)
-        x = rms_norm(self.final_norm, x)
-        logits = self._unembed(self, x[:, -1:])
+        x = rms_norm(p["final_norm"], x)
+        logits = self._unembed(p, x[:, -1:])
         return (self._all_rows(logits[:, 0], b),
                 self._shard_cache(caches, b))
 
-    def _prefill_encdec(self, batch, b):
+    def _prefill_encdec(self, p, batch, b):
         cfg = self.cfg
-        enc_out = self._encode(self, self._rows(batch["frontend_embeds"]))
-        x, positions, _ = self._embed_inputs(self, batch)
+        enc_out = self._encode(p, self._rows(batch["frontend_embeds"]))
+        x, positions, _ = self._embed_inputs(p, batch)
         per_layer = []
-        for p_l in self.blocks:
+        for p_l in p["blocks"]:
             ek, ev = A.cross_kv(p_l["xattn"], enc_out, n_heads=cfg.n_heads,
                                 head_dim=cfg.resolved_head_dim)
             x, cache = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
             per_layer.append(dict(cache, cross_k=ek, cross_v=ev))
-        x = rms_norm(self.final_norm, x)
-        logits = self._unembed(self, x[:, -1:])
+        x = rms_norm(p["final_norm"], x)
+        logits = self._unembed(p, x[:, -1:])
         return (self._all_rows(logits[:, 0], b),
                 self._shard_cache({"main": _stack(per_layer)}, b))
 
@@ -595,7 +738,8 @@ class Model(_Specs, nn.Module):
         cfg = self.cfg
         b = tokens.shape[0]
         pos = A.as_pos(pos, self.device)
-        x = embed(self.embed, self._rows(tokens.to(self.device)), self.dtype,
+        p = self._served()
+        x = embed(p["embed"], self._rows(tokens.to(self.device)), self.dtype,
                   self.shard)
         if cfg.rope_theta == 0.0:
             # absolute sinusoidal at position `pos` (whisper)
@@ -604,22 +748,22 @@ class Model(_Specs, nn.Module):
 
         if cfg.enc_dec:
             main = cache["main"]
-            for i, p_l in enumerate(self.blocks):
+            for i, p_l in enumerate(p["blocks"]):
                 c_l = {k: v[i] for k, v in main.items()}
                 x, _ = B.xdec_block_decode(p_l, x, c_l, c_l["cross_k"],
                                            c_l["cross_v"], pos, cfg)
         else:
             for name, stack, kind in (("lead", "lead_blocks", lead_kind),
                                       ("main", "blocks", main_kind)):
-                if stack not in self._modules:
+                if stack not in p:
                     continue
                 sh = self._decode_shard(cache, name)
-                for i, p_l in enumerate(self._modules[stack]):
+                for i, p_l in enumerate(p[stack]):
                     c_l = {k: v[i] for k, v in cache[name].items()}
                     x, _ = B.block_decode(p_l, x, c_l, pos, cfg, kind, sh)
 
-        x = rms_norm(self.final_norm, x)
-        logits = self._unembed(self, x)
+        x = rms_norm(p["final_norm"], x)
+        logits = self._unembed(p, x)
         return self._all_rows(logits[:, 0], b), cache
 
     # ------------------------------------------------------ cache specs --
@@ -671,8 +815,7 @@ class Model(_Specs, nn.Module):
         """Zero-initialized cache on the model's device (hybrid 'pos'
         slots = -1); on a mesh a ``ShardedCache`` of this rank's blocks."""
         specs = self.init_cache_specs(batch_size, seq_len)
-        place = None if self.mesh is None else cache_shardings(self.mesh,
-                                                               specs)
+        place = None if self.mesh is None else self._cache_place(specs)
         cache = {group: {k: torch.zeros(
             sd.shape if place is None
             else local_shape(sd.shape, place[group][k], self.mesh),

@@ -12,6 +12,9 @@ per-layer naming. Which leaves decay follows the reference's rule on its
 own tree, ``ndim >= 2``, read on the stacked tree (``stacked_ndim``): a
 block's norm weights, ``A_log``, ``D`` and ``dt_bias`` carry a leading L
 axis there, so they decay; the MTP head's norms and ``final_norm`` do not.
+On a mesh the leaves are the rank's shards: a shard keeps its leaf's ndim,
+so the rule reads the leaf's global name and rank, never its local shape,
+and the clipping norm is the global tree's (``sq_norm``).
 """
 
 from __future__ import annotations
@@ -47,14 +50,21 @@ def adamw_init(params) -> AdamWState:
 def adamw_update(params, grads, state: AdamWState, *,
                  lr: float | torch.Tensor = 3e-4, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 sq_norm=None):
     """One step with global-norm clipping, in place on ``params`` and
     ``state``. Returns (params, state, grad_norm) as the reference returns
     (new_params, new_state, grad_norm); ``lr`` may be a 0-d tensor on the
-    device, so the step reads nothing back to the host."""
+    device, so the step reads nothing back to the host.
+
+    ``sq_norm`` maps ``{name: sum of the squares of its gradient}`` to the
+    squared norm of the whole gradient tree; by default their sum in
+    order. On a mesh the train step passes the global one (shards' sums
+    added over the ranks that hold them, replicated leaves once)."""
     g32 = {n: g.float() for n, g in grads.items()}
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                           for g in g32.values()))
+    sq = {n: torch.sum(torch.square(g)) for n, g in g32.items()}
+    gnorm = torch.sqrt(sum(sq.values()) if sq_norm is None
+                       else sq_norm(sq))
     scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0) \
         if grad_clip > 0 else 1.0
     state.count.add_(1)

@@ -229,12 +229,17 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"fused_update_e/sum": 11, "fused_update_e/max": 12,
                       "fused_update_t/sum": 13}},
         {"launches": {"fused_update_e/sum": 14, "fused_update_e/max": 15,
-                      "fused_update_t/sum": 16}})
+                      "fused_update_t/sum": 16}},
+        {"launches": {"fused_update_e/sum": 17, "fused_update_e/max": 18,
+                      "fused_update_t/sum": 19}})
     assert [by_path[k]["lm_sharded"] for k in ("fused_update_e/sum",
                                                "fused_update_e/max",
                                                "fused_update_t/sum")] == [
         14, 15, 16]
-    assert all(len(by_path[k]) == 10 for k in by_path)
+    assert [by_path[k]["lm_sharded_train"] for k in (
+        "fused_update_e/sum", "fused_update_e/max",
+        "fused_update_t/sum")] == [17, 18, 19]
+    assert all(len(by_path[k]) == 11 for k in by_path)
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -389,6 +394,8 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}}, {"launches": {}},
         {"launches": {"sum": 0, "max": 0}}, one,
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
@@ -629,3 +636,100 @@ def test_routes_pinned_replays_a_recorded_routing():
     with cs.routes_pinned(other) as flips:
         got, _ = model.prefill(batch)
     assert not torch.allclose(got, want) and flips == [10] * cfg.n_layers
+
+
+def test_lm_strain_phase_constants():
+    """Phase 21 runs the CPU tests' cases (the tensor-parallel families at
+    ``reduced()``, every family under "fsdp" widened), Granite's widths at
+    two layers, and Granite as published over two ranks at B = 2, S =
+    1,024 for 5 steps at base_lr 3e-5, warmup 2."""
+    from repro_torch import configs as TC
+    assert [a for a, _ in cs.LM_STRAIN_TP] == [
+        "qwen3_4b", "gemma_7b", "mistral_large_123b", "starcoder2_3b",
+        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 2
+    assert [d for _, d in cs.LM_STRAIN_TP][-2:] == ["ragged", "sharded"]
+    cases = cs.strain_cases()
+    assert len(cases) == 7 + len(TC.ARCH_IDS)
+    fsdp = [cfg for _, mode, cfg in cases if mode == "fsdp"]
+    assert {c.vocab for c in fsdp} == {16384}
+    assert all(c.d_ff == (2048 if c.n_experts else 16384) for c in fsdp)
+    # S = 16: pixtral's 8 patches leave 8 text tokens (at S = 8, none)
+    assert cs.LM_STRAIN_FAMILY == dict(b=4, s=16, steps=3, base_lr=1e-4,
+                                       warmup=1)
+    assert cs.LM_STRAIN_WIDE == dict(layers=2, b=2, s=512, steps=3,
+                                     base_lr=1e-4, warmup=1)
+    assert cs.LM_STRAIN == dict(b=2, s=1024, steps=5, base_lr=3e-5,
+                                warmup=2)
+    assert cs.LM_STRAIN_RANKS == 2 and cs.LM_STRAIN_SHARE == 0.6
+
+
+def test_lm_strain_phase_on_cpu(tmp_path):
+    """Phase 21's control flow and checks at tiny sizes: a world of one
+    over gloo bitwise one device in both modes, two gloo ranks on the CPU
+    within LM_TOL of one device and bitwise among themselves, a two-layer
+    reduced Granite in float32 (b) and bf16 (c) over the ranks."""
+    import dataclasses
+    from repro_torch import configs as TC
+    keep = ("tp qwen3-4b-reduced", "tp granite-moe-3b-a800m-reduced/sharded",
+            "fsdp mamba2-130m-reduced", "fsdp granite-moe-3b-a800m-reduced")
+    cases = [c for c in cs.strain_cases() if c[0] in keep]
+    granite = dataclasses.replace(TC.get("granite_moe_3b_a800m").reduced(),
+                                  moe_dispatch="sharded")
+    out = cs.phase_lm_strain(
+        CPU, tmp_path / "strain", cases=cases, wide_cfg=granite,
+        full_cfg=dataclasses.replace(granite, dtype="bfloat16"),
+        backend="gloo", wide=dict(layers=2, b=2, s=16, steps=3,
+                                  base_lr=1e-4, warmup=1),
+        full=dict(b=2, s=16, steps=3, base_lr=1e-3, warmup=1))
+    assert out["one"] == {k: True for k in keep}
+    assert set(out["families"]) == {f"{k} 1x2" for k in keep} | {
+        f"{k} 2x1" for k in keep if k.startswith("tp")}
+    for f in out["families"].values():
+        assert f["metric_err"] <= cs.LM_TOL and f["leaf_err"] <= cs.LM_TOL
+        assert f["replicated_masters"] > 0 and f["collectives_per_step"] > 0
+    assert set(out["wide"]) == {"tp", "fsdp"}
+    for w in out["wide"].values():
+        assert w["leaf_err"] <= cs.LM_TOL and w["layers"] == 2
+        assert w["collectives_per_step"] > 0 and w["step_ms_p50"] > 0
+    c = out["full"]
+    assert c["mesh"] == (1, 2) and c["transport"] == "gloo"
+    assert c["staged_bytes_per_step"] == 0       # CPU tensors: no staging
+    assert c["collectives_per_step"] > 0 and len(c["losses"]) == 3
+    assert 0.5 <= c["state_share"] <= cs.LM_STRAIN_SHARE
+    assert c["rank_state_bytes"][0] == c["rank_state_bytes"][1]
+    assert c["eval_drop"] > 0 and c["replicated_masters"] > 0
+    assert out["launches"] == {"fused_update_t/sum": 0,
+                               "fused_update_e/sum": 0,
+                               "fused_update_e/max": 0}
+    assert not (tmp_path / "strain").exists()
+    cs.log_lm_strain(out)
+
+
+def test_lm_strain_checks_reject_a_wrong_result():
+    """``strain_err`` raises beyond its limit on a metric or a leaf;
+    ``strain_same`` on one differing bit."""
+    whole = {"params/w": torch.ones(3)}
+    m = [{"loss": 1.0, "grad_norm": 10.0}]
+    got = cs.strain_err("x", m, whole, m, whole)
+    assert got == dict(metric_err=0.0, leaf_err=0.0)
+    cs.strain_err("x", [{"loss": 1.0, "grad_norm": 10.0005}], whole, m,
+                  whole)                       # grad_norm: relative
+    with pytest.raises(AssertionError, match="loss"):
+        cs.strain_err("x", [{"loss": 1.001, "grad_norm": 10.0}], whole, m,
+                      whole)
+    with pytest.raises(AssertionError, match="params/w"):
+        cs.strain_err("x", m, {"params/w": torch.tensor([1.0, 1.0, 1.01])},
+                      m, whole)
+
+    class State:
+        params = {"w": torch.ones(2)}
+        opt = type("O", (), dict(mu={"w": torch.zeros(2)},
+                                 nu={"w": torch.zeros(2)},
+                                 count=torch.tensor(1)))
+        step = torch.tensor(1)
+
+    run = dict(metrics=m, g0={"w": torch.ones(2)})
+    cs.strain_same("x", (State, run), (State, run))
+    with pytest.raises(AssertionError, match="gradients"):
+        cs.strain_same("x", (State, dict(run, g0={"w": torch.tensor(
+            [1.0, 1.0 + 2 ** -20])})), (State, run))

@@ -29,6 +29,10 @@ no JAX:
 - The LM stack (``chip_smoke.py`` phases 18 and 19 at small sizes): each
   family's serving and training paths on the card against the CPU; a
   train step's remat and resume bitwise on the card.
+- Its sharded training (phase 21 at small sizes): a world of one over
+  NCCL bitwise one device's steps in both modes; two gloo ranks sharing
+  the card within 1e-4 of one device, their exchanges staged through the
+  host.
 """
 
 import numpy as np
@@ -542,3 +546,52 @@ def test_lm_sharded_two_gloo_ranks_share_the_card(cuda, tmp_path):
     assert c["bfloat16/own"]["transport"] == "gloo, host-staged"
     assert c["bfloat16/own"]["staged_bytes_per_step"] > 0
     assert out["raised"] == ["deepseek-v3-671b-reduced"]
+
+
+def test_lm_sharded_train_world_of_one_is_bitwise_on_card(cuda, tmp_path):
+    """Sharded training on a world of one over NCCL (mesh (1, 1),
+    ``chip_smoke.py`` phase 21 (a)): 3 steps bitwise the one-device card
+    run -- metrics, step 0's gradients, masters and moments -- under
+    "tp" and "fsdp"."""
+    cs = _chip_smoke()
+    from repro_torch.ft import ElasticMesh
+    keep = ("tp qwen3-4b-reduced", "tp granite-moe-3b-a800m-reduced/sharded",
+            "fsdp whisper-medium-reduced", "fsdp deepseek-v3-671b-reduced")
+    cases = [c for c in cs.strain_cases() if c[0] in keep]
+    with cs.world("nccl", tmp_path / "store"):
+        mesh = ElasticMesh(1, device=cuda).current()
+        for key, mode, cfg in cases:
+            a = cs.strain_run(cs.one_device_cfg(cfg), cuda,
+                              **cs.LM_STRAIN_FAMILY)
+            b = cs.strain_run(cfg, cuda, mesh=mesh, mode=mode,
+                              **cs.LM_STRAIN_FAMILY)
+            cs.strain_same(key, b[1:], a[1:])
+    assert len(cases) == 4
+
+
+def test_lm_sharded_train_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Phase 21 at small sizes on the card: two gloo ranks sharing it
+    within 1e-4 of one device, ranks bitwise; a two-layer reduced Granite
+    in float32 and in bf16 trained over the ranks, staged through the
+    host."""
+    import dataclasses
+    from repro_torch import configs as TC
+    cs = _chip_smoke()
+    keep = ("tp gemma-7b-reduced", "tp granite-moe-3b-a800m-reduced/ragged",
+            "fsdp hymba-1.5b-reduced", "fsdp pixtral-12b-reduced")
+    granite = dataclasses.replace(TC.get("granite_moe_3b_a800m").reduced(),
+                                  moe_dispatch="sharded")
+    out = cs.phase_lm_strain(
+        cuda, tmp_path / "strain",
+        cases=[c for c in cs.strain_cases() if c[0] in keep],
+        wide_cfg=granite, full_cfg=dataclasses.replace(granite,
+                                                       dtype="bfloat16"),
+        wide=dict(layers=2, b=2, s=64, steps=3, base_lr=1e-4, warmup=1),
+        full=dict(b=2, s=64, steps=3, base_lr=1e-3, warmup=1))
+    assert all(out["one"].values()) and len(out["one"]) == 4
+    assert all(f["leaf_err"] <= cs.LM_TOL
+               for f in out["families"].values())
+    assert all(w["leaf_err"] <= cs.LM_TOL for w in out["wide"].values())
+    c = out["full"]
+    assert c["transport"] == "gloo, host-staged"
+    assert c["staged_bytes_per_step"] > 0 and c["eval_drop"] > 0

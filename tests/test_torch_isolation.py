@@ -6,10 +6,12 @@ A fresh interpreter imports every module of ``repro_torch`` and imports
 ``run_bp_resilient`` and the multi-device entry points (``make_bp_mesh``,
 ``run_bp_sharded``, ``ElasticMesh``), the LM stack's ``build_model`` and
 ``Model``, its training entry points (``make_train_step``'s model,
-``init_train_state``, ``SyntheticLM``), the training launcher,
-``make_production_mesh`` and ``build_model`` on a mesh, called
-without ``device=`` / ``--device cpu`` must raise when there is no GPU
-rather than carry on on the CPU.
+``init_train_state``, ``SyntheticLM``), the training launcher (on one
+device, and with ``--model-parallel 2 --sharding fsdp``),
+``make_production_mesh`` and ``build_model`` on a mesh (either mode),
+called without ``device=`` / ``--device cpu`` must raise when there is no
+GPU rather than carry on on the CPU; sharded training asked for on the CPU
+stays there.
 """
 
 import json
@@ -151,6 +153,11 @@ def no_gpu(monkeypatch):
                                "--steps", "1"]),
     lambda: make_production_mesh(),
     lambda: build_model(TC.get("qwen3_4b").reduced(), mesh=object()),
+    lambda: build_model(TC.get("mamba2_130m").reduced(), mesh=object(),
+                        mode="fsdp"),
+    lambda: launch_train.main(["--arch", "qwen3_4b", "--reduced",
+                               "--steps", "1", "--model-parallel", "2",
+                               "--sharding", "fsdp"]),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
@@ -158,7 +165,8 @@ def no_gpu(monkeypatch):
         "run_bp_resilient", "make_bp_mesh", "run_bp_sharded",
         "elastic_mesh", "build_model", "model", "make_train_step",
         "init_train_state", "synthetic_lm", "launch_train",
-        "make_production_mesh", "build_model_on_a_mesh"])
+        "make_production_mesh", "build_model_on_a_mesh",
+        "build_model_fsdp_on_a_mesh", "launch_train_sharded"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -202,3 +210,30 @@ def test_lm_training_on_cpu_stays_on_cpu(no_gpu):
     assert all(t.device.type == "cpu" for t in metrics.values())
     assert all(p.device.type == "cpu" for p in state.params.values())
     assert state.step.device.type == "cpu"
+
+
+def test_lm_sharded_training_on_cpu_stays_on_cpu(no_gpu):
+    """A ZeRO-3 train step and checkpoint gather on a world of one on the
+    CPU: every tensor stays there."""
+    import dataclasses
+    from repro_torch.launch.sharding import train_state_shardings
+    from repro_torch.train.step import (reference_shardings, reference_tree,
+                                        train_state_specs)
+    from repro_torch.checkpoint import save_pytree
+    import tempfile
+    cfg = TC.get("granite_moe_3b_a800m").reduced()
+    cpu = torch.device("cpu")
+    with launch_train.world_of_one(cpu), tempfile.TemporaryDirectory() as d:
+        mesh = ElasticMesh(2, device="cpu").current()
+        model = build_model(cfg, device="cpu", mesh=mesh, mode="fsdp")
+        state = init_train_state(model, torch.Generator())
+        pipe = SyntheticLM(cfg, dataclasses.replace(TRAIN_4K, seq_len=8,
+                                                    global_batch=2),
+                           device="cpu")
+        state, metrics = make_train_step(model)(state, pipe.batch(0))
+        specs = reference_shardings(train_state_shardings(
+            mesh, train_state_specs(model), "fsdp"))
+        save_pytree(d, 1, reference_tree(state), sharding_tree=specs,
+                    mesh=mesh)
+    assert all(t.device.type == "cpu" for t in metrics.values())
+    assert all(p.device.type == "cpu" for p in state.params.values())

@@ -70,7 +70,7 @@ CASES = [("qwen3", "qwen3_4b", None), ("gemma", "gemma_7b", None),
          ("granite-ragged", "granite_moe_3b_a800m", "ragged"),
          ("granite-dense", "granite_moe_3b_a800m", "dense"),
          ("granite-sharded", "granite_moe_3b_a800m", "sharded")]
-#: the families whose blocks are not tensor-parallel yet (item 14c-2)
+#: the families whose blocks are not tensor-parallel yet (item 14c-3)
 DATA_ONLY = [("mamba2", "mamba2_130m"), ("hymba", "hymba_1_5b"),
              ("deepseek", "deepseek_v3_671b"),
              ("whisper", "whisper_medium")]
@@ -450,7 +450,7 @@ def test_other_families_raise_over_model_and_run_data_parallel(
         worlds, one_device, case):
     for shape in ((1, 2), (2, 2), (1, 4)):
         msg = ranks_of(worlds, shape)[0]["raises"][(case, shape)]
-        assert "14c-2" in msg
+        assert "14c-3" in msg
     ranks = worlds["ranks"][2]
     run = ranks[0]["runs"][(case, (2, 1))]
     logits, _, steps, dcache = one_device[case]

@@ -214,9 +214,18 @@ def test_microbatch_equivalence():
 
 
 def test_grad_shardings_is_item_14c():
+    """Item 14c-2 ported ``grad_shardings``: the parameters' own layout is
+    accepted (the port's gradients are always laid out so); any other
+    raises ``ValueError``."""
+    from repro_torch.launch.sharding import P
     model = build_model(TC.get("qwen3_4b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="14c"):
+    own = {n: P(*[None] * p.dim()) for n, p in model.named_parameters()}
+    make_train_step(model, grad_shardings=own)
+    with pytest.raises(ValueError, match="grad_shardings"):
         make_train_step(model, grad_shardings={})
+    with pytest.raises(ValueError, match="embed.table"):
+        make_train_step(model, grad_shardings=dict(
+            own, **{"embed.table": P("model", None)}))
 
 
 def test_train_state_specs_allocate_nothing():
@@ -289,10 +298,17 @@ def test_resume_through_the_launcher_is_bitwise(tmp_path, capsys):
     assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
-def test_launcher_model_parallel_is_item_14c():
-    with pytest.raises(NotImplementedError, match="14c"):
-        launch_train.main(["--arch", "qwen3_4b", "--reduced", "--device",
-                           "cpu", "--model-parallel", "2"])
+def test_launcher_model_parallel_is_item_14c(capsys):
+    """Item 14c-2 ported ``--model-parallel`` above 1: with no world the
+    launcher makes a world of one, whose elastic mesh shrinks the "model"
+    axis to the one rank, and trains."""
+    state = launch_train.main(["--arch", "qwen3_4b", "--reduced", "--device",
+                               "cpu", "--model-parallel", "2", "--steps",
+                               "2", "--batch", "2", "--seq", "16",
+                               "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1} (tp)" in out
+    assert "step     1 loss=" in out and int(state.step) == 2
 
 
 def test_reference_checkpoint_restores_into_the_port(tmp_path):
