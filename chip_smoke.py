@@ -66,11 +66,11 @@ main paths and its serving path at full size and measures them:
   profiler trace of two steps, the loss falling (phase 19);
 - the LM stack's sharded serving path (``repro_torch.launch.sharding``,
   tensor-parallel prefill and decode over a ("data", "model") mesh), which
-  runs none of the BP kernels: the reduced families that shard over
+  runs none of the BP kernels: the ten families at ``reduced()`` over
   "model" on a world of one over NCCL, bitwise one device, and on two gloo
   ranks sharing the card (meshes (1, 2) and (2, 1)) within 1e-4, ranks
-  bitwise equal, cache blocks the slices of the one-device caches; the
-  families that must raise there; Granite-MoE 3B-a800m as published (32
+  bitwise equal, cache blocks the slices of the one-device caches;
+  Granite-MoE 3B-a800m as published (32
   layers, bf16) served at B = 4 on one device (prefill over 1,024 tokens,
   ``generate`` 64 + 32 with decode ms/step beside the bytes bound, host
   syncs of a decode step), its prefill on a world of one bitwise, and
@@ -82,8 +82,8 @@ main paths and its serving path at full size and measures them:
   and staged bytes per step (phase 20);
 - the LM stack's sharded training path (tensor-parallel and ZeRO-3 train
   steps over ``torch.distributed``, gradients through the collectives),
-  which runs none of the BP kernels: the CPU tests' cases -- the
-  tensor-parallel families at ``reduced()``, every family under "fsdp"
+  which runs none of the BP kernels: the CPU tests' cases -- the ten
+  families tensor-parallel at ``reduced()``, every family under "fsdp"
   widened so ZeRO-3 shards its leaves -- 3 steps on a world of one over
   NCCL, bitwise one device's (metrics, step 0's gradients, masters and
   moments), and on two gloo ranks sharing the card within 1e-4 of one
@@ -91,7 +91,19 @@ main paths and its serving path at full size and measures them:
   float32 over the ranks within 1e-4 of one device; Granite-MoE 3B-a800m
   as published trained 5 steps over the ranks at (1, 2): ms/step,
   tokens/s, collectives and bytes staged per step, state bytes and peak
-  per rank, the loss over batches 0..2 before and after (phase 21).
+  per rank, the loss over batches 0..2 before and after (phase 21);
+- tensor parallelism of the SSM, hybrid, MLA and encoder-decoder blocks
+  over two gloo ranks sharing the card at (1, 2), no BP kernel: Mamba2-130M
+  as published (24 layers) in float32, prefill over 1,024 tokens and 32
+  decode steps within 1e-4 of one device and 3 train steps within 1e-5
+  (metrics) and 1e-4 (leaves), a world of one over NCCL bitwise one
+  device; in bf16 served (prefill tokens/s, decode ms/step by CUDA events
+  beside the bytes bound, collectives and staged bytes per step) and
+  trained 5 steps over float32 masters (ms/step, tokens/s, state and peak
+  per rank, the eval loss falling); then Hymba-1.5B's, DeepSeek-V3's (MLA,
+  MTP) and Whisper-medium's published widths at two layers in float32:
+  prefill over 256 tokens, 16 decode steps and step 0's gradients within
+  1e-4 of one device, ranks bitwise (phase 22).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -105,7 +117,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the eleven paths (``launches_by_path``), its largest
+  and on each of the twelve paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -225,10 +237,10 @@ LM_TRAIN_EVAL = 3                    # (c): batches 0..2 evaluated on the
 LM_TRAIN_DROP = 0.1                  # masters before and after training,
 #                                      their mean lower by this much
 #                                      (the prediction in PERF.md)
-# The LM stack's sharded serving path (phase 20): the reduced families that
-# run tensor-parallel over "model" on a world of one over NCCL (bitwise one
-# device) and on two gloo ranks sharing the card (within LM_TOL); the
-# families that must raise there (item 14c-3); Granite-MoE 3B-a800m as
+# The LM stack's sharded serving path (phase 20): the reduced families, all
+# ten, tensor-parallel over "model" on a world of one over NCCL (bitwise one
+# device) and on two gloo ranks sharing the card (within LM_TOL); Granite-MoE
+# 3B-a800m as
 # src/repro/configs/granite_moe_3b_a800m.py publishes it (32 layers, bf16)
 # served on one device at B = 4, then over the two ranks with the
 # "sharded" dispatch at full depth, in float32 and bf16.
@@ -236,9 +248,9 @@ LM_SHARD_FAMILIES = (("qwen3_4b", None), ("gemma_7b", None),
                      ("mistral_large_123b", None), ("starcoder2_3b", None),
                      ("pixtral_12b", None), ("granite_moe_3b_a800m", "ragged"),
                      ("granite_moe_3b_a800m", "dense"),
-                     ("granite_moe_3b_a800m", "sharded"))
-LM_SHARD_RAISE = ("mamba2_130m", "hymba_1_5b", "deepseek_v3_671b",
-                  "whisper_medium")
+                     ("granite_moe_3b_a800m", "sharded"),
+                     ("mamba2_130m", None), ("hymba_1_5b", None),
+                     ("deepseek_v3_671b", None), ("whisper_medium", None))
 LM_SHARD_FAMILY = dict(b=2, s=8, steps=8)
 LM_SHARD_RANKS = 2
 LM_SHARD_TIMEOUT_S = 420
@@ -246,8 +258,9 @@ LM_MOE_SERVE = dict(b=4, prefill_len=1024, prompt_len=64, gen=32,
                     trace_steps=8)
 LM_MOE_SHARDED = dict(s=256, steps=16)
 # The LM stack's sharded training path (phase 21): (a) the cases of the
-# CPU tests (tests/test_torch_lm_sharded_train.py) -- the families that run
-# tensor-parallel at reduced(), every family under "fsdp" at reduced()
+# CPU tests (tests/test_torch_lm_sharded_train.py and
+# test_torch_lm_sharded_blocks.py) -- all ten families tensor-parallel at
+# reduced(), every family under "fsdp" at reduced()
 # widened so ZeRO-3 shards the table and block matrices -- 3 steps, on a
 # world of one over NCCL (bitwise one device's) and on two gloo ranks
 # sharing the card (within LM_TOL, ranks bitwise); (b) Granite's published
@@ -260,7 +273,9 @@ LM_MOE_SHARDED = dict(s=256, steps=16)
 LM_STRAIN_TP = (("qwen3_4b", None), ("gemma_7b", None),
                 ("mistral_large_123b", None), ("starcoder2_3b", None),
                 ("pixtral_12b", None), ("granite_moe_3b_a800m", "ragged"),
-                ("granite_moe_3b_a800m", "sharded"))
+                ("granite_moe_3b_a800m", "sharded"), ("mamba2_130m", None),
+                ("hymba_1_5b", None), ("deepseek_v3_671b", None),
+                ("whisper_medium", None))
 # S counts pixtral's 8 stub patches: at S = 8 it would have no text token
 LM_STRAIN_FAMILY = dict(b=4, s=16, steps=3, base_lr=1e-4, warmup=1)
 LM_STRAIN_WIDE = dict(layers=2, b=2, s=512, steps=3, base_lr=1e-4,
@@ -269,6 +284,31 @@ LM_STRAIN = dict(b=2, s=1024, steps=5, base_lr=3e-5, warmup=2)
 LM_STRAIN_RANKS = 2
 LM_STRAIN_SHARE = 0.6        # (c): a rank's state over one device's, at most
 LM_STRAIN_TIMEOUT_S = 600
+# The LM stack's tensor-parallel SSM, hybrid, MLA and encoder-decoder
+# blocks (phase 22), over two gloo ranks sharing the card at (1, 2): (a)
+# Mamba2-130M as src/repro/configs/mamba2_130m.py publishes it (24 layers,
+# d 768, 24 heads of 64, state 128, bf16) -- in float32 served (prefill
+# over 1,024 tokens, 32 decode steps) against one device, and on a world
+# of one over NCCL bitwise one device; step 0's gradients at full depth no
+# farther from one device's than one device's on the CPU are (float32's
+# own floor there exceeds 1e-4 of a leaf's max); trained 3 steps at its
+# widths and 2 of 24 layers against one device; in bf16 served and timed;
+# trained 5 steps in bf16 over float32 masters -- and
+# (b) in float32 at two layers, the published widths of Hymba-1.5B,
+# DeepSeek-V3 (MLA and the MTP head; both layers dense, as its lead-in
+# layers are) and Whisper-medium (2 encoder and 2 decoder layers): prefill
+# over 256 tokens, 16 decode steps and step 0's gradients against one
+# device.
+LM_BLOCKS_F32 = dict(b=2, s=1024, steps=32)
+LM_BLOCKS_F32_GRADS = dict(b=2, s=256)
+LM_BLOCKS_F32_TRAIN = dict(layers=2, b=2, s=1024, steps=3, base_lr=1e-4,
+                           warmup=1)
+LM_BLOCKS_SERVE = dict(b=4, s=1024, steps=32)
+LM_BLOCKS_TRAIN = dict(b=2, s=1024, steps=5, base_lr=1e-3, warmup=2)
+LM_BLOCKS_WIDE = dict(layers=2, b=2, s=256, steps=16)
+LM_BLOCKS_RANKS = 2
+LM_BLOCKS_TIMEOUT_S = 600
+LM_METRIC_TOL = 1e-5                 # train metrics against one device
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -2755,14 +2795,15 @@ def loss_and_grads(model, state, batch):
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def rel_err(name, card, cpu, tol) -> float:
-    """max|card - cpu| / max|cpu|; raises beyond ``tol`` or on another
-    shape."""
+def rel_err(name, card, cpu, tol, scale=None) -> float:
+    """max|card - cpu| / max|cpu| (or over ``scale``); raises beyond
+    ``tol`` or on another shape."""
     card, cpu = card.detach().cpu().float(), cpu.detach().float()
     if card.shape != cpu.shape:
         raise AssertionError(f"{name}: shape {tuple(card.shape)} on the "
                              f"card, {tuple(cpu.shape)} on the CPU")
-    err = float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+    scale = cpu.abs().max() if scale is None else scale
+    err = float((card - cpu).abs().max() / scale.float().clamp_min(1e-30))
     if not err <= tol:
         raise AssertionError(f"{name}: card vs CPU max|diff| / max|cpu| = "
                              f"{err:.3g} beyond {tol}")
@@ -3367,8 +3408,7 @@ def lm_moe_one(cfg, device, store, prompt, want, backend):
 def _lm_shard_rank(rank, size, out_dir, device_type, job):
     """One rank of phase 20's gloo world, in its own process, every tensor
     on ``device_type``: (a) each reduced family of ``job["families"]`` on
-    the meshes whose "model" axis has ``job["mps"]`` ranks (and each of
-    ``job["raise"]`` must raise when that axis is split); (c) Granite at
+    the meshes whose "model" axis has ``job["mps"]`` ranks; (c) Granite at
     full depth over all ranks on "model" (``job["full"]``): in float32
     with one device's routing pinned (``job["pin"]``), in bf16 pinned the
     same way, then in bf16 as it routes, timed. Writes ``rank<r>.pt``."""
@@ -3380,7 +3420,7 @@ def _lm_shard_rank(rank, size, out_dir, device_type, job):
     device = torch.device(device_type)
     if device.type != "cuda":
         torch.set_num_threads(1)
-    out = dict(families={}, raised={}, full={})
+    out = dict(families={}, full={})
     with world("gloo", Path(out_dir) / "store", size, rank):
         for mp_ in job["mps"]:
             mesh = ElasticMesh(mp_, device=device).current()
@@ -3389,12 +3429,6 @@ def _lm_shard_rank(rank, size, out_dir, device_type, job):
                 out["families"][(shape, shard_key(cfg))] = dict(
                     family_run(cfg, device, mesh=mesh, **job["family"]),
                     coord=tuple(mesh.get_coordinate()))
-            if shape[1] > 1:
-                for cfg in job["raise"]:
-                    try:
-                        build_model(cfg, device=device, mesh=mesh)
-                    except NotImplementedError as e:
-                        out["raised"][cfg.name] = str(e)
         mesh = ElasticMesh(size, device=device).current()
         cfg, f = job["full"]
         prompt = moe_prompt(cfg, f["b"], f["n"], f["s"]).to(device)
@@ -3480,7 +3514,7 @@ def check_families(ranks, refs):
 
 
 def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
-                   raise_cfgs=None, moe_cfg=None, backend="nccl",
+                   moe_cfg=None, backend="nccl",
                    family=LM_SHARD_FAMILY, serve=LM_MOE_SERVE,
                    sharded=LM_MOE_SHARDED, size=LM_SHARD_RANKS,
                    timeout_s=LM_SHARD_TIMEOUT_S):
@@ -3509,7 +3543,6 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     families = families or shard_families()
-    raise_cfgs = raise_cfgs or [TC.get(a).reduced() for a in LM_SHARD_RAISE]
     moe_cfg = moe_cfg or TC.get("granite_moe_3b_a800m")
     out = {}
     t0 = time.perf_counter()
@@ -3558,7 +3591,7 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
     log(f"  (b) served, references, world of one: {out['b_s']:.1f} s")
 
     # (a) and (c) over the gloo ranks, one spawn
-    job = {"families": families, "raise": raise_cfgs, "mps": (size, 1),
+    job = {"families": families, "mps": (size, 1),
            "family": family,
            "pin": {d: m["run"]["routes"] for d, m in mrefs.items()},
            "full": (dataclasses.replace(moe_cfg, moe_dispatch="sharded"),
@@ -3581,12 +3614,6 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
     shutil.rmtree(out_dir, ignore_errors=True)
 
     out["families"] = check_families(ranks, refs)
-    missing = {c.name for c in raise_cfgs} - set(ranks[0]["raised"])
-    if missing or not all("14c-3" in m
-                          for m in ranks[0]["raised"].values()):
-        raise AssertionError(f"families that must raise over 'model' did "
-                             f"not: {sorted(missing)}")
-    out["raised"] = sorted(ranks[0]["raised"])
 
     # (c) full depth over the ranks: float32 with one device's routing
     # pinned, held to LM_TOL; bf16 pinned and as it routes, reported
@@ -3636,7 +3663,6 @@ def log_lm_shard(out) -> None:
         log(f"  (a) {key}: vs one device {f['err']:.3g}, cache blocks "
             f"{f['cache_err']:.3g}, {f['collectives_per_step']:.0f} "
             "collectives/decode step; ranks bitwise equal")
-    log(f"  (a) raise over 'model' (item 14c-3): {out['raised']}")
     sv = out["served"]
     p, s, bd = sv["prefill"], sv["serve"], sv["bound"]
     log(f"  (b) {sv['arch']} {sv['layers']} layers {sv['dtype']}: "
@@ -4121,8 +4147,536 @@ def log_lm_strain(out) -> None:
         f"launches on the sharded training path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 22 --
+
+def blocks_wide_cfgs(layers):
+    """Phase 22 (b)'s configs: Hymba-1.5B, DeepSeek-V3 and Whisper-medium
+    at their published widths, ``layers`` layers (whisper: as many encoder
+    layers), float32; DeepSeek's layers dense (no MoE layer), with MTP."""
+    from repro_torch import configs as TC
+    return [dataclasses.replace(TC.get("hymba_1_5b"), n_layers=layers,
+                                dtype="float32"),
+            dataclasses.replace(TC.get("deepseek_v3_671b"), n_layers=layers,
+                                n_experts=0, experts_per_token=0,
+                                n_shared_experts=0, n_dense_layers=0,
+                                dtype="float32"),
+            dataclasses.replace(TC.get("whisper_medium"), n_layers=layers,
+                                n_enc_layers=layers, dtype="float32")]
+
+
+def blocks_serve_run(cfg, device, b, s, steps, mesh=None):
+    """``decode_run`` of ``cfg`` (prefill over ``s`` tokens, ``steps``
+    decode steps from ``init_cache``) on ``device`` (on ``mesh`` when
+    given), weights from ``init_params`` with a card generator of seed 0,
+    tokens from a CPU one."""
+    import torch
+    model = build_model_on(cfg, device, mesh)
+    batch = {k: v.to(device) for k, v in lm_inputs(cfg, b, s).items()}
+    toks = torch.randint(0, cfg.vocab, (steps, b, 1),
+                         generator=torch.Generator().manual_seed(2))
+    out = decode_run(model, batch, toks, s + steps)
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    del model
+    return out
+
+
+def blocks_grads(cfg, device, b, s, mesh=None):
+    """Step 0's gradients of ``cfg`` (float32) on ``device`` (on ``mesh``
+    when given, each leaf gathered whole): ``forward_train`` on the
+    ``SyntheticLM`` batch 0 at (``b``, ``s``), weights from ``init_params``
+    with a card generator of seed 0. Returns (metrics as floats, {name:
+    whole gradient}, {name: digest of the rank's own gradient} of the
+    leaves every rank holds whole)."""
+    from repro_torch.launch.sharding import gather_tensor
+    model = build_model_on(cfg, device, mesh)
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, metrics = model.forward_train(params,
+                                        train_pipe(cfg, device, b, s).batch(0))
+    loss.backward()
+    grads, held = {}, {}
+    for n, p in params.items():
+        spec = model.spec_of(n)
+        g, p.grad = p.grad, None
+        if spec is None or not any(spec):
+            held[n] = digest(g)
+            grads[n] = g
+        else:
+            grads[n] = gather_tensor(g, spec, model.mesh)
+    del model, params, loss
+    return {k: float(v.detach()) for k, v in metrics.items()}, grads, held
+
+
+def sharded_grads(cfg, device, b, s, mesh, tol=None):
+    """Step 0's gradients of ``cfg`` on ``mesh`` against one device's, which
+    rank 0 computes beside: every rank's metrics and gradients of the
+    leaves it holds whole bitwise equal (raises otherwise); on rank 0 the
+    worst leaf's max|diff| / max (raises beyond ``tol`` when given) and
+    the metrics' largest difference (raises beyond ``LM_METRIC_TOL``)."""
+    import torch
+    import torch.distributed as dist
+    ref = blocks_grads(cfg, device, b, s) if dist.get_rank() == 0 else None
+    metrics, grads, held = blocks_grads(cfg, device, b, s, mesh)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (metrics, held))
+    if any(e != every[0] for e in every[1:]):
+        raise AssertionError(f"{cfg.name}: the ranks' metrics or gradients "
+                             "of replicated leaves differ")
+    out = dict(replicated_leaves=len(held))
+    if ref is not None:
+        errs = {n: float((g - ref[1][n]).abs().max()
+                         / ref[1][n].abs().max().clamp_min(1e-30))
+                for n, g in grads.items()}
+        out["grad_leaf"] = max(errs, key=errs.get)
+        out["grad_err"] = errs[out["grad_leaf"]]
+        if tol is not None and not out["grad_err"] <= tol:
+            raise AssertionError(f"{cfg.name} gradient {out['grad_leaf']}: "
+                                 f"max|diff| / max = {out['grad_err']:.3g} "
+                                 f"beyond {tol}")
+        out["metric_err"] = max(abs(metrics[k] - v)
+                                for k, v in ref[0].items())
+        if not out["metric_err"] <= LM_METRIC_TOL:
+            raise AssertionError(f"{cfg.name}: metrics {metrics} vs one "
+                                 f"device's {ref[0]}")
+    del ref, grads
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def grads_floor(cfg, device, b, s):
+    """How far one device's step 0 gradients of ``cfg`` (float32) on
+    ``device`` lie from the same model's on the CPU, same weights and
+    batch: the worst leaf's max|diff| / max, and that leaf. On the CPU
+    (``device`` the CPU) the two runs are one, and the floor is 0."""
+    import torch
+    from repro_torch.models import build_model
+    metrics, grads, _ = blocks_grads(cfg, device, b, s)
+    model = build_model_on(cfg, device)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    del model
+    params = dict(cpu.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, _ = cpu.forward_train(params, {
+        k: v.cpu() for k, v in train_pipe(cfg, device, b, s).batch(0).items()})
+    loss.backward()
+    errs = {n: float((grads[n].cpu() - p.grad).abs().max()
+                     / p.grad.abs().max().clamp_min(1e-30))
+            for n, p in params.items()}
+    leaf = max(errs, key=errs.get)
+    del grads
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(grad_err=errs[leaf], grad_leaf=leaf,
+                loss_diff=abs(metrics["loss"] - float(loss.detach())))
+
+
+def timed_serve(model, b, s, steps):
+    """``model`` (bf16) served: a warm ``prefill`` over (``b``, ``s``)
+    tokens, then one timed (host clock to a synchronize), and ``steps``
+    decode steps continuing from its cache, each timed by CUDA events on
+    the card (the host clock off it), with the collectives and the bytes
+    staged through the host of the decode steps."""
+    import torch
+    from repro_torch.dist import comm
+    dev = model.device
+    on_card = dev.type == "cuda"
+    tokens = torch.randint(0, model.cfg.vocab, (b, s + steps),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    model.prefill({"tokens": tokens[:, :s]})            # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": tokens[:, :s]})
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    pos = torch.full((), s, dtype=torch.int64, device=dev)
+    comm.reset_stats()
+    step_ms, out = [], [logits.cpu()]
+    for t in range(steps):
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t1 = time.perf_counter()
+        lg, cache = model.decode_step(cache, tokens[:, s + t:s + t + 1], pos)
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+        else:
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(lg.cpu())
+        pos = pos + 1
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise AssertionError(f"{model.cfg.name}: non-finite logits")
+    cache_bytes = sum(t.numel() * t.element_size() for g in cache.values()
+                      for t in g.values())
+    return dict(prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+                step_ms=step_ms, logits=out, cache_bytes=cache_bytes,
+                collectives=comm.STATS["collectives"],
+                staged_bytes=comm.STATS["staged_bytes"])
+
+
+def blocks_decode_bound(cfg, b, bw):
+    """The least time of one decode step of ``cfg`` at batch ``b`` on a
+    card of ``bw`` bytes/s: every weight read once (of an untied embedding
+    table only the ``b`` rows looked up, neglected), the decode state read
+    once and written once."""
+    from repro_torch.models.model import Model, param_specs
+    weights = sum(math.prod(sp.shape) * sp.dtype.itemsize
+                  for n, sp in param_specs(cfg).items()
+                  if cfg.tie_embeddings or n != "embed.table")
+    state = sum(math.prod(sp.shape) * sp.dtype.itemsize
+                for g in Model(cfg, device="meta").init_cache_specs(
+                    b, 1).values() for sp in g.values())
+    return dict(bytes=weights + 2 * state, weight_bytes=weights,
+                state_bytes=state, decode_ms=(weights + 2 * state) / bw * 1e3,
+                bound_by="bytes")
+
+
+def _lm_blocks_rank(rank, size, out_dir, device_type, job):
+    """One rank of phase 22's gloo world, in its own process, every tensor
+    on ``device_type``; a failing rank leaves its traceback and stack
+    beside its results. Writes ``rank<r>.pt``."""
+    import faulthandler
+    import signal
+    import traceback
+    import torch
+    sys.path.insert(0, str(SRC))
+    device = torch.device(device_type)
+    if device.type != "cuda":
+        torch.set_num_threads(1)
+    stack = open(Path(out_dir) / f"rank{rank}.stack", "w")
+    faulthandler.enable(file=stack, all_threads=True)
+    faulthandler.register(signal.SIGTERM, file=stack, all_threads=True)
+    try:
+        _lm_blocks_work(rank, size, out_dir, device, job)
+    except BaseException:
+        (Path(out_dir) / f"rank{rank}.err").write_text(
+            traceback.format_exc())
+        raise
+
+
+def _lm_blocks_work(rank, size, out_dir, device, job):
+    """Phase 22 in one rank, on the mesh ``(1, size)``: (a) Mamba2 in
+    float32 served (results kept for the parent) and trained (rank 0 holds
+    one device's run beside and checks against it, every rank checks the
+    ranks agree), in bf16 served and timed, and trained (``strain_full``);
+    (b) each wide config served (kept for the parent) and its step 0's
+    gradients against one device's, which rank 0 computes beside."""
+    import torch
+    from repro_torch.ft import ElasticMesh
+    out = dict(f32=None, train=None, bf16=None, full=None, wide={},
+               seconds={})
+    t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        out["seconds"][part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    with world("gloo", Path(out_dir) / "store", size, rank):
+        mesh = ElasticMesh(size, device=device).current()
+        cfg = job["mamba"]
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        f = job["f32"]
+        out["f32"] = dict(blocks_serve_run(f32, device, f["b"], f["s"],
+                                           f["steps"], mesh),
+                          coord=tuple(mesh.get_coordinate()))
+        lap("f32 served")
+        out["grads"] = sharded_grads(f32, device, mesh=mesh,
+                                     **job["f32_grads"])
+        lap("f32 step 0 gradients")
+        t = dict(job["f32_train"])
+        f32 = dataclasses.replace(f32, n_layers=t.pop("layers"))
+        ref = None
+        if rank == 0:
+            m, st, r = strain_run(f32, device, **t, gen_device=device.type)
+            ref = (r["metrics"], strain_whole(m, st, r["g0"]))
+            del m, st, r
+        model, state, run = strain_run(f32, device, mesh=mesh, **t,
+                                       gen_device=device.type)
+        whole = strain_whole(model, state, run["g0"])
+        n_rep = ranks_agree(f"{f32.name} float32 train", model, state,
+                            run["metrics"])
+        if rank == 0:
+            out["train"] = dict(strain_err(f"{f32.name} float32 train",
+                                           run["metrics"], whole, *ref),
+                                replicated_masters=n_rep,
+                                collectives_per_step=run["collectives"]
+                                / t["steps"],
+                                staged_bytes_per_step=run["staged_bytes"]
+                                / t["steps"])
+        del model, state, run, whole, ref
+        lap("f32 train steps")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sv = job["serve"]
+        model = build_model_on(cfg, device, mesh)
+        out["bf16"] = dict(timed_serve(model, sv["b"], sv["s"], sv["steps"]),
+                           param_bytes=sum(p.numel() * p.element_size()
+                                           for p in model.parameters()),
+                           peak_memory_bytes=torch.cuda.max_memory_allocated()
+                           if device.type == "cuda" else None)
+        del model
+        lap("bf16 served")
+        out["full"] = strain_full(cfg, device, **job["train"])
+        lap("bf16 trained")
+        wide = job["wide"]
+        for wcfg in job["wide_cfgs"]:
+            got = blocks_serve_run(wcfg, device, wide["b"], wide["s"],
+                                   wide["steps"], mesh)
+            got.update(sharded_grads(wcfg, device, wide["b"], wide["s"], mesh,
+                                     tol=LM_TOL),
+                       coord=tuple(mesh.get_coordinate()))
+            out["wide"][wcfg.name] = got
+            lap(wcfg.name)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def build_model_on(cfg, device, mesh=None):
+    """``cfg``'s model on ``device`` (on ``mesh`` when given), weights
+    from ``init_params`` with a card generator of seed 0."""
+    import torch
+    from repro_torch.models import build_model
+    return build_model(cfg, device=device, mesh=mesh).init_params(
+        torch.Generator(device=device).manual_seed(0))
+
+
+def check_served(name, ranks, key, ref, mesh_shape):
+    """A run that the ranks kept (``ranks[r][key]``) within ``LM_TOL`` of
+    one device's ``ref`` (logits elementwise, abs and rel), the ranks'
+    logits bitwise equal, every rank's cache blocks their slices of one
+    device's caches within ``LM_TOL`` of each leaf's largest magnitude (a
+    state summed over 1,024 tokens reaches tens); the worst errors."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.sharding import shard_tensor
+    run = ranks[0][key] if not isinstance(key, tuple) else \
+        ranks[0][key[0]][key[1]]
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    errs = [lm_err(f"{name} prefill", run["logits"], ref["logits"])]
+    errs += [lm_err(f"{name} step {t}", a, c)
+             for t, (a, c) in enumerate(zip(run["steps"], ref["steps"]))]
+    cache_err = 0.0
+    for r in ranks:
+        mine = r[key] if not isinstance(key, tuple) else r[key[0]][key[1]]
+        same_run(f"{name} rank vs rank 0",
+                 dict(logits=mine["logits"], steps=mine["steps"]),
+                 dict(logits=run["logits"], steps=run["steps"]))
+        for which, specs in (("cache", "specs"), ("dcache", "dspecs")):
+            for g, leaves in ref[which].items():
+                for k, v in leaves.items():
+                    cache_err = max(cache_err, rel_err(
+                        f"{name} {which} {g}/{k} block", mine[which][g][k],
+                        shard_tensor(v, mine[specs][g][k], mesh,
+                                     coordinate=mine["coord"]), LM_TOL,
+                        scale=v.abs().max()))
+    return dict(err=max(errs), cache_err=cache_err,
+                collectives_per_step=run["collectives"]
+                / max(len(run["steps"]), 1),
+                staged_bytes_per_step=run["staged_bytes"]
+                / max(len(run["steps"]), 1))
+
+
+def phase_lm_blocks(device, out_dir, bw=3.35e12, mamba_cfg=None,
+                    wide_cfgs=None, backend="nccl", f32=LM_BLOCKS_F32,
+                    f32_grads=LM_BLOCKS_F32_GRADS,
+                    f32_train=LM_BLOCKS_F32_TRAIN, serve=LM_BLOCKS_SERVE,
+                    train=LM_BLOCKS_TRAIN, wide=LM_BLOCKS_WIDE,
+                    size=LM_BLOCKS_RANKS, timeout_s=LM_BLOCKS_TIMEOUT_S):
+    """Phase 22, tensor parallelism of the SSM, hybrid, MLA and
+    encoder-decoder blocks over ``size`` gloo ranks sharing ``device`` at
+    ``(1, size)``: one device's runs of Mamba2 in float32 (``mamba_cfg``,
+    the published config) and of the wide configs served, and Mamba2's on
+    a world of one over ``backend`` bitwise them (served, and trained at
+    ``f32_train["layers"]`` layers); the floor of Mamba2's step 0
+    gradients (one device on ``device`` against the CPU); then the ranks
+    (``_lm_blocks_work``), their served runs held here to one device's
+    within ``LM_TOL``, ranks bitwise, cache blocks the slices, their step
+    0 gradients at full depth to the floor. The BP kernels run nowhere
+    here: their counts go from 0."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import configs as TC
+    from repro_torch.ft import ElasticMesh
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.models.model import param_specs
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    out_dir = Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg = mamba_cfg or TC.get("mamba2_130m")
+    wide_cfgs = wide_cfgs or blocks_wide_cfgs(wide["layers"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=sum(
+        math.prod(sp.shape) for sp in param_specs(cfg).values()))
+    t0 = time.perf_counter()
+    ref = blocks_serve_run(cfg32, device, **f32)
+    wrefs = {w.name: blocks_serve_run(w, device, wide["b"], wide["s"],
+                                      wide["steps"]) for w in wide_cfgs}
+    floor = grads_floor(cfg32, device, **f32_grads)
+    t = dict(f32_train)
+    short = dataclasses.replace(cfg32, n_layers=t.pop("layers"))
+    with world(backend, out_dir / "store_one"):
+        mesh = ElasticMesh(1, device=device).current()
+        same_run(f"{cfg.name} float32 on a world of one vs one device",
+                 blocks_serve_run(cfg32, device, mesh=mesh, **f32), ref)
+        a = strain_run(short, device, **t, gen_device=device.type)
+        b = strain_run(short, device, mesh=mesh, **t,
+                       gen_device=device.type)
+        strain_same(f"{cfg.name} float32 train on a world of one vs one "
+                    "device", b[1:], a[1:])
+        del a, b
+    out["world_of_one_bitwise"] = True
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["one_s"] = time.perf_counter() - t0
+    log(f"  one device and a world of one: {out['one_s']:.1f} s")
+
+    job = dict(mamba=cfg, f32=f32, f32_grads=f32_grads,
+               f32_train=f32_train, serve=serve,
+               train=train, wide=wide, wide_cfgs=wide_cfgs)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_lm_blocks_rank, args=(size, str(out_dir),
+                                                    device.type, job),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=0.5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"phase 22's gloo world did not finish "
+                                     f"in {timeout_s} s")
+    except Exception as e:
+        notes = [f"{p.name}:\n{p.read_text()[-3000:]}"
+                 for p in sorted(out_dir.glob("rank*.err"))
+                 + sorted(out_dir.glob("rank*.stack")) if p.stat().st_size]
+        raise AssertionError(f"phase 22's ranks failed: {e}\n"
+                             + "\n".join(notes)) from e
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(size)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shape = (1, size)
+    out["rank0_seconds"] = ranks[0]["seconds"]
+
+    out["f32"] = dict(check_served(f"{cfg.name} float32", ranks, "f32", ref,
+                                   shape), **f32)
+    g = ranks[0]["grads"]
+    if not g["grad_err"] <= max(floor["grad_err"], LM_TOL):
+        raise AssertionError(
+            f"{cfg.name} float32 step 0 gradients over the ranks: "
+            f"{g['grad_leaf']} {g['grad_err']:.3g} of max from one device, "
+            f"beyond the larger of {LM_TOL} and one device's own floor "
+            f"against the CPU ({floor['grad_leaf']} {floor['grad_err']:.3g})")
+    out["grads"] = dict(g, floor=floor, **f32_grads)
+    out["train"] = dict(ranks[0]["train"], **f32_train)
+    bf = [r["bf16"] for r in ranks]
+    for r in bf[1:]:
+        same_run(f"{cfg.name} bf16 rank vs rank 0",
+                 dict(logits=r["logits"][0], steps=r["logits"][1:]),
+                 dict(logits=bf[0]["logits"][0], steps=bf[0]["logits"][1:]))
+    n = serve["steps"]
+    bound = blocks_decode_bound(cfg, serve["b"], bw)
+    out["bf16"] = dict(
+        b=serve["b"], s=serve["s"], steps=n,
+        transport=ranks[0]["full"]["transport"],
+        prefill_s=bf[0]["prefill_s"],
+        prefill_tokens_per_s=bf[0]["prefill_tokens_per_s"],
+        decode_step_ms_p50=percentile(bf[0]["step_ms"], 50),
+        decode_step_ms_p90=percentile(bf[0]["step_ms"], 90),
+        bound=bound, collectives_per_step=bf[0]["collectives"] / n,
+        staged_bytes_per_step=bf[0]["staged_bytes"] / n,
+        rank_param_bytes=[r["param_bytes"] for r in bf],
+        rank_peak_memory_bytes=[r["peak_memory_bytes"] for r in bf])
+    out["full"] = ranks[0]["full"]
+    out["full"]["rank_state_bytes"] = [r["full"]["state_bytes"]
+                                       for r in ranks]
+    out["full"]["rank_peak_memory_bytes"] = [r["full"]["peak_memory_bytes"]
+                                             for r in ranks]
+    out["wide"] = {}
+    for w in wide_cfgs:
+        got = check_served(w.name, ranks, ("wide", w.name), wrefs[w.name],
+                           shape)
+        r0 = ranks[0]["wide"][w.name]
+        out["wide"][w.name] = dict(got, layers=w.n_layers,
+                                   grad_err=r0["grad_err"],
+                                   metric_err=r0["metric_err"],
+                                   replicated_leaves=r0["replicated_leaves"],
+                                   **{k: v for k, v in wide.items()
+                                      if k != "layers"})
+    out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"]}
+    return out
+
+
+def log_lm_blocks(out) -> None:
+    """Phase 22's progress lines."""
+    f = out["f32"]
+    log(f"  (a) {out['arch']} {out['layers']} layers, {out['params']:,} "
+        f"parameters; world of one bitwise one device: "
+        f"{out['world_of_one_bitwise']}")
+    log(f"  (a) float32 B={f['b']} prefill {f['s']} + {f['steps']} decode "
+        f"steps over the ranks vs one device {f['err']:.3g}, cache blocks "
+        f"{f['cache_err']:.3g} (of max); {f['collectives_per_step']:.0f} "
+        "collectives "
+        f"and {f['staged_bytes_per_step']:.0f} B staged per decode step; "
+        "ranks bitwise")
+    g = out["grads"]
+    log(f"  (a) float32 step 0 gradients B={g['b']} S={g['s']} over the ranks "
+        f"vs one device: worst leaf {g['grad_leaf']} {g['grad_err']:.3g} (of "
+        f"max), metrics {g['metric_err']:.3g}; one device on the card vs the "
+        f"CPU: {g['floor']['grad_leaf']} {g['floor']['grad_err']:.3g}, loss "
+        f"{g['floor']['loss_diff']:.3g}; {g['replicated_leaves']} replicated "
+        "leaves' gradients bitwise across ranks")
+    t = out["train"]
+    log(f"  (a) float32 at {t['layers']} layers B={t['b']} S={t['s']}, "
+        f"{t['steps']} train steps vs one device: metrics "
+        f"{t['metric_err']:.3g}, leaves {t['leaf_err']:.3g} (of max); "
+        f"{t['replicated_masters']} replicated masters bitwise; "
+        f"{t['collectives_per_step']:.0f} collectives and "
+        f"{t['staged_bytes_per_step']:.0f} B staged per step")
+    b = out["bf16"]
+    log(f"  (a) bf16 over {b['transport']}: prefill B={b['b']} x {b['s']}: "
+        f"{b['prefill_tokens_per_s']:.0f} tokens/s ({b['prefill_s']:.4f} "
+        f"s); decode ms/step p50 {b['decode_step_ms_p50']:.3f} p90 "
+        f"{b['decode_step_ms_p90']:.3f} (CUDA events) against a bound of "
+        f"{b['bound']['decode_ms']:.4f} ms ({b['bound']['bytes']} B); "
+        f"{b['collectives_per_step']:.0f} collectives and "
+        f"{b['staged_bytes_per_step']:.0f} B staged per step; rank "
+        f"parameter bytes {b['rank_param_bytes']}, peaks "
+        f"{b['rank_peak_memory_bytes']}")
+    c = out["full"]
+    log(f"  (a) bf16 over float32 masters, B={c['b']} S={c['s']}: "
+        f"{c['step_ms_p50']:.1f} ms/step p50 ({c['step_ms_p90']:.1f} p90) "
+        f"= {c['tokens_per_s']:.0f} tokens/s; state {c['rank_state_bytes']} "
+        f"B per rank = {c['state_share']:.3f} of one device's; peak "
+        f"{c['rank_peak_memory_bytes']} B; {c['collectives_per_step']:.0f} "
+        f"collectives and {c['staged_bytes_per_step']:.0f} B staged per step")
+    log(f"  (a) eval loss over batches 0..2: {c['eval_before']} before, "
+        f"{c['eval_after']} after (drop {c['eval_drop']:.4f})")
+    for name, w in out["wide"].items():
+        log(f"  (b) {name} {w['layers']} layers float32 B={w['b']} prefill "
+            f"{w['s']} + {w['steps']} steps vs one device {w['err']:.3g}, "
+            f"cache blocks {w['cache_err']:.3g} (of max), step 0 gradients "
+            f"{w['grad_err']:.3g} (of max), metrics {w['metric_err']:.3g}; "
+            f"{w['collectives_per_step']:.0f} collectives/decode step; "
+            "ranks bitwise")
+    log(f"  gloo ranks: {out['gloo_wall_s']:.1f} s with the spawn ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["rank0_seconds"].items())
+        + f" s on rank 0); kernel launches on the path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one, lm, lm_train, lm_shard, lm_strain):
+                     dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -4131,11 +4685,13 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     paths of phase 17 (a): ``sharded`` and ``banded``, the LM stack's
     serving path (phase 18, ``lm``), its training path (phase 19,
     ``lm_train``), its sharded serving path (phase 20, ``lm_sharded``: the
-    parent's launches; its spawned ranks run no BP kernel either) and its
-    sharded training path (phase 21, ``lm_sharded_train``, the same)."""
+    parent's launches; its spawned ranks run no BP kernel either), its
+    sharded training path (phase 21, ``lm_sharded_train``, the same) and
+    its tensor-parallel block families (phase 22, ``lm_blocks``, the
+    same)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     lmt, lms = lm_train["launches"], lm_shard["launches"]
-    lmst = lm_strain["launches"]
+    lmst, lmb = lm_strain["launches"], lm_blocks["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -4147,7 +4703,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm=lm["fused_update_e/sum"],
                                    lm_train=lmt["fused_update_e/sum"],
                                    lm_sharded=lms["fused_update_e/sum"],
-                                   lm_sharded_train=lmst["fused_update_e/sum"]),
+                                   lm_sharded_train=lmst["fused_update_e/sum"],
+                                   lm_blocks=lmb["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -4157,7 +4714,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm=lm["fused_update_e/max"],
                                    lm_train=lmt["fused_update_e/max"],
                                    lm_sharded=lms["fused_update_e/max"],
-                                   lm_sharded_train=lmst["fused_update_e/max"]),
+                                   lm_sharded_train=lmst["fused_update_e/max"],
+                                   lm_blocks=lmb["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -4166,7 +4724,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm=lm["fused_update_t/sum"],
                                    lm_train=lmt["fused_update_t/sum"],
                                    lm_sharded=lms["fused_update_t/sum"],
-                                   lm_sharded_train=lmst["fused_update_t/sum"])}
+                                   lm_sharded_train=lmst["fused_update_t/sum"],
+                                   lm_blocks=lmb["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -4458,6 +5017,16 @@ def main() -> int:
     log_lm_strain(lm_strain)
     log(f"  phase 21 in {lm_strain['phase_s']:.1f} s")
 
+    log("== 22. tensor parallelism of the SSM, hybrid, MLA and "
+        "encoder-decoder blocks: Mamba2-130M over two ranks; Hymba, "
+        "DeepSeek-V3 and Whisper widths at two layers")
+    t0 = time.perf_counter()
+    lm_blocks = phase_lm_blocks(device, REPO / "chiprun_out" / "lm_blocks",
+                                bw=bw)
+    lm_blocks["phase_s"] = time.perf_counter() - t0
+    log_lm_blocks(lm_blocks)
+    log(f"  phase 22 in {lm_blocks['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -4472,7 +5041,7 @@ def main() -> int:
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
-                                            lm_shard, lm_strain),
+                                            lm_shard, lm_strain, lm_blocks),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -4483,6 +5052,7 @@ def main() -> int:
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
+                  lm_blocks=lm_blocks,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

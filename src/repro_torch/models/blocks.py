@@ -124,30 +124,33 @@ def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
                   causal: bool = True, sh=None, rows=None,
                   keep_cache=True):
     """Full-sequence pass. Returns (x, cache, aux) where cache is the
-    layer's decode state seed and aux = (lb_loss, z_loss) zeros if non-moe.
-    ``sh``: this rank on a "model" axis (attention, MLP and MoE only);
+    layer's decode state seed (whole on every rank) and aux = (lb_loss,
+    z_loss) zeros if non-moe. ``sh``: this rank on a "model" axis;
     ``rows``: the ranks the batch's rows are split over (``Rows``), over
     which the MoE aux losses are the global batch's. ``keep_cache=False``
-    (training) spares the gathers that only the decode cache needs."""
+    (training) spares the gathers that only the decode cache needs, and
+    the cache it returns is not one."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     zero_aux = (zero, zero)
     h = rms_norm(p["ln1"], x)
+    if kind in ("ssm", "hybrid"):
+        s_out, (ssm_state, conv_state) = S.ssm_forward(
+            p["ssm"], h, sh=sh, whole_state=keep_cache, **_ssm_kwargs(cfg))
+        cache = {"ssm": ssm_state, "conv": conv_state}
     if kind == "ssm":
-        out, (ssm_state, conv_state) = S.ssm_forward(p["ssm"], h,
-                                                     **_ssm_kwargs(cfg))
-        return x + out, {"ssm": ssm_state, "conv": conv_state}, zero_aux
+        return x + s_out, cache, zero_aux
     if kind == "hybrid":
         a_out, (k, v) = A.attn_forward(p["attn"], h, positions,
-                                       causal=causal, **_attn_kwargs(cfg))
-        s_out, (ssm_state, conv_state) = S.ssm_forward(p["ssm"], h,
-                                                       **_ssm_kwargs(cfg))
+                                       causal=causal, sh=sh,
+                                       whole_kv=keep_cache,
+                                       **_attn_kwargs(cfg))
         x = x + 0.5 * (a_out + s_out)
-        rk, rv, rpos = _ring_seed(k, v, cfg.sliding_window)
-        cache = {"k": rk, "v": rv, "pos": rpos,
-                 "ssm": ssm_state, "conv": conv_state}
+        if keep_cache:
+            rk, rv, rpos = _ring_seed(k, v, cfg.sliding_window)
+            cache.update(k=rk, v=rv, pos=rpos)
     elif cfg.mla:
         a_out, (c_kv, k_rope) = MLA.mla_forward(p["attn"], h, positions,
-                                                **_mla_kwargs(cfg))
+                                                sh=sh, **_mla_kwargs(cfg))
         x = x + a_out
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
@@ -168,26 +171,26 @@ def block_forward(p, x, positions, cfg: ArchConfig, kind: str,
 
 def block_decode(p, x1, cache, pos, cfg: ArchConfig, kind: str, sh=None):
     """One-token decode. Updates ``cache`` in place; returns (x1, cache).
-    ``sh``: this rank on a "model" axis (attention, MLP and MoE only)."""
+    ``sh``: this rank on a "model" axis, ``sh.seq`` saying whether the
+    cache's sequence (the ring's slots, the latents) is split over it."""
     h = rms_norm(p["ln1"], x1)
-    if kind == "ssm":
-        out, ssm_state, conv_state = S.ssm_decode(
-            p["ssm"], h, cache["ssm"], cache["conv"], **_ssm_kwargs(cfg))
+    if kind in ("ssm", "hybrid"):
+        s_out, ssm_state, conv_state = S.ssm_decode(
+            p["ssm"], h, cache["ssm"], cache["conv"], sh=sh,
+            **_ssm_kwargs(cfg))
         cache["ssm"].copy_(ssm_state)
         cache["conv"].copy_(conv_state)
-        return x1 + out, cache
+    if kind == "ssm":
+        return x1 + s_out, cache
     if kind == "hybrid":
         a_out, _, _, _ = A.attn_decode_ring(
-            p["attn"], h, cache["k"], cache["v"], cache["pos"], pos,
+            p["attn"], h, cache["k"], cache["v"], cache["pos"], pos, sh=sh,
             **_attn_kwargs(cfg))
-        s_out, ssm_state, conv_state = S.ssm_decode(
-            p["ssm"], h, cache["ssm"], cache["conv"], **_ssm_kwargs(cfg))
-        cache["ssm"].copy_(ssm_state)
-        cache["conv"].copy_(conv_state)
         x1 = x1 + 0.5 * (a_out + s_out)
     elif cfg.mla:
         a_out, _, _ = MLA.mla_decode(p["attn"], h, cache["c_kv"],
-                                     cache["k_rope"], pos, **_mla_kwargs(cfg))
+                                     cache["k_rope"], pos, sh=sh,
+                                     **_mla_kwargs(cfg))
         x1 = x1 + a_out
     else:
         a_out, _, _ = A.attn_decode(p["attn"], h, cache["k"], cache["v"],
@@ -207,34 +210,43 @@ def _xattn_kwargs(cfg: ArchConfig) -> Dict[str, Any]:
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
-def enc_block_forward(p, x, positions, cfg: ArchConfig):
+def enc_block_forward(p, x, positions, cfg: ArchConfig, sh=None):
     h = rms_norm(p["ln1"], x)
-    out, _ = A.attn_forward(p["attn"], h, positions, causal=False,
-                            **_xattn_kwargs(cfg))
+    out, _ = A.attn_forward(p["attn"], h, positions, causal=False, sh=sh,
+                            whole_kv=False, **_xattn_kwargs(cfg))
     x = x + out
-    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), act=cfg.mlp_act)
+    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), act=cfg.mlp_act, sh=sh)
 
 
-def xdec_block_forward(p, x, positions, enc_k, enc_v, cfg: ArchConfig):
-    """Whisper decoder full-seq pass; returns (x, self_cache)."""
+def xdec_block_forward(p, x, positions, enc_k, enc_v, cfg: ArchConfig,
+                       sh=None, keep_cache=True):
+    """Whisper decoder full-seq pass; returns (x, self_cache). ``enc_k``,
+    ``enc_v``: ``cross_kv``'s (on a "model" axis, the rank's heads when it
+    computes its own)."""
     h = rms_norm(p["ln1"], x)
     a_out, (k, v) = A.attn_forward(p["attn"], h, positions, causal=True,
+                                   sh=sh, whole_kv=keep_cache,
                                    **_xattn_kwargs(cfg))
     x = x + a_out
     x = x + A.cross_attn(p["xattn"], rms_norm(p["lnx"], x), enc_k, enc_v,
-                         n_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim)
-    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), act=cfg.mlp_act), \
-        {"k": k, "v": v}
+                         n_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+                         sh=sh)
+    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), act=cfg.mlp_act,
+                   sh=sh), {"k": k, "v": v}
 
 
-def xdec_block_decode(p, x1, cache, enc_k, enc_v, pos, cfg: ArchConfig):
-    """Whisper decoder one-token step; updates ``cache`` in place."""
+def xdec_block_decode(p, x1, cache, enc_k, enc_v, pos, cfg: ArchConfig,
+                      sh=None, xsh=None):
+    """Whisper decoder one-token step; updates ``cache`` in place. ``sh``
+    and ``xsh``: this rank on a "model" axis for the self-attention cache
+    and for the cross caches (whose encoder sequence may be split apart
+    from it)."""
     h = rms_norm(p["ln1"], x1)
     a_out, _, _ = A.attn_decode(p["attn"], h, cache["k"], cache["v"], pos,
-                                **_xattn_kwargs(cfg))
+                                sh=sh, **_xattn_kwargs(cfg))
     x1 = x1 + a_out
-    x1 = x1 + A.cross_attn(p["xattn"], rms_norm(p["lnx"], x1), enc_k, enc_v,
-                           n_heads=cfg.n_heads,
-                           head_dim=cfg.resolved_head_dim)
-    x1 = x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1), act=cfg.mlp_act)
+    x1 = x1 + A.cross_decode(p["xattn"], rms_norm(p["lnx"], x1), enc_k,
+                             enc_v, n_heads=cfg.n_heads,
+                             head_dim=cfg.resolved_head_dim, sh=xsh)
+    x1 = x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1), act=cfg.mlp_act, sh=sh)
     return x1, cache

@@ -23,7 +23,7 @@ rows are split, for the sums that make a loss the global batch's.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -92,6 +92,31 @@ class Shard:
             out.append(piece.reshape(*piece.shape[:-2], -1))
             at += w
         return out
+
+
+def columns(p, x: torch.Tensor, keys: Sequence[str],
+            sh: "Shard | None") -> Dict[str, torch.Tensor]:
+    """``{key: x @ p[key]}`` for each of ``keys``, every product whole on
+    every rank: ``x`` (replicated) enters the column-split weights, whose
+    products are gathered together (one gather); replicated weights
+    multiply whole."""
+    split = [k for k in keys if sh is not None and sh.split(p, k, 1)]
+    xe = sh.enter(x) if split else x
+    out = {k: (xe if k in split else x) @ p[k].to(x.dtype) for k in keys}
+    if split:
+        out.update(zip(split, sh.gather_parts([out[k] for k in split])))
+    return out
+
+
+def row_parallel(p, key: str, x: torch.Tensor,
+                 sh: "Shard | None") -> torch.Tensor:
+    """``x @ p[key]`` for a replicated ``x``: a row-split weight takes the
+    rank's slice of ``x``'s last dimension and the partial products are
+    summed in rank order."""
+    w = p[key].to(x.dtype)
+    if sh is not None and sh.split(p, key, 0):
+        return sh.sum(sh.enter(x)[..., sh.block(x.shape[-1])] @ w)
+    return x @ w
 
 
 @dataclasses.dataclass(frozen=True)

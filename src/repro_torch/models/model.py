@@ -24,11 +24,18 @@ batch, keeps its rows of it (``batch_shardings``: B over the data axes when
 divisible, else replicated), runs tensor-parallel attention, MLP and MoE
 over "model" (``layers.parallel``) and returns the whole logits, gathered
 over the data axes. Caches are this rank's blocks (``cache_shardings``:
-B on data, the sequence on "model") in a ``ShardedCache``, which records
-their layout for ``decode_step``. Over "model" only the attention-MLP and
-MoE families run (dense, vlm, granite); the SSM, hybrid, MLA and
-encoder-decoder blocks raise ``NotImplementedError`` at more than one
-"model" rank (ROADMAP item 14c-3) and run data-parallel.
+B on data, the sequence on "model"; the SSM state on its heads or head
+columns, the conv state whole) in a ``ShardedCache``, which records their
+layout for ``decode_step``. Every family runs over "model": attention, MLP
+and MoE (dense, vlm, granite), the SSM and hybrid blocks (mamba2, hymba:
+the scan on the rank's block of the state, the sliding-window ring split
+along its slots), MLA (deepseek: the rank's heads, the latent cache split
+along the sequence, the MTP head row-parallel) and the encoder-decoder
+(whisper: the encoder and both attentions on the rank's heads, the cross
+caches split along the encoder sequence). Where one split does not line
+up with the next, the layers gather whole activations and keep the weights
+split (but for MLA's absorbed decode when its heads do not divide the
+axis, which gathers ``w_uk`` and ``w_uv``).
 
 Training on a mesh (``forward_train``) computes the loss of the global
 batch on every rank: the rank's rows go through the tensor-parallel layers,
@@ -62,7 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import resolve_device
 from repro_torch.dist import comm
-from repro_torch.launch.mesh import axes_group, model_size
+from repro_torch.launch.mesh import axes_group
 from repro_torch.launch.sharding import (P, batch_shardings, cache_shardings,
                                          gather_tensor, local_shape,
                                          param_shardings, shard_tensor)
@@ -71,7 +78,8 @@ from repro_torch.models.layers import attention as A
 from repro_torch.models.layers.basic import (Leaf, const, dense, dense_init,
                                              embed, init_embedding, rms_norm,
                                              unembed)
-from repro_torch.models.layers.parallel import Rows, Shard
+from repro_torch.models.layers.parallel import (Rows, Shard,
+                                                row_parallel)
 
 # parameters the reference uses in float32 whatever the config's dtype
 F32_LEAVES = frozenset({
@@ -309,12 +317,6 @@ def param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return out
 
 
-def _tp_blocks(cfg: ArchConfig) -> bool:
-    """Whether every block of ``cfg`` runs tensor-parallel over "model"
-    (the SSM, hybrid, MLA and encoder-decoder blocks: item 14c-2)."""
-    return not (cfg.ssm or cfg.hybrid or cfg.mla or cfg.enc_dec)
-
-
 def _module_spec(module: nn.Module, name: str):
     """The ``P`` of parameter ``name`` (dotted) of ``module``, or None."""
     *path, leaf = name.split(".")
@@ -350,12 +352,6 @@ class Model(_Specs, nn.Module):
         self.zero3 = None       # (size, group) of the ZeRO-3 shards
         place = None
         if mesh is not None:
-            if mode == "tp" and model_size(mesh) > 1 and not _tp_blocks(cfg):
-                raise NotImplementedError(
-                    f"{cfg.name}: tensor parallelism for the SSM, hybrid, "
-                    "MLA and encoder-decoder blocks is ROADMAP queue 1, item "
-                    "14c-3; run it on a mesh with one 'model' rank, or with "
-                    "mode='fsdp'")
             shapes = param_specs(cfg)
             pspecs = param_shardings(mesh, shapes, mode)
 
@@ -506,15 +502,18 @@ class Model(_Specs, nn.Module):
         return {g: {k: rule(k, v) for k, v in leaves.items()}
                 for g, leaves in shapes.items()}
 
-    def _decode_shard(self, cache, group: str):
-        """The layers' ``Shard`` for decoding ``cache[group]``: whether its
-        sequence is split over "model" comes from the cache's specs."""
+    def _decode_shard(self, cache, group: str, key: str = None):
+        """The layers' ``Shard`` for decoding ``cache[group]``: whether the
+        sequence of its leaf ``key`` (by default the attention cache's,
+        ``k`` or ``c_kv``) is split over "model" comes from the cache's
+        specs."""
         if self.shard is None or self.shard.mp == 1:
             return self.shard
         if not isinstance(cache, ShardedCache):
             raise TypeError("a model sharded over 'model' decodes from a "
                             "ShardedCache (its init_cache or prefill)")
-        spec = cache.specs[group].get("k")
+        specs = cache.specs[group]
+        spec = specs.get(key or ("c_kv" if "c_kv" in specs else "k"))
         return dataclasses.replace(self.shard, seq=bool(spec)
                                    and spec[2] == "model")
 
@@ -568,7 +567,7 @@ class Model(_Specs, nn.Module):
         x = x + sinusoid(positions, self.cfg.d_model).to(self.dtype)
         for i, p_l in enumerate(p["enc_blocks"]):
             x = B.enc_block_forward(whole(p_l, self.enc_blocks[i]), x,
-                                    positions, self.cfg)
+                                    positions, self.cfg, sh=self.shard)
         return rms_norm(p["enc_norm"], x)
 
     # ------------------------------------------------------------ train --
@@ -641,9 +640,9 @@ class Model(_Specs, nn.Module):
         emb_next = embed(p["embed"], torch.roll(tokens, -1, dims=1),
                          self.dtype, self.shard)
         z = torch.cat([h.to(self.dtype), emb_next], dim=-1)
-        z = z @ mtp["proj"].to(self.dtype)
+        z = row_parallel(mtp, "proj", z, self.shard)
         z, _, _ = B.block_forward(mtp["block"], z, positions, cfg, "dense",
-                                  keep_cache=False)
+                                  sh=self.shard, rows=rows, keep_cache=False)
         z = rms_norm(mtp["norm"], z)
         logits = self._unembed(p, z)
         mtp_labels = torch.roll(labels, -1, dims=1)
@@ -662,8 +661,10 @@ class Model(_Specs, nn.Module):
                 p_l = self._whole(p_l, module, rows)
                 ek, ev = A.cross_kv(p_l["xattn"], enc_out,
                                     n_heads=cfg.n_heads,
-                                    head_dim=cfg.resolved_head_dim)
-                out, _ = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
+                                    head_dim=cfg.resolved_head_dim,
+                                    sh=self.shard)
+                out, _ = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg,
+                                              sh=self.shard, keep_cache=False)
                 return out
             x = _remat(block, remat, p_l, x)
         x = rms_norm(p["final_norm"], x)
@@ -717,8 +718,11 @@ class Model(_Specs, nn.Module):
         per_layer = []
         for p_l in p["blocks"]:
             ek, ev = A.cross_kv(p_l["xattn"], enc_out, n_heads=cfg.n_heads,
-                                head_dim=cfg.resolved_head_dim)
-            x, cache = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg)
+                                head_dim=cfg.resolved_head_dim, sh=self.shard)
+            x, cache = B.xdec_block_forward(p_l, x, positions, ek, ev, cfg,
+                                            sh=self.shard)
+            ek, ev = A.cross_heads(p_l["xattn"], ek, ev, n_heads=cfg.n_heads,
+                                   sh=self.shard)
             per_layer.append(dict(cache, cross_k=ek, cross_v=ev))
         x = rms_norm(p["final_norm"], x)
         logits = self._unembed(p, x[:, -1:])
@@ -747,11 +751,12 @@ class Model(_Specs, nn.Module):
         lead_kind, lead_n, main_kind, main_n = self._layer_kinds()
 
         if cfg.enc_dec:
-            main = cache["main"]
+            sh = self._decode_shard(cache, "main")
+            xsh = self._decode_shard(cache, "main", "cross_k")
             for i, p_l in enumerate(p["blocks"]):
-                c_l = {k: v[i] for k, v in main.items()}
+                c_l = {k: v[i] for k, v in cache["main"].items()}
                 x, _ = B.xdec_block_decode(p_l, x, c_l, c_l["cross_k"],
-                                           c_l["cross_v"], pos, cfg)
+                                           c_l["cross_v"], pos, cfg, sh, xsh)
         else:
             for name, stack, kind in (("lead", "lead_blocks", lead_kind),
                                       ("main", "blocks", main_kind)):

@@ -8,6 +8,7 @@ result.
 """
 
 import json
+import math
 import pathlib
 import sys
 
@@ -231,7 +232,12 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"fused_update_e/sum": 14, "fused_update_e/max": 15,
                       "fused_update_t/sum": 16}},
         {"launches": {"fused_update_e/sum": 17, "fused_update_e/max": 18,
-                      "fused_update_t/sum": 19}})
+                      "fused_update_t/sum": 19}},
+        {"launches": {"fused_update_e/sum": 20, "fused_update_e/max": 21,
+                      "fused_update_t/sum": 22}})
+    assert [by_path[k]["lm_blocks"] for k in (
+        "fused_update_e/sum", "fused_update_e/max",
+        "fused_update_t/sum")] == [20, 21, 22]
     assert [by_path[k]["lm_sharded"] for k in ("fused_update_e/sum",
                                                "fused_update_e/max",
                                                "fused_update_t/sum")] == [
@@ -239,7 +245,7 @@ def test_serving_phase_on_cpu(counted):
     assert [by_path[k]["lm_sharded_train"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [17, 18, 19]
-    assert all(len(by_path[k]) == 11 for k in by_path)
+    assert all(len(by_path[k]) == 12 for k in by_path)
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -401,6 +407,8 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}},
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
@@ -525,17 +533,17 @@ def test_lm_train_checks_reject_a_wrong_card_result(monkeypatch):
 
 
 def test_lm_shard_phase_constants():
-    """Phase 20 serves the families the port shards over "model" (and
-    checks that the others raise), Granite as published at B = 4 with
-    phase 18's serving sizes, then over two ranks at 256 tokens."""
+    """Phase 20 serves every family sharded over "model" (none is refused
+    any more), Granite as published at B = 4 with phase 18's serving
+    sizes, then over two ranks at 256 tokens."""
     from repro_torch import configs as TC
     assert [a for a, _ in cs.LM_SHARD_FAMILIES] == [
         "qwen3_4b", "gemma_7b", "mistral_large_123b", "starcoder2_3b",
-        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 3
-    assert [d for _, d in cs.LM_SHARD_FAMILIES][-3:] == [
+        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 3 + [
+        "mamba2_130m", "hymba_1_5b", "deepseek_v3_671b", "whisper_medium"]
+    assert [d for _, d in cs.LM_SHARD_FAMILIES][5:8] == [
         "ragged", "dense", "sharded"]
-    assert set(cs.LM_SHARD_RAISE) | {a for a, _ in cs.LM_SHARD_FAMILIES} \
-        == set(TC.ARCH_IDS)
+    assert {a for a, _ in cs.LM_SHARD_FAMILIES} == set(TC.ARCH_IDS)
     assert cs.LM_SHARD_FAMILY == dict(b=2, s=8, steps=8)
     assert cs.LM_SHARD_RANKS == 2
     assert cs.LM_MOE_SERVE == dict(b=4, prefill_len=1024, prompt_len=64,
@@ -550,18 +558,18 @@ def test_lm_shard_phase_constants():
 
 def test_lm_shard_phase_on_cpu(tmp_path):
     """Phase 20's control flow and checks at tiny sizes: a world of one
-    over gloo, two gloo ranks on the CPU, a two-layer reduced Granite
-    served whole in bf16, decode against prefill in both dtypes, and over
-    the ranks in float32 (held to one device) and bf16."""
+    over gloo, two gloo ranks on the CPU (a block family among the cases),
+    a two-layer reduced Granite served whole in bf16, decode against
+    prefill in both dtypes, and over the ranks in float32 (held to one
+    device) and bf16."""
     import dataclasses
     from repro_torch import configs as TC
     families = cs.shard_families((("qwen3_4b", None),
-                                  ("granite_moe_3b_a800m", "sharded")))
+                                  ("granite_moe_3b_a800m", "sharded"),
+                                  ("whisper_medium", None)))
     granite = TC.get("granite_moe_3b_a800m").reduced()
     out = cs.phase_lm_shard(
         CPU, tmp_path / "shard", families=families,
-        raise_cfgs=[TC.get("mamba2_130m").reduced(),
-                    TC.get("whisper_medium").reduced()],
         moe_cfg=dataclasses.replace(granite, dtype="bfloat16"),
         backend="gloo", family=dict(b=2, s=4, steps=2),
         serve=dict(b=2, prefill_len=16, prompt_len=8, gen=4, trace_steps=2),
@@ -571,7 +579,6 @@ def test_lm_shard_phase_on_cpu(tmp_path):
         f"{cs.shard_key(c)} {m}" for c in families for m in ("1x2", "2x1")}
     for f in out["families"].values():
         assert f["err"] <= cs.LM_TOL and f["cache_err"] <= cs.LM_TOL
-    assert out["raised"] == ["mamba2-130m-reduced", "whisper-medium-reduced"]
     sv = out["served"]
     assert sv["world_of_one_bitwise"] and sv["moe_layers"] == 2
     assert sv["syncs_per_step"] is None          # counted on the card only
@@ -639,17 +646,19 @@ def test_routes_pinned_replays_a_recorded_routing():
 
 
 def test_lm_strain_phase_constants():
-    """Phase 21 runs the CPU tests' cases (the tensor-parallel families at
-    ``reduced()``, every family under "fsdp" widened), Granite's widths at
-    two layers, and Granite as published over two ranks at B = 2, S =
+    """Phase 21 runs the CPU tests' cases (the ten families tensor-parallel
+    at ``reduced()``, every family under "fsdp" widened), Granite's widths
+    at two layers, and Granite as published over two ranks at B = 2, S =
     1,024 for 5 steps at base_lr 3e-5, warmup 2."""
     from repro_torch import configs as TC
     assert [a for a, _ in cs.LM_STRAIN_TP] == [
         "qwen3_4b", "gemma_7b", "mistral_large_123b", "starcoder2_3b",
-        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 2
-    assert [d for _, d in cs.LM_STRAIN_TP][-2:] == ["ragged", "sharded"]
+        "pixtral_12b"] + ["granite_moe_3b_a800m"] * 2 + [
+        "mamba2_130m", "hymba_1_5b", "deepseek_v3_671b", "whisper_medium"]
+    assert [d for _, d in cs.LM_STRAIN_TP][5:7] == ["ragged", "sharded"]
+    assert {a for a, _ in cs.LM_STRAIN_TP} == set(TC.ARCH_IDS)
     cases = cs.strain_cases()
-    assert len(cases) == 7 + len(TC.ARCH_IDS)
+    assert len(cases) == 11 + len(TC.ARCH_IDS)
     fsdp = [cfg for _, mode, cfg in cases if mode == "fsdp"]
     assert {c.vocab for c in fsdp} == {16384}
     assert all(c.d_ff == (2048 if c.n_experts else 16384) for c in fsdp)
@@ -671,7 +680,8 @@ def test_lm_strain_phase_on_cpu(tmp_path):
     import dataclasses
     from repro_torch import configs as TC
     keep = ("tp qwen3-4b-reduced", "tp granite-moe-3b-a800m-reduced/sharded",
-            "fsdp mamba2-130m-reduced", "fsdp granite-moe-3b-a800m-reduced")
+            "tp hymba-1.5b-reduced", "fsdp mamba2-130m-reduced",
+            "fsdp granite-moe-3b-a800m-reduced")
     cases = [c for c in cs.strain_cases() if c[0] in keep]
     granite = dataclasses.replace(TC.get("granite_moe_3b_a800m").reduced(),
                                   moe_dispatch="sharded")
@@ -733,3 +743,94 @@ def test_lm_strain_checks_reject_a_wrong_result():
     with pytest.raises(AssertionError, match="gradients"):
         cs.strain_same("x", (State, dict(run, g0={"w": torch.tensor(
             [1.0, 1.0 + 2 ** -20])})), (State, run))
+
+
+def test_lm_blocks_phase_constants():
+    """Phase 22: Mamba2-130M as published (float32 prefill over 1,024
+    tokens and 32 decode steps, 3 train steps; bf16 served at B = 4 and
+    trained at B = 2, S = 1,024 for 5 steps), the wide configs at their
+    published widths and two layers, over two ranks."""
+    from repro_torch import configs as TC
+    from repro_torch.models import param_specs
+    m = TC.get("mamba2_130m")
+    assert (m.n_layers, m.d_model, m.d_inner, m.d_inner // m.ssm_head_p,
+            m.ssm_head_p, m.ssm_state, m.padded_vocab, m.tie_embeddings,
+            m.dtype) == (24, 768, 1536, 24, 64, 128, 50432, False,
+                         "bfloat16")
+    assert sum(math.prod(sp.shape) for sp in param_specs(m).values()) == \
+        167_788_992
+    assert cs.LM_BLOCKS_F32 == dict(b=2, s=1024, steps=32)
+    assert cs.LM_BLOCKS_F32_GRADS == dict(b=2, s=256)
+    assert cs.LM_BLOCKS_F32_TRAIN == dict(layers=2, b=2, s=1024, steps=3,
+                                          base_lr=1e-4, warmup=1)
+    assert cs.LM_BLOCKS_SERVE == dict(b=4, s=1024, steps=32)
+    assert cs.LM_BLOCKS_TRAIN == dict(b=2, s=1024, steps=5, base_lr=1e-3,
+                                      warmup=2)
+    assert cs.LM_BLOCKS_WIDE == dict(layers=2, b=2, s=256, steps=16)
+    assert cs.LM_BLOCKS_RANKS == 2 and cs.LM_METRIC_TOL == 1e-5
+    hymba, deepseek, whisper = cs.blocks_wide_cfgs(2)
+    for cfg, arch in ((hymba, "hymba_1_5b"), (deepseek, "deepseek_v3_671b"),
+                      (whisper, "whisper_medium")):
+        pub = TC.get(arch)
+        assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                cfg.vocab) == (pub.d_model, pub.n_heads, pub.n_kv_heads,
+                               pub.head_dim, pub.vocab)
+        assert cfg.n_layers == 2 and cfg.dtype == "float32"
+    assert whisper.n_enc_layers == 2
+    assert (deepseek.mla, deepseek.mtp, deepseek.n_experts,
+            deepseek.kv_lora_rank, deepseek.q_lora_rank) == (True, True, 0,
+                                                             512, 1536)
+    bound = cs.blocks_decode_bound(m, 4, 3.35e12)
+    assert bound["state_bytes"] == 24 * 4 * (24 * 64 * 128 * 4
+                                             + 3 * 1792 * 2)
+    assert bound["bytes"] == bound["weight_bytes"] + 2 * bound["state_bytes"]
+
+
+def test_lm_blocks_phase_on_cpu(tmp_path):
+    """Phase 22's control flow and checks at tiny sizes: a two-layer
+    reduced Mamba2 on one device, a world of one over gloo bitwise, two
+    gloo ranks on the CPU within LM_TOL, bitwise among themselves, served
+    and trained in float32 and bf16, and the reduced wide configs."""
+    import dataclasses
+    from repro_torch import configs as TC
+    mamba = dataclasses.replace(TC.get("mamba2_130m").reduced(),
+                                dtype="bfloat16")
+    wide = [TC.get(a).reduced() for a in ("hymba_1_5b", "deepseek_v3_671b",
+                                          "whisper_medium")]
+    out = cs.phase_lm_blocks(
+        CPU, tmp_path / "blocks", mamba_cfg=mamba, wide_cfgs=wide,
+        backend="gloo", f32=dict(b=2, s=16, steps=4),
+        f32_grads=dict(b=2, s=16),
+        f32_train=dict(layers=1, b=2, s=16, steps=3, base_lr=1e-4, warmup=1),
+        serve=dict(b=2, s=16, steps=4),
+        train=dict(b=2, s=16, steps=3, base_lr=1e-3, warmup=1),
+        wide=dict(layers=2, b=2, s=8, steps=4))
+    assert out["world_of_one_bitwise"]
+    f = out["f32"]
+    assert f["err"] <= cs.LM_TOL and f["cache_err"] <= cs.LM_TOL
+    assert f["collectives_per_step"] > 0 and f["staged_bytes_per_step"] == 0
+    g = out["grads"]
+    assert g["grad_err"] <= cs.LM_TOL and g["metric_err"] <= cs.LM_METRIC_TOL
+    assert g["floor"]["grad_err"] == 0.0 and g["replicated_leaves"] > 0
+    t = out["train"]
+    assert t["metric_err"] <= cs.LM_TOL and t["leaf_err"] <= cs.LM_TOL
+    assert t["replicated_masters"] > 0 and t["layers"] == 1
+    b = out["bf16"]
+    assert b["transport"] == "gloo" and b["steps"] == 4
+    assert b["decode_step_ms_p50"] > 0 and b["prefill_tokens_per_s"] > 0
+    assert b["collectives_per_step"] > 0 and b["bound"]["decode_ms"] > 0
+    assert max(b["rank_param_bytes"]) < 0.6 * sum(b["rank_param_bytes"])
+    c = out["full"]
+    assert c["mesh"] == (1, 2) and c["state_share"] <= cs.LM_STRAIN_SHARE
+    assert c["eval_drop"] > 0 and len(c["losses"]) == 3
+    assert set(out["wide"]) == {w.name for w in wide}
+    for w in out["wide"].values():
+        assert w["err"] <= cs.LM_TOL and w["cache_err"] <= cs.LM_TOL
+        assert w["grad_err"] <= cs.LM_TOL
+        assert w["metric_err"] <= cs.LM_METRIC_TOL
+        assert w["replicated_leaves"] > 0
+    assert out["launches"] == {"fused_update_t/sum": 0,
+                               "fused_update_e/sum": 0,
+                               "fused_update_e/max": 0}
+    assert not (tmp_path / "blocks").exists()
+    cs.log_lm_blocks(out)

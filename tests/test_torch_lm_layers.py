@@ -340,6 +340,30 @@ def test_ssd_chunked():
     close(hl, rh)
 
 
+def test_ssd_chunked_gradients_finite_over_long_chunks():
+    """Over a chunk long enough that exp(cum_i - cum_j) overflows above the
+    diagonal, the port's scan equals the reference's forward and its
+    gradients are finite; the reference's ``where(mask, exp(.), 0)``
+    backpropagates NaN there (0 * inf)."""
+    rng = np.random.default_rng(15)
+    b, s, h, pdim, n = 1, 32, 2, 4, 3
+    x, B, C = normal(rng, b, s, h, pdim), normal(rng, b, s, n), \
+        normal(rng, b, s, n)
+    dt = np.full((b, s, h), 4.0, np.float32)       # cum_i - cum_j up to 124
+    A = -np.ones(h, np.float32)
+    ts = [th(a).requires_grad_(True) for a in (x, dt, A, B, C)]
+    y, hl = TS.ssd_chunked(*ts, chunk=s)
+    ry, rh = RS.ssd_chunked(*map(jnp.asarray, (x, dt, A, B, C)), chunk=s)
+    close(y, ry)
+    close(hl, rh)
+    (y.sum() + hl.sum()).backward()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
+    rgrads = jax.grad(lambda *a: sum(
+        o.sum() for o in RS.ssd_chunked(*a, chunk=s)), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (x, dt, A, B, C)))
+    assert any(bool(jnp.isnan(g).any()) for g in rgrads)
+
+
 @pytest.mark.parametrize("s", [10, 8], ids=["padded", "whole_chunks"])
 def test_ssm_forward(s):
     rng = np.random.default_rng(11)

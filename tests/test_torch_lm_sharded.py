@@ -29,8 +29,9 @@ bitwise the one-device lookup; routing on gathered router logits equals
 one device's at an exact tie; ``gather_tensor`` inverts ``shard_tensor``
 bitwise; a sharded ``init_params`` holds the slices of the one-device
 draw; ``make_production_mesh`` names the world size it cannot lay out.
-The SSM, hybrid, MLA and encoder-decoder families raise at more than one
-"model" rank and run data-parallel at ``(2, 1)``.
+The SSM, hybrid, MLA and encoder-decoder families run data-parallel at
+``(2, 1)`` here; their tensor parallelism is held in
+``test_torch_lm_sharded_blocks.py``.
 """
 
 import dataclasses
@@ -70,7 +71,8 @@ CASES = [("qwen3", "qwen3_4b", None), ("gemma", "gemma_7b", None),
          ("granite-ragged", "granite_moe_3b_a800m", "ragged"),
          ("granite-dense", "granite_moe_3b_a800m", "dense"),
          ("granite-sharded", "granite_moe_3b_a800m", "sharded")]
-#: the families whose blocks are not tensor-parallel yet (item 14c-3)
+#: the block families, run here data-parallel only (their tensor
+#: parallelism: test_torch_lm_sharded_blocks.py)
 DATA_ONLY = [("mamba2", "mamba2_130m"), ("hymba", "hymba_1_5b"),
              ("deepseek", "deepseek_v3_671b"),
              ("whisper", "whisper_medium")]
@@ -227,21 +229,17 @@ def _rank_main(rank, world, out_dir):
         "gloo", store=dist.FileStore(f"{out_dir}/store", world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     try:
-        out = {"runs": {}, "raises": {}}
+        out = {"runs": {}}
         t0 = time.perf_counter()
         for mp_ in WORLDS[world]:
             mesh = ElasticMesh(mp_, device=CPU).current()
             shape = tuple(mesh.mesh.shape)
             coord = tuple(mesh.get_coordinate())
             cases = [(c, a, d) for c, a, d in CASES] + [
-                (c, a, None) for c, a in DATA_ONLY]
+                (c, a, None) for c, a in DATA_ONLY if shape == (2, 1)]
             for case, arch, dispatch in cases:
                 cfg = case_cfg(arch, dispatch)
-                try:
-                    model = build_model(cfg, device=CPU, mesh=mesh)
-                except NotImplementedError as e:
-                    out["raises"][(case, shape)] = str(e)
-                    continue
+                model = build_model(cfg, device=CPU, mesh=mesh)
                 state = params_from_reference(cfg, reference_tree(cfg))
                 model.load_state_dict(shard_state_dict(cfg, state, mesh))
                 comm.reset_stats()
@@ -446,11 +444,7 @@ def test_cache_blocks_are_slices_of_one_device(worlds, one_device, case,
 
 
 @pytest.mark.parametrize("case", [c for c, _ in DATA_ONLY])
-def test_other_families_raise_over_model_and_run_data_parallel(
-        worlds, one_device, case):
-    for shape in ((1, 2), (2, 2), (1, 4)):
-        msg = ranks_of(worlds, shape)[0]["raises"][(case, shape)]
-        assert "14c-3" in msg
+def test_block_families_run_data_parallel(worlds, one_device, case):
     ranks = worlds["ranks"][2]
     run = ranks[0]["runs"][(case, (2, 1))]
     logits, _, steps, dcache = one_device[case]
