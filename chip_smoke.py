@@ -35,13 +35,18 @@ main paths and its serving path at full size and measures them:
   one-graph main path, chunked and resumed from a checkpoint, bitwise the
   engine run; SRBP on the paper's Ising 200 x 200 beside RnBP on the card;
   a chain's RnBP beliefs against variable elimination (phase 16);
-- the multi-device paths (``repro_torch.dist``; the host has one card):
+- the multi-device paths (``repro_torch.dist``, each rank holding only its
+  slice of the messages and pairwise tables; the host has one card):
   (a) a world of one rank over NCCL, ``run_bp_sharded`` on the one-graph
   main path bitwise phase 4's run and banded LBP at n = 1 bitwise a
   one-device LBP run, with the collectives' device time (CUDA events);
   (b) two gloo ranks in spawned processes sharing the card, their
   exchanges staged through the host: sharded LBP and RnBP on the paper's
-  Ising 200 x 200 against one-device runs, banded LBP bitwise, every
+  Ising 200 x 200 bitwise one-device runs, banded LBP bitwise; (c) on the
+  same ranks, phase 10's four stereo frames (built on the host, only each
+  rank's slice copied to the card) through ``run_many``, bitwise a
+  one-device ``run_many``, with each rank's bytes of graph and messages
+  against one device's, peak memory, ms/round and staged bytes; every
   rank's messages bitwise equal (phase 17);
 - the LM stack's serving path (``repro_torch.models``,
   ``repro_torch.launch.serve``), which runs none of the BP kernels: every
@@ -195,19 +200,17 @@ SKEW_KW = dict(max_batch=2, chunk_rounds=16, slots=1, prefetch=2,
                admission_kwargs={"window_s": 0.25}, steal_batch=4,
                low_watermark=2)
 # Multi-device paths (phase 17): a world of one rank over NCCL on the main
-# path's graph, then two gloo ranks sharing the card on the paper's grid.
-DIST_TOL = 5e-3                      # multi-device vs one-device beliefs
-# Phase 17 (b)'s eps. RnBP on this frustrated grid is sensitive to its
-# trajectory: a sharded run, which adds a vertex's in-edges in another
-# order, stopped 1.7e-2 and 3.2e-2 from the one-device beliefs at eps=1e-3
-# and 1e-4 on an H100, and 1.2e-3 at 1e-5 (PERF.md). Both runs are
-# deterministic, so the check at 1e-5 is repeatable; it is not a bound.
-DIST_EPS = 1e-5
+# path's graph, then two gloo ranks sharing the card on the paper's grid
+# and on phase 10's stereo bucket. Each rank keeps only its slice, and its
+# chain fold adds a vertex's in-edges in the one-device order, so a sharded
+# run is bitwise the one-device run at any eps; (b) runs at the main path's.
+DIST_EPS = 1e-3
 # LBP does not converge on this grid: its runs are held at a cap.
 DIST_ROUNDS = {"lbp": 500, "rnbp": 4000}
 DIST_BANDED_ROUNDS = 200             # banded LBP's cap on the main graph
 DIST_RANKS = 2
-DIST_TIMEOUT_S = 120                 # process groups and the spawned world
+DIST_TIMEOUT_S = 240                 # process groups and the spawned world
+DIST_SHARE = 0.6     # (c): a rank's graph and messages over one device's
 # Resilient runs and the serial baseline.
 RESILIENT_CHUNK = 200
 SRBP_LIMIT_S = 30.0
@@ -2062,39 +2065,60 @@ class world:
         return False
 
 
-def watch_dist(timed=False):
+def watch_dist(timed=False, host=False):
     """Hooks on the multi-device paths; call the returned ``undo`` after.
     Always: the operands of the last ``slice_update`` call (``captured``;
     references only). With ``timed`` on the card: a CUDA event pair on
-    the current stream around every gather (``events``), whose sum is the
-    collectives' device time, waits included."""
+    the current stream around every collective the sharded path issues --
+    the residuals' gather, the chain fold's passes and broadcast
+    (``events``: (name, start, end)) -- whose sum is the collectives'
+    device time, waits included. With ``host``: the host seconds spent in
+    each collective by name (``host_s``), the card synchronized first so
+    that the collective's own staging waits for no earlier kernel."""
     import torch
     from repro_torch import dist as D
-    w = dict(captured=None, events=[])
-    saved = (D.slice_update, D.comm.all_gather, D.comm.all_gather_into)
+    w = dict(captured=None, events=[], host_s={})
+    names = ("all_gather_into", "broadcast", "exchange")
+    saved = {name: getattr(D.comm, name) for name in names}
+    saved_slice = D.slice_update
 
     def captured(*args):
         w["captured"] = args
-        return saved[0](*args)
+        return saved_slice(*args)
 
-    def evented(fn):
+    def evented(name, fn):
         def wrapper(*args, **kw):
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
             out = fn(*args, **kw)
             ev[1].record()
-            w["events"].append(ev)
+            w["events"].append((name,) + ev)
+            return out
+        return wrapper
+
+    def clocked(name, fn):
+        def wrapper(*args, **kw):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            w["host_s"][name] = w["host_s"].get(name, 0.0) \
+                + time.perf_counter() - t0
             return out
         return wrapper
 
     D.slice_update = captured
-    if timed:
-        D.comm.all_gather = evented(saved[1])
-        D.comm.all_gather_into = evented(saved[2])
+    for name in names:
+        if timed:
+            setattr(D.comm, name, evented(name, saved[name]))
+        elif host:
+            setattr(D.comm, name, clocked(name, saved[name]))
 
     def undo():
-        D.slice_update, D.comm.all_gather, D.comm.all_gather_into = saved
+        D.slice_update = saved_slice
+        for name in names:
+            setattr(D.comm, name, saved[name])
     return w, undo
 
 
@@ -2117,8 +2141,9 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
     one-device run: rounds, messages, beliefs); then banded LBP at n = 1,
     capped at ``banded_rounds``, bitwise a one-device LBP run at that cap.
     Launch counts reset just before each path and read just after; a first
-    run with hooks (captured slice, collectives' CUDA events), a second for
-    the wall time."""
+    run with hooks (captured slice, collectives' CUDA events: the
+    residuals' gather each round; a world of one has no chain pass and no
+    broadcast), a second for the wall time."""
     import torch
     from repro_torch import dist as D
     from repro_torch.core.schedulers import RnBP
@@ -2154,7 +2179,10 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
         if launches < rounds:
             raise AssertionError(f"sharded: {launches} fused_update_e "
                                  f"launches < {rounds} rounds")
-        coll_ms = sum(a.elapsed_time(b) for a, b in w["events"])
+        by_name = {}
+        for name, a, b in w["events"]:
+            by_name[name] = by_name.get(name, 0.0) + a.elapsed_time(b)
+        coll_ms = sum(by_name.values())
         sync(device)
         t0 = time.perf_counter()
         sharded()
@@ -2165,6 +2193,8 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
             ms_per_round=secs * 1e3 / max(rounds, 1),
             collectives=stats["collectives"],
             collective_ms_per_round=coll_ms / max(rounds, 1),
+            collective_ms_by_name={k: v / max(rounds, 1)
+                                   for k, v in by_name.items()},
             staged_bytes=stats["staged_bytes"], bitwise=True,
             kernel_check=check_slice(w["captured"]))
 
@@ -2214,11 +2244,101 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
     return out
 
 
-def _gloo_rank(rank, size, out_dir, device_type, n):
-    """One rank of phase 17 (b), in its own process: sharded LBP and RnBP
-    and banded LBP at ``DIST_EPS`` on Ising ``n`` x ``n`` (C = 2.5) over a
-    gloo world of ``size`` ranks, every tensor on ``device_type``; writes
-    its results to ``out_dir/rank<r>.pt``."""
+def to_device(pgm, device):
+    """``pgm`` with every tensor on ``device`` (itself when it is there)."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(pgm, **{
+        f.name: getattr(pgm, f.name).to(device)
+        for f in dataclasses.fields(pgm)
+        if isinstance(getattr(pgm, f.name), torch.Tensor)})
+
+
+def result_digests(res) -> dict:
+    """``digest`` of each result tensor, by field."""
+    return {f: digest(getattr(res, f)) for f in
+            ("logm", "beliefs", "rounds", "updates", "unconverged_history")}
+
+
+def _gloo_bucket(mesh, device, rank, frames, scene, max_rounds):
+    """Phase 17 (c) on one rank: ``frames`` stereo scenes built on the
+    host, run through the sharded engine's ``run_many`` (one bucket; only
+    the rank's slice reaches ``device``). Reports the rank's device bytes
+    of graph and messages after ``init`` (the allocator's count and the
+    tensors'), peak memory, loop time, launches and staged bytes; rank 0
+    then runs the one-device ``run_many`` on the same frames beside it
+    (``"triton"`` and its bucket fold on the card) and compares every
+    field bitwise."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.core import (BatchedPGM, BPConfig, BPEngine,
+                                  bucket_pgms, slot_generator)
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.pgm import stereo_mrf
+    cuda = device.type == "cuda"
+    allocated = torch.cuda.memory_allocated if cuda else (lambda: 0)
+    host = [stereo_mrf(scene["height"], scene["width"], scene["n_disp"],
+                       seed=s, device="cpu").pgm for s in range(frames)]
+    cfg = dict(scheduler_kwargs=MAIN_KW, eps=1e-3, max_rounds=max_rounds)
+
+    def resident(engine, make_batch):
+        sync(device)
+        m0 = allocated()
+        state = engine.init(make_batch(), [slot_generator(0, i, device)
+                                           for i in range(frames)])
+        sync(device)
+        return allocated() - m0, D.tensor_bytes(state.graph, state.logm)
+
+    def run(engine, pgms):
+        records = instrument(engine, TT.LAUNCHES)
+        TT.reset_launch_counts()
+        D.comm.reset_stats()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = engine.run_many(pgms, 0)
+        sync(device)
+        secs = time.perf_counter() - t0
+        del engine.run, engine.step
+        loop, = records
+        return res, dict(
+            run_s=secs, loop_s=loop["seconds"],
+            iterations=loop["iterations"], rounds=loop["rounds"],
+            ms_per_round=loop["seconds"] * 1e3 / max(loop["iterations"], 1),
+            launches=TT.LAUNCHES["sum"],
+            collectives=D.comm.STATS["collectives"],
+            staged_bytes=D.comm.STATS["staged_bytes"],
+            peak_memory_bytes=torch.cuda.max_memory_allocated() if cuda
+            else None)
+
+    eng = D.make_sharded_engine("rnbp", mesh, device=device, **cfg)
+    memory, tensor = resident(eng, lambda: bucket_pgms(host)[0].batch)
+    res, out = run(eng, host)
+    out.update(memory_bytes=memory, tensor_bytes=tensor,
+               n_edges=frames * host[0].n_edges,
+               digests=[result_digests(r) for r in res])
+    if rank == 0:
+        card = [to_device(p, device) for p in host]
+        one = BPEngine(BPConfig(
+            scheduler="rnbp", backend=one_device_backend(device),
+            batch_backend="triton" if cuda else None, **cfg), device=device)
+        one_memory, one_tensor = resident(
+            one, lambda: BatchedPGM.from_pgms(card))
+        one_res, one_out = run(one, card)
+        out["one"] = dict(one_out, memory_bytes=one_memory,
+                          tensor_bytes=one_tensor,
+                          bitwise=all(same_result(a, b) for a, b in
+                                      zip(one_res, res)),
+                          rounds_each=[int(r.rounds) for r in one_res])
+    return out
+
+
+def _gloo_rank(rank, size, out_dir, device_type, n, bucket):
+    """One rank of phase 17 (b) and (c), in its own process: sharded LBP
+    and RnBP and banded LBP at ``DIST_EPS`` on Ising ``n`` x ``n`` (C =
+    2.5) over a gloo world of ``size`` ranks, every tensor on
+    ``device_type``; then (c), ``_gloo_bucket(**bucket)``. Writes its
+    results to ``out_dir/rank<r>.pt``."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch import dist as D
@@ -2234,18 +2354,35 @@ def _gloo_rank(rank, size, out_dir, device_type, n):
         out["transport"] = D.comm.transport(D.mesh_axis(mesh)[2], device)
         pgm = ising_grid_fast(n, 2.5, seed=0, device=device)
         for name, sched in (("lbp", LBP()), ("rnbp", RnBP(**MAIN_KW))):
-            TT.reset_launch_counts()
-            D.comm.reset_stats()
-            t0 = time.perf_counter()
-            res = D.run_bp_sharded(
+            run = lambda: D.run_bp_sharded(  # noqa: E731
                 pgm, sched, mesh, torch.Generator(device=device).manual_seed(
                     0), eps=DIST_EPS, max_rounds=DIST_ROUNDS[name],
                 device=device)
+            if name == "lbp":       # a first run split by collective
+                w, undo = watch_dist(host=True)
+                try:
+                    t0 = time.perf_counter()
+                    run()
+                    split = dict(w["host_s"],
+                                 total=time.perf_counter() - t0)
+                finally:
+                    undo()
+            TT.reset_launch_counts()
+            D.comm.reset_stats()
+            t0 = time.perf_counter()
+            res = run()
+            sync(device)
+            secs = time.perf_counter() - t0
             out[name] = dict(
                 rounds=int(res.rounds), converged=bool(res.converged),
                 logm=res.logm.cpu(), beliefs=res.beliefs.cpu(),
-                run_s=time.perf_counter() - t0, launches=TT.LAUNCHES["sum"],
+                updates=int(res.updates), run_s=secs,
+                ms_per_round=secs * 1e3 / max(int(res.rounds), 1),
+                launches=TT.LAUNCHES["sum"],
+                collectives=D.comm.STATS["collectives"],
                 staged_bytes=D.comm.STATS["staged_bytes"])
+        out["lbp"]["split_ms_per_round"] = {
+            k: v * 1e3 / DIST_ROUNDS["lbp"] for k, v in split.items()}
         TT.reset_launch_counts()
         D.comm.reset_stats()
         t0 = time.perf_counter()
@@ -2256,27 +2393,36 @@ def _gloo_rank(rank, size, out_dir, device_type, n):
                              logm=logm.cpu(), run_s=time.perf_counter() - t0,
                              launches=TT.LAUNCHES["sum"],
                              staged_bytes=D.comm.STATS["staged_bytes"])
+        t0 = time.perf_counter()
+        out["bucket"] = _gloo_bucket(mesh, device, rank, **bucket)
+        out["bucket"]["phase_s"] = time.perf_counter() - t0
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
 
 
 def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
-                    timeout_s=DIST_TIMEOUT_S):
-    """Phase 17 (b): ``size`` gloo ranks in spawned processes sharing
-    ``device``: sharded LBP and RnBP converge as one-device runs of the same
-    config do (LBP does not on Ising 200 x 200 at C = 2.5) with beliefs
-    within ``DIST_TOL``, banded LBP gives the one-device rounds
-    and messages bitwise, and every rank's messages are bitwise equal."""
+                    timeout_s=DIST_TIMEOUT_S, bucket=None):
+    """Phase 17 (b) and (c): ``size`` gloo ranks in spawned processes
+    sharing ``device``. (b): sharded LBP (capped; it does not converge on
+    Ising 200 x 200 at C = 2.5) and RnBP bitwise one-device runs of the same
+    config -- rounds, messages, beliefs, updates -- and banded LBP the
+    one-device rounds and messages bitwise. (c): phase 10's stereo frames
+    (``bucket``: frames, scene, max_rounds) through ``run_many``, bitwise
+    the one-device ``run_many`` rank 0 runs beside, each rank's bytes of
+    graph and messages at most ``DIST_SHARE`` of one device's. Every rank's
+    messages are bitwise equal."""
     import shutil
     import torch
     import torch.multiprocessing as mp
-    from repro_torch.core.schedulers import RnBP
     from repro_torch.pgm import ising_grid_fast
+    bucket = bucket or dict(frames=STEREO_FRAMES, scene=STEREO,
+                            max_rounds=STEREO_ROUNDS)
+    cuda = device.type == "cuda"
     out_dir = Path(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
     ctx = mp.start_processes(_gloo_rank, args=(size, str(out_dir),
-                                               device.type, n),
+                                               device.type, n, bucket),
                              nprocs=size, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=0.5):
@@ -2296,17 +2442,18 @@ def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
                                scheduler_kwargs=kw, eps=DIST_EPS,
                                max_rounds=DIST_ROUNDS[name], backend=backend)
         r = ranks[0][name]
-        diff = float((r["beliefs"] - one.beliefs.cpu()).abs().max())
-        if r["converged"] != bool(one.converged) or not diff <= DIST_TOL:
-            raise AssertionError(f"gloo sharded {name}: converged "
-                                 f"{r['converged']} (one device "
-                                 f"{bool(one.converged)}), belief diff "
-                                 f"{diff}")
-        out[name] = dict(rounds=r["rounds"], one_rounds=int(one.rounds),
-                         converged=r["converged"],
-                         max_belief_diff=diff, run_s=r["run_s"],
-                         one_run_s=secs, launches=r["launches"],
-                         staged_bytes=r["staged_bytes"])
+        same = dict(rounds=r["rounds"] == int(one.rounds),
+                    updates=r["updates"] == int(one.updates),
+                    logm=torch.equal(r["logm"], one.logm.cpu()),
+                    beliefs=torch.equal(r["beliefs"], one.beliefs.cpu()))
+        if not all(same.values()):
+            raise AssertionError(f"gloo sharded {name} differs from the "
+                                 f"one-device run: {same}")
+        out[name] = {k: v for k, v in r.items() if k not in ("logm",
+                                                             "beliefs")}
+        out[name].update(one_rounds=int(one.rounds), one_run_s=secs,
+                         bitwise=True, staged_per_round=r["staged_bytes"]
+                         / max(r["rounds"], 1))
     one, _ = run_engine(pgm, device, scheduler="lbp", eps=DIST_EPS,
                         max_rounds=DIST_ROUNDS["lbp"], backend=backend)
     b = ranks[0]["banded"]
@@ -2322,22 +2469,56 @@ def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
             if not torch.equal(other[name]["logm"], ranks[0][name]["logm"]):
                 raise AssertionError(f"gloo {name}: ranks' messages differ")
     out["ranks_bitwise_equal"] = True
-    if device.type == "cuda" and min(
-            r[k]["launches"] for r in ranks for k in ("lbp", "banded")) < 1:
+    out["bucket"] = check_gloo_bucket([r["bucket"] for r in ranks], cuda)
+    if cuda and min(r[k]["launches"] for r in ranks
+                    for k in ("lbp", "rnbp", "banded")) < 1:
         raise AssertionError("a gloo rank bypassed fused_update_e")
+    return out
+
+
+def check_gloo_bucket(ranks, cuda):
+    """Phase 17 (c)'s checks on the ranks' reports: rank 0's results
+    bitwise the one-device run, every rank's the same bytes, a rank's bytes
+    of graph and messages at most ``DIST_SHARE`` of one device's (by the
+    allocator on the card, and by the tensors), and on the card at least
+    one ``fused_update_e`` launch a loop iteration on every rank."""
+    one = ranks[0]["one"]
+    if not one["bitwise"]:
+        raise AssertionError("(c) the sharded run_many differs from the "
+                             "one-device run_many")
+    if any(r["digests"] != ranks[0]["digests"] for r in ranks[1:]):
+        raise AssertionError("(c) the ranks' results differ")
+    out = dict(one=dict(one), ranks=[])
+    for r in ranks:
+        share = dict(tensor=r["tensor_bytes"] / one["tensor_bytes"])
+        if cuda:
+            share["memory"] = r["memory_bytes"] / one["memory_bytes"]
+        if max(share.values()) > DIST_SHARE:
+            raise AssertionError(f"(c) a rank holds {share} of one "
+                                 f"device's graph and messages")
+        if cuda and r["launches"] < r["iterations"]:
+            raise AssertionError(f"(c) {r['launches']} fused_update_e "
+                                 f"launches < {r['iterations']} iterations")
+        out["ranks"].append(dict(
+            {k: v for k, v in r.items() if k != "digests"}, share=share,
+            staged_per_round=r["staged_bytes"] / max(r["iterations"], 1),
+            staged_per_update=r["staged_bytes"] / max(r["launches"], 1)))
+    out["bitwise"] = True
     return out
 
 
 def log_dist(out) -> None:
     """Phase 17's progress lines."""
     a, b = out["one"], out["gloo"]
-    s, bd = a["sharded"], a["banded"]
+    s, bd, c = a["sharded"], a["banded"], b["bucket"]
     log(f"  (a) world of one, transport {a['transport']}: run_bp_sharded "
         f"RnBP {s['rounds']} rounds bitwise phase 4's run, "
         f"{s['ms_per_round']:.3f} ms/round (phase 4: "
         f"{out['main_ms_per_round']:.3f}), collectives "
-        f"{s['collective_ms_per_round']:.4f} ms/round on the card "
-        f"({s['collectives']} calls), fused_update_e launches "
+        f"{s['collective_ms_per_round']:.4f} ms/round on the card ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    s["collective_ms_by_name"].items())
+        + f"; {s['collectives']} calls), fused_update_e launches "
         f"{s['launches']}; slice vs plain "
         f"{s['kernel_check']['max_abs_err']:.3g}")
     log(f"      banded LBP n=1 capped at {bd['rounds']} rounds: bitwise the "
@@ -2347,15 +2528,36 @@ def log_dist(out) -> None:
         f"launches {bd['launches']}; band vs plain "
         f"{bd['kernel_check']['max_abs_err']:.3g}")
     log(f"  (b) {b['ranks']} gloo ranks sharing the card, transport "
-        f"{b['transport']}, {b['wall_s']:.1f} s with the spawn: "
-        + "; ".join(f"{k} {b[k]['rounds']} rounds (one device "
-                    f"{b[k]['one_rounds']}, converged {b[k]['converged']}) "
-                    f"diff {b[k]['max_belief_diff']:.3g} "
-                    f"{b[k]['run_s']:.3f} s staged {b[k]['staged_bytes']} B"
-                    for k in ("lbp", "rnbp"))
+        f"{b['transport']}, {b['wall_s']:.1f} s with the spawn and (c): "
+        + "; ".join(f"{k} {b[k]['rounds']} rounds bitwise the one-device "
+                    f"run (converged {b[k]['converged']}), "
+                    f"{b[k]['ms_per_round']:.3f} ms/round, "
+                    f"{b[k]['collectives']} collectives, staged "
+                    f"{b[k]['staged_per_round']:.0f} B/round, launches "
+                    f"{b[k]['launches']}" for k in ("lbp", "rnbp"))
+        + "; LBP's round on the host clock, ms (card synchronized before "
+        "each collective): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in b["lbp"]["split_ms_per_round"].items())
         + f"; banded LBP {b['banded']['rounds']} rounds bitwise, "
         f"{b['banded']['run_s']:.3f} s staged {b['banded']['staged_bytes']} "
         f"B; ranks' messages bitwise equal")
+    o = c["one"]
+    log(f"  (c) run_many over the stereo bucket (B*E = "
+        f"{c['ranks'][0]['n_edges']}), bitwise the one-device run_many "
+        f"(rounds {o['rounds_each']}); one device: graph and messages "
+        f"{o['memory_bytes']} B allocated ({o['tensor_bytes']} B of "
+        f"tensors), peak {o['peak_memory_bytes']} B, "
+        f"{o['ms_per_round']:.3f} ms/round")
+    for i, r in enumerate(c["ranks"]):
+        log(f"      rank {i}: {r['memory_bytes']} B allocated "
+            f"({r['tensor_bytes']} B of tensors; share "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["share"].items())
+            + f"), peak {r['peak_memory_bytes']} B, {r['iterations']} "
+            f"iterations at {r['ms_per_round']:.3f} ms, staged "
+            f"{r['staged_per_round']:.0f} B/iteration, "
+            f"{r['staged_per_update']:.0f} B/launch ({r['collectives']} "
+            f"collectives), fused_update_e launches {r['launches']}; (c) in "
+            f"{r['phase_s']:.1f} s")
 
 
 # ------------------------------------------------------------- phase 18 --
@@ -4976,8 +5178,9 @@ def main() -> int:
                             REPO / "chiprun_out" / "resilient_ckpt")
     log_resilient(resil)
 
-    log("== 17. multi-device paths (repro_torch.dist: a world of one over "
-        "NCCL, gloo ranks sharing the card)")
+    log("== 17. multi-device paths (repro_torch.dist, rank-resident: a "
+        "world of one over NCCL, gloo ranks sharing the card, the stereo "
+        "bucket over them)")
     t0 = time.perf_counter()
     dist_out = dict(
         one=phase_dist_one(device, main_pgm, main_res,

@@ -18,8 +18,10 @@ runs on the bucket's *disjoint union* -- ``BatchedPGM.folded()`` offsets
 vertex and edge ids so B graphs become one (B*E)-edge graph riding the
 unmodified single-graph update, kernels included. The union is built once
 per ``BatchedPGM`` and kept, as are the per-graph tensors the schedulers
-read (``memo``). Under the ``"sharded"`` backend the union also keeps the
-rank's slice plan (``folded(mesh=)``).
+read (``memo``). Under the ``"sharded"`` backend a bucket becomes
+rank-resident (``repro_torch.dist.ShardBatch``): each rank keeps its flat
+slice of the union's messages and pairwise tables, which may cross slot
+boundaries (``folded(mesh=)`` gives that union for a whole bucket).
 
 Randomness: the reference derives one key per graph with ``fold_in(rng,
 input position)``. The port derives one ``torch.Generator`` per position
@@ -168,17 +170,20 @@ class BatchedPGM:
         one launch. Built once per bucket and kept.
 
         With ``mesh`` (a 1-D ``DeviceMesh`` whose axis is ``axis``, see
-        ``repro_torch.dist``) the union is checked to split into even,
-        pair-aligned slices over the mesh -- a ``ValueError`` otherwise --
-        and keeps this rank's slice plan for the ``"sharded"`` backend
-        (``dist.shard_pgm``). Per-graph E is a multiple of EDGE_PAD and
-        reverse pairs sit at adjacent even indices, so any even per-rank
-        split of B*E keeps reverse pairs on one rank."""
+        ``repro_torch.dist``) the result is this rank's rank-resident union
+        (``dist.shard_pgm`` of it: the rank's slice of the pairwise tables,
+        kept too); the union must split into even, pair-aligned slices
+        over the mesh -- a ``ValueError`` otherwise. Per-graph E is a
+        multiple of EDGE_PAD and reverse pairs sit at adjacent even
+        indices, so any even per-rank split of B*E keeps reverse pairs on
+        one rank."""
         union = self.memo("folded", self._fold)
         if mesh is None:
             return union
-        from repro_torch.dist import shard_pgm
-        return shard_pgm(union, mesh, axis=axis)
+        from repro_torch.dist import mesh_axis, shard_pgm
+        n, rank, _ = mesh_axis(mesh, axis)
+        return self.memo(("folded", axis, n, rank),
+                         lambda: shard_pgm(union, mesh, axis=axis))
 
     def _fold(self) -> PGM:
         p = self.pgm
@@ -205,10 +210,15 @@ class BatchedPGM:
                       mesh=None, axis: str = "bp"):
         """A single-graph update ``(pgm, logm) -> (cand, resid)`` run once
         on the union (``folded(mesh, axis=axis)``): (B, E, S) messages in,
-        ``(cand (B, E, S), resid (B, E))`` out."""
+        ``(cand (B, E, S), resid (B, E))`` out. On a rank-resident union
+        the messages are the rank's flat (B*E/n, S) slice, and so is
+        ``cand``; ``resid`` is whole."""
+        union = self.folded(mesh, axis=axis)
+        if getattr(union, "rank_resident", False):
+            cand, resid = update_fn(union, logm)
+            return cand, resid.reshape(self.size, self.n_edges)
         b, e, s = logm.shape
-        cand, resid = update_fn(self.folded(mesh, axis=axis),
-                                logm.reshape(b * e, s))
+        cand, resid = update_fn(union, logm.reshape(b * e, s))
         return cand.reshape(b, e, s), resid.reshape(b, e)
 
     def take(self, indices) -> "BatchedPGM":
@@ -234,19 +244,7 @@ class BatchedPGM:
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, bucket on "
                              f"{self.device}")
-        if graph.edge_count > p.n_real_edges or \
-                graph.vertex_count > p.n_real_vertices:
-            raise ValueError(
-                f"graph's counts ({graph.edge_count} edges, "
-                f"{graph.vertex_count} vertices) exceed the bucket's "
-                f"ceilings ({p.n_real_edges}, {p.n_real_vertices})")
-        if (graph.n_edges, graph.n_vertices, graph.n_states_max) == (
-                self.n_edges, self.n_vertices, self.n_states_max):
-            row = {k: getattr(graph, k) for k in _TENSOR_FIELDS}
-        else:
-            row = _host_rows([pad_pgm_arrays(
-                graph, n_edges=self.n_edges, n_vertices=self.n_vertices,
-                n_states=self.n_states_max)], self.device)[0]
+        row = self.slot_row(graph)
         width = max(row["in_edges"].shape[1], p.in_edges.shape[2])
         fields = {}
         for k in _TENSOR_FIELDS:
@@ -261,6 +259,26 @@ class BatchedPGM:
         return BatchedPGM(pgm=dataclasses.replace(
             p, **fields, edge_count=counts(p.edge_count, graph.edge_count),
             vertex_count=counts(p.vertex_count, graph.vertex_count)))
+
+    def slot_row(self, graph: PGM) -> Dict[str, torch.Tensor]:
+        """``graph``'s tensor fields padded to the bucket's shape, on the
+        bucket's device (its own tensors when it has that shape already;
+        else padded on the host). Its own counts must fit the bucket's
+        ceilings (a ``ValueError`` otherwise)."""
+        p = self.pgm
+        if graph.edge_count > p.n_real_edges or \
+                graph.vertex_count > p.n_real_vertices:
+            raise ValueError(
+                f"graph's counts ({graph.edge_count} edges, "
+                f"{graph.vertex_count} vertices) exceed the bucket's "
+                f"ceilings ({p.n_real_edges}, {p.n_real_vertices})")
+        if (graph.n_edges, graph.n_vertices, graph.n_states_max) == (
+                self.n_edges, self.n_vertices, self.n_states_max):
+            return {k: getattr(graph, k).to(self.device)
+                    for k in _TENSOR_FIELDS}
+        return _host_rows([pad_pgm_arrays(
+            graph, n_edges=self.n_edges, n_vertices=self.n_vertices,
+            n_states=self.n_states_max)], self.device)[0]
 
     @classmethod
     def from_pgms(cls, pgms: Sequence[PGM], *,

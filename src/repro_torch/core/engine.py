@@ -195,7 +195,7 @@ class BPState:
     """
 
     graph: Any                  # PGM | BatchedPGM
-    logm: torch.Tensor          # (E, S) / (B, E, S) current messages
+    logm: torch.Tensor          # (E, S) / (B, E, S); a rank's (E/n, S)
     sched_state: Any            # scheduler carry
     rng: Any                    # generator state (uint8, host) / B of them
     rounds: torch.Tensor        # () / (B,) int32 cumulative rounds
@@ -213,7 +213,11 @@ class BPState:
     def messages_numpy(self) -> np.ndarray:
         """The current (E, S) messages as a host numpy array -- with
         ``BPEngine.init(..., logm=...)`` the bridge that resumes one
-        package's trajectory in the other."""
+        package's trajectory in the other. On a rank-resident state
+        (``repro_torch.dist``) the whole messages, gathered (a
+        collective)."""
+        if getattr(self.graph, "rank_resident", False):
+            return self.graph.gather(self.logm).cpu().numpy()
         return self.logm.cpu().numpy()
 
 
@@ -299,6 +303,13 @@ class BPEngine:
         backend, batch_backend = config.backend, config.batch_backend
         self.update_fn = (backend if callable(backend)
                           else get_update_fn(backend))
+        # The sharded backend (repro_torch.dist) makes graphs rank-resident.
+        self._place = getattr(self.update_fn, "place", None)
+        if self._place is not None and batch_backend is not None:
+            raise ValueError(
+                "the sharded backend folds a bucket into its rank-resident "
+                f"union itself; batch_backend must be None, got "
+                f"{batch_backend!r}")
         if batch_backend is None:
             # Mesh-aware fold: a sharded backend (repro_torch.dist)
             # advertises its mesh, and the union keeps the rank's slice.
@@ -315,6 +326,10 @@ class BPEngine:
         if not isinstance(graph, (PGM, BatchedPGM)):
             raise TypeError(f"BPEngine runs a PGM or a BatchedPGM, got "
                             f"{type(graph).__name__}")
+        if getattr(graph, "rank_resident", False) and self._place is None:
+            raise ValueError(
+                "a rank-resident graph holds one rank's slice "
+                "(repro_torch.dist); it runs only on the sharded backend")
         dev = graph.device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev != self.device):
@@ -355,6 +370,8 @@ class BPEngine:
         tensor), e.g. to resume a trajectory that the reference package
         started."""
         self._refuse_serial()
+        if self._place is not None:
+            graph = self._place(graph, self.device)
         g = self._check_graph(graph)
         dev = g.device
         batched = isinstance(g, BatchedPGM)
@@ -371,16 +388,18 @@ class BPEngine:
             init_logm = lambda: M.init_messages(g)
             sstate = self.scheduler.init(g)
             rng_state = self._check_generator(rng, dev).get_state().clone()
+        resident = getattr(g, "rank_resident", False)
         if logm is None:
-            logm = init_logm()
+            logm = g.init_messages() if resident else init_logm()
         else:
             if not isinstance(logm, torch.Tensor):
                 logm = torch.tensor(np.asarray(logm))      # a copy
-            logm = logm.to(device=dev, dtype=torch.float32).contiguous()
             shape = lead + (g.n_edges, g.n_states_max)
             if tuple(logm.shape) != shape:
                 raise ValueError(f"logm must be {shape}, got "
                                  f"{tuple(logm.shape)}")
+            logm = (g.local(logm) if resident else logm.to(
+                device=dev, dtype=torch.float32).contiguous())
         hist_len = self.config.max_rounds if self.config.history else 1
         return BPState(
             graph=g, logm=logm, sched_state=sstate, rng=rng_state,
@@ -426,6 +445,9 @@ class BPEngine:
         update = self._update(graph)
         edge_mask = graph.pgm.edge_mask if batched else graph.edge_mask
         eps = cfg.eps
+        # A rank-resident graph's messages are the rank's flat slice
+        # (repro_torch.dist): it commits that slice of the frontier.
+        span = getattr(graph, "span", None)
 
         logm, sstate = state.logm, state.sched_state
         rounds, done, updates = state.rounds, state.done, state.updates
@@ -448,10 +470,12 @@ class BPEngine:
             # Converged -> commit nothing (IsConverged precedes Update).
             newly_done = (unconverged == 0) & active
             frontier = frontier & (active & ~newly_done)[..., None]
-            logm = M.apply_frontier(logm, cand, frontier, cfg.damping)
+            commit = frontier if span is None else \
+                frontier.reshape(-1)[slice(*span)]
+            logm = M.apply_frontier(logm, cand, commit, cfg.damping)
             for _ in range(inner - 1):     # Residual Splash's extra sweeps
                 cand, _ = update(logm)
-                logm = M.apply_frontier(logm, cand, frontier, cfg.damping)
+                logm = M.apply_frontier(logm, cand, commit, cfg.damping)
             updates = updates + frontier.sum(dim=-1) * inner
             if cfg.history:
                 idx = torch.clamp(rounds, max=hist_last).long()[..., None]
@@ -479,15 +503,20 @@ class BPEngine:
                     .all())
 
     def result(self, state: BPState) -> BPResult:
-        """Finalize a state into a ``BPResult`` (computes beliefs)."""
-        g = state.graph
-        if isinstance(g, BatchedPGM):
-            beliefs = M.beliefs(g.folded(), state.logm.reshape(
+        """Finalize a state into a ``BPResult`` (computes beliefs). On a
+        rank-resident state the beliefs come from the chain fold and the
+        messages are gathered whole, so every rank returns the same
+        result."""
+        g, logm = state.graph, state.logm
+        if getattr(g, "rank_resident", False):
+            beliefs, logm = g.beliefs(logm), g.gather(logm)
+        elif isinstance(g, BatchedPGM):
+            beliefs = M.beliefs(g.folded(), logm.reshape(
                 -1, g.n_states_max)).reshape(g.size, g.n_vertices, -1)
         else:
-            beliefs = M.beliefs(g, state.logm)
+            beliefs = M.beliefs(g, logm)
         return BPResult(beliefs=beliefs,
-                        logm=state.logm, rounds=state.rounds,
+                        logm=logm, rounds=state.rounds,
                         updates=state.updates, converged=state.done,
                         max_residual=state.max_residual,
                         unconverged_history=state.unconverged_history,
@@ -503,13 +532,16 @@ class BPEngine:
         on unchanged. (The reference's ``_load_slot``.)"""
         if not state.batched:
             raise TypeError("load_slot needs a bucket's state (BatchedPGM)")
-        batch = state.graph.with_graph(j, graph)
+        if getattr(state.graph, "rank_resident", False):
+            batch, logm = state.graph.with_slot(state.logm, j, graph)
+        else:
+            batch = state.graph.with_graph(j, graph)
+            logm = _put(state.logm, j, M.init_messages(batch.graph(j)))
         elem = batch.graph(j)
         gen = self._check_generator(rng, batch.device)
         sstate = self.scheduler.init(elem)
         return dataclasses.replace(
-            state, graph=batch,
-            logm=_put(state.logm, j, M.init_messages(elem)),
+            state, graph=batch, logm=logm,
             sched_state=(_put(state.sched_state, j, sstate)
                          if isinstance(sstate, torch.Tensor)
                          else state.sched_state),
@@ -555,11 +587,18 @@ class BPEngine:
         base = rng.initial_seed() if isinstance(rng, torch.Generator) \
             else int(rng)
         results: List[BPResult | None] = [None] * len(pgms)
-        for bucket in bucket_pgms(pgms, growth=growth, max_batch=max_batch):
-            gens = [slot_generator(base, i, bucket.batch.device)
-                    for i in bucket.indices]
-            res = self.run(bucket.batch, gens)
-            for j, gi in enumerate(bucket.indices):
+        buckets = bucket_pgms(pgms, growth=growth, max_batch=max_batch)
+        buckets.reverse()
+        while buckets:
+            bucket = buckets.pop()
+            indices, batch = bucket.indices, bucket.batch
+            if self._place is not None:
+                # the whole bucket goes as soon as the rank holds its slice
+                batch = self._place(batch, self.device)
+            del bucket
+            gens = [slot_generator(base, i, self.device) for i in indices]
+            res = self.run(batch, gens)
+            for j, gi in enumerate(indices):
                 results[gi] = BPResult(**{
                     f.name: _row(getattr(res, f.name), j)
                     for f in dataclasses.fields(BPResult)})
@@ -572,10 +611,16 @@ class BPEngine:
         beliefs on ``graph.graph(j)``, every field a copy (a released
         request does not keep the bucket's tensors alive)."""
         row = lambda x: x[j].clone()                         # noqa: E731
-        logm = row(state.logm)
+        g = state.graph
+        if getattr(g, "rank_resident", False):  # collectives, in order
+            logm = g.slot_messages(state.logm, j)
+            beliefs = g.slot_beliefs(state.logm, j)
+        else:
+            logm = row(state.logm)
+            beliefs = M.beliefs(g.graph(j), logm)
         sstate = state.sched_state
         return BPResult(
-            beliefs=M.beliefs(state.graph.graph(j), logm), logm=logm,
+            beliefs=beliefs, logm=logm,
             rounds=row(state.rounds), updates=row(state.updates),
             converged=row(state.done), max_residual=row(state.max_residual),
             unconverged_history=row(state.unconverged_history),

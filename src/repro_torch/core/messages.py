@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.graph import NEG_INF, PGM
 
 __all__ = ["masked_logsumexp", "init_messages", "fold_in_edges",
-           "vertex_logprod",
+           "fold_in_edges_from", "vertex_logprod", "normalize_beliefs",
            "edge_prelude", "propagate_ref", "normalize_and_residual",
            "residuals", "beliefs", "ref_update", "propagate_max",
            "max_product_update", "map_assignment", "apply_frontier"]
@@ -38,10 +38,12 @@ def masked_logsumexp(x: torch.Tensor, mask: torch.Tensor,
     return m.squeeze(dim) + torch.log(torch.clamp(s, min=1e-38))
 
 
-def init_messages(pgm: PGM) -> torch.Tensor:
+def init_messages(pgm: PGM, lo: int = 0, hi: int | None = None
+                  ) -> torch.Tensor:
     """(E, S) uniform messages over the *destination* vertex's valid
-    states, NEG_INF elsewhere."""
-    dst = pgm.edge_dst
+    states, NEG_INF elsewhere; rows ``[lo, hi)`` of them when given (a
+    rank's slice, ``repro_torch.dist``)."""
+    dst = pgm.edge_dst[lo:hi]
     n_dst = pgm.n_states[dst].to(torch.float32)
     return torch.where(pgm.state_mask[dst], -torch.log(n_dst)[:, None],
                        NEG_INF)
@@ -70,6 +72,26 @@ def fold_in_edges(in_edges: torch.Tensor, in_mask: torch.Tensor,
     acc = gathered[:, 0]
     for d in range(1, gathered.shape[1]):
         acc = acc + gathered[:, d]
+    return acc
+
+
+def fold_in_edges_from(acc: torch.Tensor, in_edges: torch.Tensor,
+                       in_mask: torch.Tensor, in_first: torch.Tensor,
+                       logm: torch.Tensor) -> torch.Tensor:
+    """``fold_in_edges`` continued from a running (R, S) table ``acc``:
+    column by column, left to right, each ``in_mask`` entry of the (R, D)
+    table is added to its row, except that an entry flagged ``in_first``
+    (its row's first in-edge in the whole graph) replaces the row, as
+    ``fold_in_edges`` starts from its first column. A rank of the sharded
+    backend runs it on its own edges, continuing the previous rank's table
+    (``repro_torch.dist``), so the chain over the ranks performs exactly
+    ``fold_in_edges``' additions in its order; ``fold_in_edges`` then adds
+    0.0 for each empty column, which only turns -0.0 into 0.0 and is the
+    last rank's to repeat."""
+    for d in range(in_edges.shape[1]):
+        e = logm[in_edges[:, d]]
+        acc = torch.where(in_mask[:, d, None], torch.where(
+            in_first[:, d, None], e, acc + e), acc)
     return acc
 
 
@@ -114,9 +136,16 @@ def residuals(pgm: PGM, logm: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
 def beliefs(pgm: PGM, logm: torch.Tensor) -> torch.Tensor:
     """(V, S) normalized log-marginals (paper Eq. 3), NEG_INF at invalid
     states."""
-    b = pgm.log_psi_v + vertex_logprod(pgm, logm)
-    z = masked_logsumexp(b, pgm.state_mask, dim=1)
-    return torch.where(pgm.state_mask, b - z[:, None], NEG_INF)
+    return normalize_beliefs(pgm.log_psi_v, pgm.state_mask,
+                             vertex_logprod(pgm, logm))
+
+
+def normalize_beliefs(log_psi_v: torch.Tensor, state_mask: torch.Tensor,
+                      vsum: torch.Tensor) -> torch.Tensor:
+    """``beliefs`` from the (V, S) per-vertex message sums ``vsum``."""
+    b = log_psi_v + vsum
+    z = masked_logsumexp(b, state_mask, dim=1)
+    return torch.where(state_mask, b - z[:, None], NEG_INF)
 
 
 def ref_update(pgm: PGM, logm: torch.Tensor):

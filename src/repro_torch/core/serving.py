@@ -306,11 +306,16 @@ def _narrow_state(state: BPState, idx: Sequence[int]) -> BPState:
     idx = [int(i) for i in idx]
     ia = torch.tensor(idx, dtype=torch.int64, device=state.logm.device)
     take = lambda x: x.index_select(0, ia)                    # noqa: E731
+    if getattr(state.graph, "rank_resident", False):
+        # a rank's flat slice: the narrower union splits anew (collective)
+        graph, logm = state.graph.narrow(state.logm, idx)
+    else:
+        graph, logm = state.graph.take(idx), take(state.logm)
     sstate = state.sched_state
     return dataclasses.replace(
         state,
-        graph=state.graph.take(idx),
-        logm=take(state.logm),
+        graph=graph,
+        logm=logm,
         sched_state=take(sstate) if isinstance(sstate, torch.Tensor)
         else sstate,
         rng=tuple(state.rng[i] for i in idx),

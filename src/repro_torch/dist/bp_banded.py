@@ -1,7 +1,7 @@
 """Banded BP: contiguous edge bands + neighbour-only halo exchange.
 
 The port of ``repro.dist.bp_banded``. ``repro_torch.dist`` (the general
-sharded path) gathers the (V, S) vertex table from every rank each round.
+sharded path) passes a (V, S) vertex table along every rank each round.
 For *banded* graphs -- chains, grids, any MRF whose adjacency matrix has
 small bandwidth under its natural vertex order -- a contiguous vertex block
 only ever needs messages from the blocks directly beside it:

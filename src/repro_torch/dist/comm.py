@@ -15,8 +15,11 @@ from nothing else:
   exchange is staged: every update still runs on the card.
 
 No backend is ever swapped for another. Floating-point data is only ever
-gathered, never reduced: a float ``all_reduce`` adds in an order the library
-picks, and the callers combine gathered parts in rank order instead.
+gathered, passed from rank to rank or broadcast, never reduced: a float
+``all_reduce`` adds in an order the library picks, and the callers combine
+parts in rank order instead (``rank_order_sum``, or the sharded BP's chain
+fold, which passes a running table up the ranks with ``send_next``/
+``recv_prev`` and ``broadcast``s the last rank's).
 ``all_reduce_count`` sums integers, which is exact in any order, and
 ``rank_order_sum`` adds gathered float parts in rank order, so every rank of
 the group holds bitwise the same sum.
@@ -55,7 +58,8 @@ import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "transport", "all_gather",
            "all_gather_into", "all_gather_cat", "rank_order_sum", "enter",
-           "all_reduce_count", "exchange"]
+           "all_reduce_count", "exchange", "send_next", "recv_prev",
+           "broadcast"]
 
 #: collective calls and host-staged bytes since the last ``reset_stats``
 STATS: Dict[str, int] = {"collectives": 0, "staged_bytes": 0}
@@ -251,3 +255,34 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     _host_staged(group, [t for _, t in sends], [t for _, t in recvs], op)
+
+
+def send_next(t: torch.Tensor, group) -> None:
+    """Pass ``t`` to the next rank of ``group`` (rank ``r`` to ``r + 1``;
+    nothing on the last rank), which takes it with ``recv_prev``."""
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    if rank + 1 < n:
+        exchange([(rank + 1, t)], [], group)
+
+
+def recv_prev(buf: torch.Tensor, group) -> torch.Tensor:
+    """Fill ``buf`` with what the previous rank of ``group`` passed with
+    ``send_next`` (nothing on rank 0); returns ``buf``."""
+    rank = dist.get_rank(group)
+    if rank > 0:
+        exchange([], [(rank - 1, buf)], group)
+    return buf
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` of rank ``src`` of ``group`` written into ``t`` on every rank,
+    in place; returns ``t``. Host-staged on a gloo group with CUDA tensors:
+    ``src`` stages its tensor out, the others stage theirs in."""
+    root = dist.get_global_rank(group, src)
+    if dist.get_rank(group) == src:
+        _host_staged(group, [t], [], lambda i, o: dist.broadcast(
+            i[0], root, group=group))
+    else:
+        _host_staged(group, [], [t], lambda i, o: dist.broadcast(
+            o[0], root, group=group))
+    return t

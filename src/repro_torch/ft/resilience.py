@@ -105,11 +105,27 @@ class StragglerMonitor:
         return straggler
 
 
+def _whole_logm(state: BPState) -> torch.Tensor:
+    """The state's whole messages (a rank-resident state's gathered: the
+    same checkpoint on every rank)."""
+    if getattr(state.graph, "rank_resident", False):
+        return state.graph.gather(state.logm)
+    return state.logm
+
+
+def _own_logm(state: BPState, logm: torch.Tensor) -> torch.Tensor:
+    """Restored whole messages as the state holds them (a rank-resident
+    state keeps its slice)."""
+    if getattr(state.graph, "rank_resident", False):
+        return state.graph.local(logm)
+    return logm
+
+
 def _state_payload(state: BPState) -> dict:
     """Checkpointable view of a ``BPState`` (the generator's state as its
     ``get_state()`` bytes; the graph itself is not persisted -- the caller
     re-supplies it)."""
-    return {"logm": state.logm, "sstate": state.sched_state,
+    return {"logm": _whole_logm(state), "sstate": state.sched_state,
             "rng": state.rng, "rounds": state.rounds,
             "done": state.done, "updates": state.updates,
             "hist": state.unconverged_history,
@@ -118,7 +134,8 @@ def _state_payload(state: BPState) -> dict:
 
 def _restore_state(state: BPState, payload: dict) -> BPState:
     return dataclasses.replace(
-        state, logm=payload["logm"], sched_state=payload["sstate"],
+        state, logm=_own_logm(state, payload["logm"]),
+        sched_state=payload["sstate"],
         rng=payload["rng"], rounds=payload["rounds"], done=payload["done"],
         updates=payload["updates"],
         unconverged_history=payload["hist"],
@@ -161,9 +178,10 @@ def run_bp_resilient(pgm: PGM, scheduler, rng: torch.Generator, *,
             # crash-recovery path on a format change.
             legacy, extra = restore_pytree(
                 ckpt_dir, step,
-                {"logm": state.logm, "sstate": state.sched_state})
+                {"logm": _whole_logm(state), "sstate": state.sched_state})
             state = dataclasses.replace(
-                state, logm=legacy["logm"], sched_state=legacy["sstate"],
+                state, logm=_own_logm(state, legacy["logm"]),
+                sched_state=legacy["sstate"],
                 rounds=torch.tensor(min(int(extra["rounds"]), max_rounds),
                                     dtype=torch.int32, device=pgm.device))
         base_rounds = int(state.rounds)

@@ -25,10 +25,10 @@ the reference's two names are accepted, so configs interchange.
 function names for the same fold.
 
 - ``"sharded"``: the multi-device update of ``repro_torch.dist`` -- each
-  rank of the ``torch.distributed`` world updates its slice of the edge
-  axis (``fused_update_e`` on the card) and the slices are gathered. It
-  resolves only inside an initialized world; outside one its factory
-  raises a ``RuntimeError`` naming ``init_process_group``.
+  rank of the ``torch.distributed`` world keeps and updates only its slice
+  of the edge axis (``fused_update_e`` on the card) and the residuals are
+  gathered. It resolves only inside an initialized world; outside one its
+  factory raises a ``RuntimeError`` naming ``init_process_group``.
 
 Each name is the reference's, so a ``BPConfig.to_dict()`` from either
 package loads in the other. The reference's ``interpret=`` has no meaning

@@ -371,8 +371,10 @@ def counted_slices(monkeypatch):
 def test_dist_phase_on_cpu(counted_slices, tmp_path):
     """Phase 17 at a tiny size over gloo: (a) the world of one, sharded
     RnBP bitwise the one-device run and banded LBP at n = 1 bitwise its
-    one-device run at the cap; (b) two spawned gloo ranks against
-    one-device runs, their messages bitwise equal."""
+    one-device run at the cap; (b) two spawned gloo ranks bitwise
+    one-device runs, their messages bitwise equal; (c) a bucket of two
+    small stereo frames through ``run_many`` over the ranks, bitwise the
+    one-device ``run_many``, each rank holding about half the bytes."""
     from repro_torch.pgm import ising_grid_fast
     pgm = ising_grid_fast(12, 2.5, seed=0, device="cpu")
     res, _ = cs.run_engine(pgm, CPU, scheduler="rnbp",
@@ -383,15 +385,31 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
     assert one["transport"] == "gloo"
     s, b = one["sharded"], one["banded"]
     assert s["bitwise"] and s["launches"] >= s["rounds"] == int(res.rounds)
-    assert s["collectives"] == 3 * s["launches"] and s["staged_bytes"] == 0
+    # per round the residuals' gather (a world of one has no chain pass
+    # and no broadcast); the result's gather
+    assert s["collectives"] == s["launches"] + 1
+    assert s["staged_bytes"] == 0
     assert s["kernel_check"]["E"] == pgm.n_edges
     assert b["bitwise"] and b["launches"] >= b["rounds"] == 30
     assert s["kernel_check"]["max_abs_err"] == 0.0 == \
         b["kernel_check"]["max_abs_err"]
-    gloo = cs.phase_dist_gloo(CPU, tmp_path / "gloo", n=12, size=2)
+    gloo = cs.phase_dist_gloo(
+        CPU, tmp_path / "gloo", n=12, size=2, bucket=dict(
+            frames=2, scene=dict(height=12, width=16, n_disp=4),
+            max_rounds=200))
     assert gloo["transport"] == "gloo" and gloo["ranks_bitwise_equal"]
     assert gloo["banded"]["bitwise"]
-    assert gloo["lbp"]["max_belief_diff"] <= cs.DIST_TOL
+    for name in ("lbp", "rnbp"):
+        g = gloo[name]
+        assert g["bitwise"] and g["rounds"] == g["one_rounds"] > 1
+        assert g["staged_bytes"] == 0 and g["collectives"] > 2 * g["rounds"]
+    c = gloo["bucket"]
+    assert c["bitwise"] and len(c["ranks"]) == 2
+    assert c["one"]["rounds_each"][0] > 1
+    for r in c["ranks"]:
+        assert 0.45 < r["share"]["tensor"] <= cs.DIST_SHARE
+        assert r["iterations"] >= max(c["one"]["rounds_each"])
+        assert r["n_edges"] == 2 * 768
     assert not (tmp_path / "gloo").exists()
     cs.log_dist(dict(one=one, gloo=gloo, main_ms_per_round=1.0))
     by_path = cs.launches_by_path(

@@ -14,6 +14,12 @@ the results:
   ``tests/test_perf_variants.py::TestBandedBP``, on the same graphs at the
   same eps, within 5e-3 of the reference's one-device beliefs (its own
   sharded and banded paths do not run on the installed jax);
+- the rank-resident sharded path bitwise the port's one-device runs: a
+  ``run`` and a chunked resume for each of the six frontier schedulers,
+  ``run_many``'s slots and ``serve_async``'s records (rounds, messages,
+  beliefs, updates, history); the chain fold bitwise ``vertex_logprod``;
+  each rank's tensor bytes of graph and messages a fraction of one
+  device's;
 - banded LBP bitwise the port's one-device LBP, rounds and messages;
 - every rank's messages bitwise equal;
 - ``partition_banded`` bitwise the reference's arrays, and the error texts
@@ -60,13 +66,97 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
+#: the fields of a ``BPResult`` a sharded run must equal bitwise
+SAME_FIELDS = ("rounds", "logm", "beliefs", "updates", "converged",
+               "max_residual", "unconverged_history")
+
+
+def _same(res, one):
+    """{field: sharded ``res`` bitwise ``one`` in it} (zero signs too)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return {f: torch.equal(bits(getattr(res, f)), bits(getattr(one, f)))
+            for f in SAME_FIELDS}
+
+
 def _record(res, one=None):
     out = dict(rounds=int(res.rounds), converged=bool(res.converged),
                beliefs=res.beliefs, logm=res.logm)
     if one is not None:
         out.update(one_rounds=int(one.rounds), one_beliefs=one.beliefs,
-                   one_logm=one.logm)
+                   one_logm=one.logm, same=_same(res, one))
     return out
+
+
+#: the six frontier schedulers of the bitwise checks (frontiers widened so
+#: the runs take tens of rounds, not hundreds)
+BITWISE = (("lbp", {}), ("rbp", {"p": 1 / 16}), ("rs", {"p": 1 / 16}),
+           ("rnbp", {}), ("rlx", {"p": 1 / 16}), ("rlxtree", {"p": 1 / 16}))
+BITWISE_CHUNK = 11
+
+
+def _checks_bitwise(mesh, out):
+    """A sharded ``run`` and a chunked resume against the port's one-device
+    run, for each frontier scheduler, with the same config and generator."""
+    g = TD.ising_grid(8, 2.0, seed=0, device=CPU)
+    for name, kw in BITWISE:
+        cfg = dict(scheduler_kwargs=kw, eps=1e-4, max_rounds=2000)
+        one = _engine(name, **cfg).run(g, _gen(5))
+        eng = D.make_sharded_engine(name, mesh, device=CPU, **cfg)
+        mono = eng.run(g, _gen(5))
+        state = eng.init(g, _gen(5))
+        while not eng.finished(state):
+            state = eng.step(state, chunk_rounds=BITWISE_CHUNK)
+        out[f"bitwise/{name}"] = dict(
+            rounds=int(mono.rounds), one_rounds=int(one.rounds),
+            slice_rows=int(state.logm.shape[0]), n_edges=g.n_edges,
+            run=_same(mono, one), chunked=_same(eng.result(state), one))
+
+
+def _padded(g, n):
+    """``g`` re-padded so its edges split into even slices over ``n``."""
+    from repro_torch.core.graph import pad_pgm
+    need = -(-g.n_edges // (2 * n)) * (2 * n)
+    return g if need == g.n_edges else pad_pgm(
+        g, n_edges=need, n_vertices=g.n_vertices, n_states=g.n_states_max)
+
+
+def _checks_resident(mesh, world, out):
+    """The chain fold against ``vertex_logprod`` on irregular in-degrees
+    (some messages -0.0), and what a rank holds of an S = 16 stereo graph
+    and of a bucket of two, against one device."""
+    from repro_torch.core import BatchedPGM
+    from repro_torch.core import messages as M
+    g = _padded(TD.protein_like_graph(60, seed=0, device=CPU), world)
+    logm = torch.randn((g.n_edges, g.n_states_max), generator=_gen(1))
+    logm[::7] = -0.0
+    sp = D.shard_pgm(g, mesh)
+    whole = M.vertex_logprod(g, logm)
+    got = sp.vertex_sums(sp.local(logm))
+    part = sp.vertex_sums(sp.local(logm), (5, 23))
+    bits = lambda t: t.view(torch.int32)                    # noqa: E731
+    out["fold"] = dict(
+        bitwise=torch.equal(bits(got), bits(whole)),
+        rows_bitwise=torch.equal(bits(part), bits(whole[5:23])),
+        beliefs=torch.equal(sp.beliefs(sp.local(logm)), M.beliefs(g, logm)),
+        gather=torch.equal(sp.gather(sp.local(logm)), logm))
+    frames = [TD.stereo_mrf(24, 32, 16, seed=i, device=CPU).pgm
+              for i in range(2)]
+    cases = dict(graph=_padded(frames[0], world),
+                 bucket=BatchedPGM.from_pgms(frames))
+    for name, graph in cases.items():
+        one = _engine("lbp").init(graph, _gen(0))
+        state = D.make_sharded_engine("lbp", mesh, device=CPU).init(
+            graph, _gen(0))
+        u = state.graph.folded() if name == "bucket" else state.graph
+        out[f"bytes/{name}"] = dict(
+            rank=D.tensor_bytes(state.graph, state.logm),
+            one=D.tensor_bytes(one.graph, one.logm),
+            rows=dict(logm=state.logm.shape[0],
+                      log_psi_e=u.log_psi_e.shape[0],
+                      dst_mask=u.dst_mask.shape[0],
+                      edge_rev=u.edge_rev.shape[0]),
+            n_edges=u.n_edges)
 
 
 def _checks_sharded(mesh, world, out):
@@ -115,6 +205,31 @@ def _checks_resume(mesh, out):
         and torch.equal(mono.beliefs, chunked.beliefs))
 
 
+def _checks_resilient(mesh, ckpt_dir, out):
+    """``run_bp_resilient`` on the sharded backend: checkpoints hold the
+    whole messages, and a run resumed from a mid-run checkpoint (this
+    rank's directory) ends bitwise where the one-device run does."""
+    import os
+    import shutil
+    from repro_torch.ft import run_bp_resilient
+    g = TD.ising_grid(8, 2.0, seed=0, device=CPU)
+    kw = dict(eps=1e-4, max_rounds=400, rounds_per_chunk=5, device=CPU,
+              ckpt_dir=ckpt_dir, backend=D.make_sharded_update(mesh))
+    one = _engine("rnbp", eps=1e-4, max_rounds=400).run(g, _gen(9))
+    full = run_bp_resilient(g, "rnbp", _gen(9), **kw)
+    steps = sorted(int(n.split("_")[1]) for n in os.listdir(ckpt_dir))
+    mid = steps[len(steps) // 2]
+    for step in steps:
+        if step > mid:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{step:09d}"))
+    resumed = run_bp_resilient(g, "rnbp", _gen(99), **kw)
+    out["resilient"] = dict(
+        mid=mid, rounds=int(one.rounds), resumed_rounds=int(resumed.rounds),
+        full=all(_same(full, one).values()),
+        resumed=torch.equal(resumed.logm, one.logm)
+        and torch.equal(resumed.beliefs, one.beliefs))
+
+
 def _checks_buckets(mesh, out):
     """Twins of the bucket-fold and async-serving tests; the registry
     path; the refusals of timing-driven serving."""
@@ -141,6 +256,15 @@ def _checks_buckets(mesh, out):
         compactions=rep.stats.compactions, evacuated=rep.stats.evacuated,
         n=len(stream), results=[_record(r, o) for r, o in
                                 zip(rep.results, rep1.results)])
+    # one resident bucket of three: backfills into slots whose rows
+    # straddle ranks, then a compaction
+    kw = dict(max_batch=3, chunk_rounds=16, compact=True, slots=1)
+    rep = serve_async(sharded, stream, 0, **kw)
+    rep1 = serve_async(_engine("lbp", eps=1e-5, max_rounds=192), stream, 0,
+                       **kw)
+    out["serve_backfill"] = dict(
+        compactions=rep.stats.compactions, backfilled=rep.stats.backfilled,
+        same=[_same(r, o) for r, o in zip(rep.results, rep1.results)])
 
     refused = []
     for kwargs in (dict(admission="windowed"), dict(admission="deadline"),
@@ -212,6 +336,9 @@ def _rank_main(rank, world, out_dir, part):
             _checks_sharded(mesh, world, out)
             _checks_resume(mesh, out)
             _checks_buckets(mesh, out)
+            _checks_bitwise(mesh, out)
+            _checks_resident(mesh, world, out)
+            _checks_resilient(mesh, f"{out_dir}/ckpt{rank}", out)
         else:
             _checks_banded(mesh, world, out)
         em = ElasticMesh(model_parallel=4 if world == 2 else 3, device=CPU)
@@ -353,6 +480,84 @@ def test_sharded_registry_name_resolves_inside_a_world(worlds, world):
                                    backend="sharded").to_dict()
     assert f"does not split into even shards over {world} devices" in \
         worlds[world][0]["odd_axis"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", [name for name, _ in BITWISE])
+def test_sharded_run_is_bitwise_one_device(worlds, world, name):
+    """Every rank keeps only its slice, and the run is the port's
+    one-device run bit for bit: rounds, messages, beliefs, updates,
+    history."""
+    r = worlds[world][0][f"bitwise/{name}"]
+    assert r["slice_rows"] * world == r["n_edges"]
+    assert r["rounds"] == r["one_rounds"] > 1
+    assert all(r["run"].values()), r["run"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", [name for name, _ in BITWISE])
+def test_sharded_chunked_resume_is_bitwise_one_device(worlds, world, name):
+    r = worlds[world][0][f"bitwise/{name}"]
+    assert r["rounds"] > BITWISE_CHUNK
+    assert all(r["chunked"].values()), r["chunked"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["lbp", "rnbp"])
+def test_sharded_paper_grid_is_bitwise_one_device(worlds, world, name):
+    """The 16 x 16 grid at eps = 1e-6 of the reference's twin test."""
+    r = worlds[world][0][f"sharded/{name}"]
+    assert all(r["same"].values()), r["same"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_run_many_slots_are_bitwise_one_device(worlds, world):
+    for r in worlds[world][0]["run_many"]:
+        assert all(r["same"].values()), r["same"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_serve_async_records_are_bitwise_one_device(worlds, world):
+    """Through admission, evacuation, backfill into a slot whose rows may
+    straddle ranks, and a compaction that splits the narrower union
+    anew."""
+    s = worlds[world][0]["serve"]
+    for r in s["results"]:
+        assert all(r["same"].values()), r["same"]
+    s = worlds[world][0]["serve_backfill"]
+    assert s["compactions"] >= 1 and s["backfilled"] >= 1
+    for same in s["same"]:
+        assert all(same.values()), same
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_resilient_run_resumes_bitwise(worlds, world):
+    r = worlds[world][0]["resilient"]
+    assert r["full"] and r["resumed"] and 0 < r["mid"] < r["rounds"]
+    assert r["resumed_rounds"] == r["rounds"] - r["mid"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_chain_fold_is_vertex_logprod_bitwise(worlds, world):
+    f = worlds[world][0]["fold"]
+    assert f["bitwise"] and f["rows_bitwise"]
+    assert f["beliefs"] and f["gather"]
+
+
+#: a rank's bytes of graph and messages over one device's, at most
+SHARE = {2: 0.6, 4: 0.35}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", ["graph", "bucket"])
+def test_rank_holds_its_slice_of_graph_and_messages(worlds, world, case):
+    """An S = 16 stereo graph (and a bucket of two): messages, pairwise
+    tables, destination masks and reverse indices are the rank's E/n rows,
+    and a rank's tensor bytes are ~1/n of one device's."""
+    for r in worlds[world]:
+        b = r[f"bytes/{case}"]
+        assert set(b["rows"].values()) == {b["n_edges"] // world}
+        assert b["rank"] <= SHARE[world] * b["one"], b
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -514,10 +719,18 @@ def test_folded_bucket_checks_the_mesh_split():
         mesh_dim_names=("bp",), size=lambda dim=0: 2,
         get_local_rank=lambda axis: 1, get_group=lambda axis: None)
     union = batch.folded(plan_mesh)
-    assert union is batch.folded()
-    plan = D._plan(union, 2, 1)
-    assert (plan.lo, plan.hi) == (128, 256)
-    assert int(plan.in_edges[plan.in_mask].min()) >= 128
+    assert union is batch.folded(plan_mesh)
+    whole = batch.folded()
+    plan = union.plan
+    assert (plan.lo, plan.hi) == union.span == (128, 256)
+    assert torch.equal(union.log_psi_e, whole.log_psi_e[128:])
+    assert torch.equal(union.edge_rev + 128, whole.edge_rev[128:])
+    assert torch.equal(union.edge_src, whole.edge_src)
+    ids = plan.in_edges[plan.in_mask]
+    assert int(ids.min()) >= 0 and int(ids.max()) < 128
+    assert bool((whole.edge_dst[ids.long() + 128] ==
+                 plan.rows[:, None].expand_as(plan.in_mask)[
+                     plan.in_mask]).all())
 
 
 def test_make_bp_mesh_needs_a_process_group():
@@ -533,12 +746,73 @@ def test_make_bp_mesh_needs_a_process_group():
 
 
 def test_rank_order_sum_adds_left_to_right():
-    """The cross-rank vertex sum adds rank 0's table, then rank 1's, ...:
-    in float32 (1e8 + 1) - 1e8 is 0, the other order gives 1."""
-    parts = [torch.tensor([1e8]), torch.tensor([1.0]), torch.tensor([-1e8])]
-    assert float(D.rank_order_sum(parts)) == 0.0
-    assert float(D.rank_order_sum(parts[::-1])) == 0.0
-    assert float(D.rank_order_sum([parts[0], parts[2], parts[1]])) == 1.0
+    """The cross-rank vertex sum is a chain: rank 0 folds its in-edges,
+    rank 1 continues from its table, ... -- the one-device fold's order. A
+    vertex whose in-edges 1e8, 1, -1e8 split as [1e8] | [1, -1e8] sums to
+    (1e8 + 1) - 1e8 = 0 in float32 as one device does; the order 1e8,
+    -1e8, 1 would give 1."""
+    from repro_torch.core import messages as M
+    vals = torch.tensor([[1e8], [1.0], [-1e8]])
+    one = M.fold_in_edges(torch.tensor([[0, 1, 2]]),
+                          torch.ones((1, 3), dtype=torch.bool), vals)
+    true = torch.ones((1, 1), dtype=torch.bool)
+    acc = M.fold_in_edges_from(torch.zeros((1, 1)), torch.tensor([[0]]),
+                               true, true, vals[:1])           # rank 0
+    acc = M.fold_in_edges_from(acc, torch.tensor([[0, 1]]),
+                               torch.ones((1, 2), dtype=torch.bool),
+                               torch.zeros((1, 2), dtype=torch.bool),
+                               vals[1:])                        # rank 1
+    assert float(one) == float(acc) == 0.0
+    other = M.fold_in_edges(torch.tensor([[0, 2, 1]]),
+                            torch.ones((1, 3), dtype=torch.bool), vals)
+    assert float(other) == 1.0
+    # a vertex whose first in-edge sits on a later rank starts from it
+    neg = torch.tensor([[-0.0]])
+    started = M.fold_in_edges_from(torch.zeros((1, 1)), torch.tensor([[0]]),
+                                   true, true, neg)
+    assert torch.equal(started.view(torch.int32), neg.view(torch.int32))
+
+
+def _fake_mesh(n, rank):
+    return types.SimpleNamespace(
+        mesh_dim_names=("bp",), size=lambda dim=0: n,
+        get_local_rank=lambda axis: rank, get_group=lambda axis: None)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_every_rank_slice_of_a_stereo_graph(n):
+    """Placement alone (no world): the ranks' slices tile the pairwise
+    tables and reverse indices exactly, each rank's plan names exactly its
+    real edges, and a rank holds ~1/n of one device's bytes."""
+    from repro_torch.core import messages as M
+    g = _padded(TD.stereo_mrf(24, 32, 16, seed=0, device=CPU).pgm, n)
+    one = D.tensor_bytes(g, M.init_messages(g))
+    parts = [D.shard_pgm(g, _fake_mesh(n, r)) for r in range(n)]
+    assert torch.equal(torch.cat([p.log_psi_e for p in parts]), g.log_psi_e)
+    assert torch.equal(torch.cat([p.edge_rev + p.span[0] for p in parts]),
+                       g.edge_rev)
+    assert torch.equal(torch.cat([p.init_messages() for p in parts]),
+                       M.init_messages(g))
+    assert sum(int(p.plan.in_mask.sum()) for p in parts) == \
+        int(g.edge_mask.sum())
+    for p in parts:
+        assert D.tensor_bytes(p, p.init_messages()) <= SHARE[n] * one
+
+
+def test_rank_resident_graph_needs_the_sharded_backend():
+    from repro_torch.core import BPEngine
+    g = TD.ising_grid(3, 2.0, seed=0, device=CPU)
+    sp = D.shard_pgm(g, _fake_mesh(2, 0))
+    with pytest.raises(ValueError, match="rank-resident"):
+        BPEngine(BPConfig(), device=CPU).run(sp, _gen(0))
+    update = D.make_sharded_update(_fake_mesh(2, 0))
+    with pytest.raises(ValueError, match="batch_backend must be None"):
+        BPEngine(BPConfig(backend=update, batch_backend="triton"),
+                 device=CPU)
+    with pytest.raises(ValueError, match="rank-resident graph"):
+        update(g, torch.zeros((g.n_edges, g.n_states_max)))
+    with pytest.raises(ValueError, match="rank 1 of 2's slice"):
+        D.shard_pgm(D.shard_pgm(g, _fake_mesh(2, 1)), _fake_mesh(2, 0))
 
 
 def test_host_staging_round_trips_through_the_host(tmp_path, monkeypatch):
@@ -565,5 +839,30 @@ def test_host_staging_round_trips_through_the_host(tmp_path, monkeypatch):
         assert int(D.comm.all_reduce_count(c, group)) == 5
         assert D.comm.STATS == {"collectives": 3,
                                 "staged_bytes": 4 * 24 + 2 * 8}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_chain_pass_and_broadcast_in_a_world_of_one(tmp_path, monkeypatch):
+    """``send_next``/``recv_prev`` have no peer in a world of one; the
+    ``broadcast`` from rank 0 stages its tensor out through the host once,
+    and is counted."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        group = D.mesh_axis(D.make_bp_mesh(device=CPU))[2]
+        monkeypatch.setattr(D.comm, "transport",
+                            lambda g, d: "gloo, host-staged")
+        D.comm.reset_stats()
+        x = torch.arange(6.0).reshape(3, 2)
+        D.comm.send_next(x, group)
+        buf = torch.full((3, 2), 7.0)
+        assert D.comm.recv_prev(buf, group) is buf
+        assert torch.equal(buf, torch.full((3, 2), 7.0))
+        assert D.comm.broadcast(x, 0, group) is x
+        assert torch.equal(x, torch.arange(6.0).reshape(3, 2))
+        assert D.comm.STATS == {"collectives": 1, "staged_bytes": 24}
     finally:
         dist.destroy_process_group()
