@@ -108,7 +108,22 @@ main paths and its serving path at full size and measures them:
   per rank, the eval loss falling); then Hymba-1.5B's, DeepSeek-V3's (MLA,
   MTP) and Whisper-medium's published widths at two layers in float32:
   prefill over 256 tokens, 16 decode steps and step 0's gradients within
-  1e-4 of one device, ranks bitwise (phase 22).
+  1e-4 of one device, ranks bitwise (phase 22);
+- serving over sub-meshes (``repro_torch.dist.make_bp_mesh(ranks=...)``,
+  the sharded pipeline's leader deciding for its group, the router's
+  front and remote leaders): four gloo ranks sharing the card in two
+  sub-meshes of two, phase 14's stream cut to four Tsukuba frames and
+  ``zoo_stream(12)`` at its config on ``"sharded"``. Rank 0 first serves
+  it on one device through ``"triton"`` as the yardstick; (a)
+  ``serve_async`` on one sub-mesh under ``windowed`` admission on the wall
+  clock with two ingest threads, both ranks' records the same and bitwise
+  the yardstick's, two decision broadcasts a cycle; (b) ``serve_routed``
+  over both: round robin bitwise the yardstick, each share bitwise its
+  solo sharded run, and ``least_loaded`` with stealing on phase 15's
+  skewed stream (a steal at least) bitwise a one-device run; requests/s,
+  latency, collectives, staged bytes, decisions per cycle and each rank's
+  peak; ``fused_update_e`` against its plain version on every served
+  slice shape (phase 23).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -122,7 +137,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the twelve paths (``launches_by_path``), its largest
+  and on each of the thirteen paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -312,6 +327,18 @@ LM_BLOCKS_WIDE = dict(layers=2, b=2, s=256, steps=16)
 LM_BLOCKS_RANKS = 2
 LM_BLOCKS_TIMEOUT_S = 600
 LM_METRIC_TOL = 1e-5                 # train metrics against one device
+# Serving over sub-meshes (phase 23): four gloo ranks sharing the card, two
+# sub-meshes of two; phase 14's stream cut to its first frames and a
+# shorter zoo stream, at phase 14's config on "sharded". Two zoo graphs
+# after each frame put the frames at rids 0, 3, 6, 9, so round robin sends
+# frames to both replicas.
+SUB_RANKS, SUB_MESHES = 4, ((0, 1), (2, 3))
+SUB_FRAMES, SUB_ZOO = 4, 8
+SUB_TIMEOUT_S = 240                  # process groups and the spawned world
+# Phase 15's skewed stream with more fast grids: least_loaded splits it
+# evenly, so the replica pinned by the straggler keeps a backlog in its
+# inbox after the other drains its share -- and a steal.
+SUB_SKEW_FAST = 62
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -1127,7 +1154,7 @@ def watch_pipeline(engine, capture=False, timed=False):
             out = fn(*args, **kw)
             w["seconds"][name] += time.perf_counter() - t0
             if name == "backfill":
-                _, slot, j = args
+                _, _, slot, j = args
                 w["backfilled"].append(slot.live[j])
             return out
         return wrapper
@@ -4877,8 +4904,445 @@ def log_lm_blocks(out) -> None:
         + f" s on rank 0); kernel launches on the path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 23 --
+
+def sub_config(max_rounds):
+    """Phase 14's config minus the backend: RnBP at eps 1e-3."""
+    return dict(scheduler_kwargs=MAIN_KW, eps=1e-3, max_rounds=max_rounds)
+
+
+def skew_stream(device, fast_n):
+    """Phase 15's skewed stream (``skew_run``): the straggler, then the
+    fast grid ``fast_n + 1`` times, built on ``device``."""
+    from repro_torch.pgm import ising_grid
+    fast = ising_grid(6, 1.5, seed=0, device=device)
+    return [ising_grid(6, 3.5, seed=100, device=device), fast] + \
+        [fast] * fast_n
+
+
+def record_rows(records):
+    """Per record: rid, status, rounds, the digests of its result, latency
+    and the replica (routed records)."""
+    rows = []
+    for r in records:
+        rec = getattr(r, "record", r)
+        rows.append(dict(rid=rec.rid, status=rec.status,
+                         rounds=int(rec.result.rounds),
+                         digests=result_digests(rec.result),
+                         latency_s=r.latency_s,
+                         replica=getattr(r, "replica", None),
+                         stolen=getattr(r, "stolen", False)))
+    return rows
+
+
+def watch_submesh():
+    """Hooks on the sub-mesh runs; call the returned ``undo`` after. The
+    operands of the last ``slice_update`` call per shape (``captured``;
+    ``stash()`` moves them to the host, so that they do not stay on the
+    card through later runs), the stepped cycles (``cycles``:
+    ``ServingPipeline._step`` calls) and, on a leader in another process
+    than the front, the records it sent there (``sent``: count, the
+    tensors' bytes, host ms of the copy off the card, the pickle and the
+    send)."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.core.serving import ServingPipeline as P
+    from repro_torch.serve.replica import _FrontLink as L
+    w = dict(captured={}, cycles=0,
+             sent=dict(records=0, tensor_bytes=0, ms=0.0))
+    saved_slice, saved_step, saved_emit = D.slice_update, P._step, L.emit
+
+    def captured(*args):
+        w["captured"][tuple(args[2].shape)] = args
+        return saved_slice(*args)
+
+    def stepped(self, resident):
+        w["cycles"] += 1
+        return saved_step(self, resident)
+
+    def emitted(self, rec):
+        t0 = time.perf_counter()
+        saved_emit(self, rec)
+        sent = w["sent"]
+        sent["ms"] += (time.perf_counter() - t0) * 1e3
+        sent["records"] += 1
+        res = rec.record.result
+        sent["tensor_bytes"] += sum(
+            getattr(res, f.name).nbytes for f in dataclasses.fields(res)
+            if isinstance(getattr(res, f.name), torch.Tensor))
+
+    def stash():
+        w["captured"] = {k: tuple(a.cpu() if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+                         for k, args in w["captured"].items()}
+    w["stash"] = stash
+    D.slice_update, P._step, L.emit = captured, stepped, emitted
+
+    def undo():
+        D.slice_update, P._step, L.emit = saved_slice, saved_step, saved_emit
+    return w, undo
+
+
+def _submesh_run(name, fn, device, watch, out):
+    """Run ``fn()`` -- one serving run of this rank -- with the launch
+    counts, the comm counters, the cycle count, the records sent to the
+    front and the card's peak memory reset just before and read just
+    after: ``out[name]`` gets its rows and numbers. The captured kernel
+    operands go to the host after it."""
+    import numpy as np
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.kernels import triton_update as TT
+    cuda = device.type == "cuda"
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    TT.reset_launch_counts()
+    D.comm.reset_stats()
+    watch["cycles"] = 0
+    watch["sent"] = dict(records=0, tensor_bytes=0, ms=0.0)
+    t0 = time.perf_counter()
+    rep = fn()
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    watch["stash"]()
+    st = D.comm.STATS
+    cycles = watch["cycles"]
+    recs = rep.records
+    out[name] = dict(
+        rows=record_rows(recs), wall_s=wall, cycles=cycles,
+        requests_per_s=len(recs) / wall if recs else 0.0,
+        launches=TT.LAUNCHES["sum"], collectives=st["collectives"],
+        staged_bytes=st["staged_bytes"], decisions=st["decisions"],
+        decision_bytes=st["decision_bytes"], decision_ms=st["decision_ms"],
+        # two a stepped cycle, and one at the end
+        decisions_per_cycle=(st["decisions"] - 1) / max(cycles, 1)
+        if st["decisions"] else 0.0,
+        ms_per_cycle=wall * 1e3 / max(cycles, 1), peak_memory_bytes=peak,
+        sent_to_front=dict(watch["sent"]))
+    stats = getattr(rep, "stats", None)
+    if hasattr(stats, "steals"):
+        out[name].update(routed=list(stats.routed), steals=stats.steals,
+                         stolen=stats.stolen)
+    if recs:
+        lat = np.array([r.latency_s for r in recs]) * 1e3
+        out[name]["latency_ms"] = {"p50": float(np.percentile(lat, 50)),
+                                   "p99": float(np.percentile(lat, 99))}
+    return rep
+
+
+def _submesh_rank(rank, size, out_dir, device_type, job):
+    """One rank of phase 23, in its own process: the sub-meshes of
+    ``job["meshes"]`` over a gloo world of ``size``, every tensor on
+    ``device_type``. Rank 0 first runs the one-device ``"triton"``
+    yardsticks; then (a) ``serve_async`` on the first sub-mesh (windowed
+    admission on the wall clock, two ingest threads), (b) round robin
+    through ``serve_routed`` over both, each sub-mesh's share alone, and
+    ``least_loaded`` with stealing on the skewed stream. Then
+    ``fused_update_e`` against its plain version on the last captured
+    slice of each shape. Writes ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch import dist as D
+    from repro_torch.core import BPConfig, BPEngine, serve_async
+    from repro_torch.pgm import stereo_mrf
+    from repro_torch.serve import serve_routed
+    device = torch.device(device_type)
+    cuda = device.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    host = torch.device("cpu")
+    scene, frames, zoo_n = job["scene"], job["frames"], job["zoo_n"]
+    cfg = sub_config(job["max_rounds"])
+    skew_cfg = dict(eps=SKEW_EPS, max_rounds=SKEW_ROUNDS, history=False)
+    out = dict(rank=rank)
+    t_start = time.perf_counter()
+    with world("gloo", Path(out_dir) / "store", size, rank):
+        meshes = [D.make_bp_mesh(ranks=r, device=device)
+                  for r in job["meshes"]]
+        k = next(i for i, m in enumerate(meshes) if m.member)
+        out.update(replica=k, leader=meshes[k].ranks[0] == rank,
+                   transport=D.comm.transport(meshes[k].group, device))
+        scenes = [stereo_mrf(scene["height"], scene["width"],
+                             scene["n_disp"], seed=s, device=host).pgm
+                  for s in range(frames)]
+        out["setup_s"] = time.perf_counter() - t_start
+
+        def stream():
+            return serving_stream(scenes, zoo_n, host)
+
+        def skewed():
+            items = skew_stream(device, job["skew_fast"])
+
+            def held():
+                yield from items
+                time.sleep(job["skew_hold"])
+            return held()
+        if rank == 0:       # the yardsticks, on one device
+            t0 = time.perf_counter()
+            one = BPEngine(BPConfig(scheduler="rnbp", backend=(
+                "triton" if cuda else "ref"),
+                batch_backend="triton" if cuda else None, **cfg),
+                device=device)
+            rep = serve_async(one, stream(), 0, **SERVE_KW)
+            out["yardstick"] = record_rows(rep.records)
+            one = BPEngine(BPConfig(scheduler="lbp", backend=(
+                "triton" if cuda else "ref"), **skew_cfg), device=device)
+            rep = serve_async(one, iter(skew_stream(device,
+                                                    job["skew_fast"])),
+                              0, max_batch=2, chunk_rounds=16)
+            out["skew_yardstick"] = record_rows(rep.records)
+            out["yardstick_s"] = time.perf_counter() - t0
+            del one, rep
+        engines = [D.make_sharded_engine("rnbp", m, device=device, **cfg)
+                   for m in meshes]
+        watch, undo = watch_submesh()
+        try:
+            # every run starts on every rank together (its timers too)
+            dist.barrier()
+            if k == 0:      # (a) one sub-mesh, wall-clock decisions
+                _submesh_run("a", lambda: serve_async(
+                    engines[0], stream(), 0, admission="windowed",
+                    **SERVE_KW), device, watch, out)
+            dist.barrier()
+            _submesh_run("rr", lambda: serve_routed(
+                engines, stream(), 0, routing="round_robin", steal=False,
+                **ROUTER_KW), device, watch, out)
+            share = [it for it in enumerate(stream()) if it[0] % 2 == k]
+            dist.barrier()
+            _submesh_run("solo", lambda: serve_async(
+                engines[k], iter(share), 0, **ROUTER_KW), device, watch,
+                out)
+            del share
+            skew_engines = [D.make_sharded_engine("lbp", m, device=device,
+                                                  **skew_cfg)
+                            for m in meshes]
+            dist.barrier()
+            _submesh_run("ll", lambda: serve_routed(
+                skew_engines, skewed(), 0, routing="least_loaded",
+                steal=True, **SKEW_KW), device, watch, out)
+        finally:
+            undo()
+        out["kernel_check"] = [
+            check_slice(tuple(a.to(device) if isinstance(a, torch.Tensor)
+                              else a for a in args))
+            for _, args in sorted(watch["captured"].items())]
+        out["seconds"] = time.perf_counter() - t_start
+        dist.barrier()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def check_submesh(ranks, meshes, n, n_skew, stereo, cuda):
+    """Phase 23's checks on the ranks' reports (see ``phase_submesh``;
+    ``stereo``: the frames' rids); raises on the first that fails."""
+    def rows_by_rid(rows):
+        return {r["rid"]: r for r in rows}
+    yard = rows_by_rid(ranks[0]["yardstick"])
+    skew_yard = rows_by_rid(ranks[0]["skew_yardstick"])
+
+    def bitwise(label, rows, want, skip_evicted=False):
+        for r in rows:
+            if skip_evicted and r["status"] == "evicted":
+                continue
+            if r["digests"] != want[r["rid"]]["digests"]:
+                raise AssertionError(f"phase 23 {label}: request {r['rid']} "
+                                     "differs from the one-device run")
+
+    group = [ranks[i] for i in meshes[0]]
+    a = [r["a"] for r in group]
+    key = [(x["rid"], x["status"], x["rounds"]) for x in a[0]["rows"]]
+    if sorted(x[0] for x in key) != list(range(n)):
+        raise AssertionError(f"(a) released {sorted(x[0] for x in key)}")
+    for other in a[1:]:
+        if [(x["rid"], x["status"], x["rounds"])
+                for x in other["rows"]] != key or \
+                [x["digests"] for x in other["rows"]] != \
+                [x["digests"] for x in a[0]["rows"]]:
+            raise AssertionError("(a) the ranks of the sub-mesh yielded "
+                                 "different records")
+        if other["cycles"] != a[0]["cycles"]:
+            raise AssertionError("(a) the ranks stepped different cycles")
+    bitwise("(a)", a[0]["rows"], yard)
+    for r in a:
+        if r["decisions"] != 2 * r["cycles"] + 1:
+            raise AssertionError(f"(a) {r['decisions']} decision broadcasts "
+                                 f"over {r['cycles']} cycles")
+    front = ranks[0]["rr"]
+    if sorted(r["rid"] for r in front["rows"]) != list(range(n)):
+        raise AssertionError("(b) round robin: not every rid released once")
+    if front["routed"] != [n - n // 2, n // 2] or front["steals"]:
+        raise AssertionError(f"(b) round robin routed {front['routed']}, "
+                             f"{front['steals']} steals")
+    bitwise("(b) round robin", front["rows"], yard)
+    by_rid = rows_by_rid(front["rows"])
+    served = {by_rid[rid]["replica"] for rid in stereo}
+    if served != set(range(len(meshes))):
+        raise AssertionError(f"(b) round robin: stereo frames {stereo} went "
+                             f"to replicas {sorted(served)} only")
+    for k, group in enumerate(meshes):
+        mine = sorted(r["rid"] for r in front["rows"] if r["replica"] == k)
+        for i in group:
+            rows = ranks[i]["rr"]["rows"]
+            if i and sorted(r["rid"] for r in rows) != mine:
+                raise AssertionError(f"(b) rank {i} holds records of other "
+                                     "replicas")   # the front holds all
+            bitwise(f"(b) rank {i}", rows, by_rid)
+            solo = ranks[i]["solo"]["rows"]
+            if sorted(r["rid"] for r in solo) != list(range(k, n, 2)):
+                raise AssertionError(f"(b) rank {i}'s solo share")
+            bitwise(f"(b) share {k} solo", solo, by_rid)
+    ll = ranks[0]["ll"]
+    if sorted(r["rid"] for r in ll["rows"]) != list(range(n_skew)):
+        raise AssertionError("(b) least_loaded: not every rid released once")
+    if ll["steals"] < 1:
+        raise AssertionError("(b) least_loaded with stealing: no steal")
+    bitwise("(b) least_loaded", ll["rows"], skew_yard)
+    worst = 0.0
+    for r in ranks:
+        for name in ("rr", "solo", "ll") + (("a",) if "a" in r else ()):
+            if cuda and r[name]["launches"] < 1:
+                raise AssertionError(f"phase 23 rank {r['rank']} {name}: no "
+                                     "fused_update_e launch")
+        for row in r["kernel_check"]:
+            worst = max(worst, row["max_abs_err"])
+    if not worst <= SUM_TOL:
+        raise AssertionError(f"phase 23: fused_update_e vs plain {worst}")
+    return worst
+
+
+def phase_submesh(device, out_dir, frames=SUB_FRAMES, scene=STEREO,
+                  zoo_n=SUB_ZOO, max_rounds=STEREO_ROUNDS,
+                  skew_fast=SUB_SKEW_FAST, skew_hold=SKEW_HOLD_S,
+                  size=SUB_RANKS, meshes=SUB_MESHES,
+                  timeout_s=SUB_TIMEOUT_S):
+    """Phase 23: serving over sub-meshes. ``size`` gloo ranks in spawned
+    processes sharing ``device``, split into ``meshes``; the stream is
+    phase 14's cut to ``frames`` stereo frames and ``zoo_stream(zoo_n)``,
+    at phase 14's config on ``"sharded"`` (``fused_update_e`` on each
+    rank's slice). Rank 0 first runs the stream on one device through
+    ``"triton"`` as the yardstick, as phase 17 (c) does. (a)
+    ``serve_async`` on the first sub-mesh under ``windowed`` admission on
+    the wall clock with two ingest threads: both ranks yield the same
+    records, every one bitwise the yardstick's, two decision broadcasts a
+    cycle and one at the end. (b) ``serve_routed`` over the sub-meshes:
+    round robin without stealing, stereo frames on every replica, every
+    record bitwise the yardstick's and each share bitwise its sub-mesh's
+    solo ``serve_async``; then
+    ``least_loaded`` with stealing on phase 15's skewed stream, at least
+    one steal, every result bitwise a one-device ``"triton"`` run rank 0
+    makes beside the yardstick (the skewed stream with ``skew_fast`` fast
+    grids, ``SUB_SKEW_FAST``). ``fused_update_e`` against its plain
+    version on one captured slice of each shape every rank served. Reports
+    requests/s, latency p50/p99, steals, collectives, staged bytes,
+    decision broadcasts per cycle and their host ms, each rank's peak
+    memory in each run, the records a remote leader sent to the front
+    with their cost, and the kernel's launches."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    cuda = device.type == "cuda"
+    out_dir = Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    job = dict(meshes=meshes, scene=scene, frames=frames, zoo_n=zoo_n,
+               max_rounds=max_rounds, skew_fast=skew_fast,
+               skew_hold=skew_hold)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_submesh_rank, args=(size, str(out_dir),
+                                                  device.type, job),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=0.5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 23's world did not finish in "
+                                 f"{timeout_s} s")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt") for r in range(size)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n, n_skew = frames + zoo_n, skew_fast + 2
+    worst = check_submesh(ranks, meshes, n, n_skew,
+                          stereo_rids(frames, zoo_n), cuda)
+
+    def numbers(r, name):
+        return dict({k: v for k, v in r[name].items() if k != "rows"},
+                    leader=r["leader"])
+    worst_by_shape = {}
+    for r in ranks:
+        for row in r["kernel_check"]:
+            key = (row["E"], row["S"])
+            worst_by_shape[key] = max(worst_by_shape.get(key, 0.0),
+                                      row["max_abs_err"])
+    out = dict(ranks=size, meshes=[list(m) for m in meshes], requests=n,
+               transport=ranks[0]["transport"], wall_s=wall,
+               yardstick_s=ranks[0]["yardstick_s"],
+               setup_s=[r["setup_s"] for r in ranks],
+               seconds=[r["seconds"] for r in ranks],
+               a={i: numbers(ranks[i], "a") for i in meshes[0]},
+               rr={i: numbers(r, "rr") for i, r in enumerate(ranks)},
+               solo={i: numbers(r, "solo") for i, r in enumerate(ranks)},
+               ll={i: numbers(r, "ll") for i, r in enumerate(ranks)},
+               kernel_check=[dict(E=e, S=s_, max_abs_err=err) for (e, s_), err
+                             in sorted(worst_by_shape.items())],
+               max_abs_err=worst)
+    out["launches"] = {"fused_update_e/sum": sum(
+        r[name]["launches"] for r in ranks
+        for name in ("a", "rr", "solo", "ll") if name in r)}
+    return out
+
+
+def log_submesh(out) -> None:
+    """Phase 23's progress lines."""
+    def row(label, r):
+        lat = r.get("latency_ms", {"p50": float("nan"),
+                                   "p99": float("nan")})
+        return (f"{label}: {r['requests_per_s']:.2f} requests/s over "
+                f"{r['wall_s']:.2f} s, latency p50/p99 {lat['p50']:.0f}/"
+                f"{lat['p99']:.0f} ms, {r['cycles']} cycles at "
+                f"{r['ms_per_cycle']:.1f} ms, {r['collectives']} "
+                f"collectives, staged {r['staged_bytes']} B, decisions "
+                f"{r['decisions']} ({r['decisions_per_cycle']:.2f} a cycle "
+                f"and the last, {r['decision_bytes']} B, "
+                f"{r['decision_ms'] / max(r['decisions'], 1):.3f} ms each "
+                + ("published" if r["leader"] else "waited for") + "), "
+                f"fused_update_e launches {r['launches']}, peak memory "
+                f"{r['peak_memory_bytes']} B" + sent(r["sent_to_front"]))
+
+    def sent(s):
+        return (f", {s['records']} records sent to the front ("
+                f"{s['tensor_bytes']} B of tensors, {s['ms']:.1f} ms to "
+                "copy, pickle and send)" if s["records"] else "")
+    log(f"  {out['ranks']} gloo ranks sharing the card, sub-meshes "
+        f"{out['meshes']}, transport {out['transport']}, {out['requests']} "
+        f"requests; {out['wall_s']:.1f} s with the spawn (set-up "
+        f"{max(out['setup_s']):.1f} s, rank 0's one-device yardsticks "
+        f"{out['yardstick_s']:.1f} s)")
+    for i, r in out["a"].items():
+        log("  (a) rank " + row(str(i), r))
+    for name, label in (("rr", "(b) round robin"), ("solo", "(b) solo "
+                                                    "share"),
+                        ("ll", "(b) least_loaded, stealing")):
+        for i, r in out[name].items():
+            extra = (f"; routed {r['routed']}, steals {r['steals']} "
+                     f"({r['stolen']} requests)" if "routed" in r
+                     and r["routed"] and sum(r["routed"]) else "")
+            log(f"  {label}, rank " + row(str(i), r) + extra)
+    for r in out["kernel_check"]:
+        log(f"  fused_update_e vs plain on a served slice, worst of the "
+            f"ranks: E={r['E']} S={r['S']} max_abs_err="
+            f"{r['max_abs_err']:.3g}")
+    log("  bitwise: (a) both ranks, (a) and round robin vs the one-device "
+        "yardstick, each share vs its solo sharded serve_async, "
+        "least_loaded vs the one-device skewed run")
+    log(f"  kernel launches on the sub-mesh path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
-                     dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks):
+                     dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks,
+                     submesh):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -4890,10 +5354,12 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     parent's launches; its spawned ranks run no BP kernel either), its
     sharded training path (phase 21, ``lm_sharded_train``, the same) and
     its tensor-parallel block families (phase 22, ``lm_blocks``, the
-    same)."""
+    same), and serving over sub-meshes (phase 23, ``sub_meshes``: the four
+    ranks' launches in all of its runs, summed)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     lmt, lms = lm_train["launches"], lm_shard["launches"]
     lmst, lmb = lm_strain["launches"], lm_blocks["launches"]
+    sub = submesh["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -4906,7 +5372,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_train=lmt["fused_update_e/sum"],
                                    lm_sharded=lms["fused_update_e/sum"],
                                    lm_sharded_train=lmst["fused_update_e/sum"],
-                                   lm_blocks=lmb["fused_update_e/sum"]),
+                                   lm_blocks=lmb["fused_update_e/sum"],
+                                   sub_meshes=sub["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -4917,7 +5384,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_train=lmt["fused_update_e/max"],
                                    lm_sharded=lms["fused_update_e/max"],
                                    lm_sharded_train=lmst["fused_update_e/max"],
-                                   lm_blocks=lmb["fused_update_e/max"]),
+                                   lm_blocks=lmb["fused_update_e/max"],
+                                   sub_meshes=0),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -4927,7 +5395,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_train=lmt["fused_update_t/sum"],
                                    lm_sharded=lms["fused_update_t/sum"],
                                    lm_sharded_train=lmst["fused_update_t/sum"],
-                                   lm_blocks=lmb["fused_update_t/sum"])}
+                                   lm_blocks=lmb["fused_update_t/sum"],
+                                   sub_meshes=0)}
 
 
 def log_serving(out) -> None:
@@ -5230,6 +5699,15 @@ def main() -> int:
     log_lm_blocks(lm_blocks)
     log(f"  phase 22 in {lm_blocks['phase_s']:.1f} s")
 
+    log("== 23. serving over sub-meshes (\"sharded\"): four gloo ranks, "
+        "two sub-meshes of two; serve_async with wall-clock decisions, "
+        "serve_routed with a replica a sub-mesh")
+    t0 = time.perf_counter()
+    submesh = phase_submesh(device, REPO / "chiprun_out" / "submesh")
+    submesh["phase_s"] = time.perf_counter() - t0
+    log_submesh(submesh)
+    log(f"  phase 23 in {submesh['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -5238,13 +5716,15 @@ def main() -> int:
                                       ["kernel_check"],
                                       dist_out["one"]["banded"]
                                       ["kernel_check"]]
+    checked["fused_update_e/sum"] += submesh["kernel_check"]
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
         bmain["launches"], launches_by_path(main, mapd, bmain, serving,
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
-                                            lm_shard, lm_strain, lm_blocks),
+                                            lm_shard, lm_strain, lm_blocks,
+                                            submesh),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -5255,7 +5735,7 @@ def main() -> int:
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
-                  lm_blocks=lm_blocks,
+                  lm_blocks=lm_blocks, submesh=submesh,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

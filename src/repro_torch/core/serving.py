@@ -33,6 +33,11 @@ chunk. This module is the pipeline behind it:
 - **threaded ingestion**: ``ingest_threads=N`` moves the stream pull onto
   feeder threads behind a bounded queue. Feeder threads only pull from the
   source iterator; every torch call but one stays on the serving thread.
+- **on a mesh** (the sharded backend): every rank of the mesh runs the
+  pipeline on the same stream; the mesh's rank 0 takes every timing-driven
+  decision and publishes it to the others at most twice a cycle, and
+  staged requests stay on the host (each rank places only its slice); see
+  :class:`ServingPipeline`.
 - **graphs made on the card**: a request may arrive as a graph on the GPU,
   written by kernels on whatever stream its producer used (another
   thread's, under the router tier). Where a request enters -- the feeder's
@@ -261,12 +266,14 @@ class _Staged:
 class _Group:
     """One shape family: fixed padded-shape ceilings + its pending queue
     (enqueue order; policies may remove from the middle, so the head is
-    always the oldest *remaining* request)."""
+    always the oldest *remaining* request). ``key`` names it in the
+    pipeline's ``_groups`` (and in a leader's decisions)."""
 
-    __slots__ = ("ceilings", "queue")
+    __slots__ = ("ceilings", "queue", "key")
 
-    def __init__(self, ceilings: Tuple[int, int, int, int, int]):
+    def __init__(self, ceilings: Tuple[int, int, int, int, int], key=None):
         self.ceilings = ceilings
+        self.key = ceilings if key is None else key
         self.queue: Deque[_Staged] = deque()
 
 
@@ -991,13 +998,15 @@ class _IngestFeeder:
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.perf_counter()))
 
-    def get(self, block: bool):
+    def get(self, block: bool, timeout: float | None = None):
         """Next ``(auto_rid, item, t_pull, entry_event)``; ``None`` when
-        nothing is available right now (non-blocking miss), or the
-        exhausted sentinel once every feeder thread has finished."""
+        nothing is available right now (non-blocking miss, or ``timeout``
+        seconds of a blocking wait), or the exhausted sentinel once every
+        feeder thread has finished."""
         while True:
             try:
-                got = self._q.get(block=block)
+                got = self._q.get(block=block,
+                                  timeout=timeout if block else None)
             except _queue.Empty:
                 return None
             if got is _FEEDER_DONE:
@@ -1008,6 +1017,65 @@ class _IngestFeeder:
                     return _FEEDER_EXHAUSTED
                 continue
             return got
+
+
+def _parse(item, rid_auto: int):
+    """``(rid, pgm, slo, explicit)`` of a stream item: a ``PGM`` (rid =
+    ``rid_auto``, its arrival index), a ``(rid, PGM)`` pair or a ``(rid,
+    PGM, slo_s)`` triple (``rid=None`` keeps ``rid_auto``); ``explicit``
+    says the stream named the rid."""
+    if not isinstance(item, tuple):
+        return rid_auto, item, None, False
+    if len(item) == 3:
+        rid, pgm, slo = item
+        slo = None if slo is None else float(slo)
+    else:
+        (rid, pgm), slo = item, None
+    if rid is None:
+        return rid_auto, pgm, slo, False
+    return int(rid), pgm, slo, True
+
+
+class _Provider:
+    """A follower's source (see :class:`ServingPipeline`): the requests its
+    leader names, by rid, from the follower's own copy of the stream -- a
+    plain iterator, pulled here, or an ``_IngestFeeder``, waited on for at
+    most ``timeout`` seconds. Items pulled ahead of their turn wait in a
+    buffer. A stream that ends, or a feeder that stays silent, before the
+    named rid shows up means the ranks were not given the same stream: it
+    raises."""
+
+    def __init__(self, it, timeout: float):
+        self._it = it
+        self._timeout = timeout
+        self._buf: Dict[int, Tuple[PGM, Any]] = {}
+        self._n = 0
+
+    def take(self, rid: int):
+        """``(pgm, entry event)`` of request ``rid``."""
+        while rid not in self._buf:
+            if isinstance(self._it, _IngestFeeder):
+                got = self._it.get(True, timeout=self._timeout)
+                if got is None or got is _FEEDER_EXHAUSTED:
+                    raise RuntimeError(
+                        f"request {rid}, which the leader staged, is not in "
+                        "this rank's stream (ended, or silent for "
+                        f"{self._timeout:g} s): every rank of a mesh must "
+                        "pass the same stream")
+                rid_auto, item, _, ready = got
+            else:
+                try:
+                    item = next(self._it)
+                except StopIteration:
+                    raise RuntimeError(
+                        f"request {rid}, which the leader staged, is not in "
+                        "this rank's stream: every rank of a mesh must pass "
+                        "the same stream") from None
+                rid_auto, ready = self._n, _entry_event(item)
+                self._n += 1
+            got_rid, pgm, _, _ = _parse(item, rid_auto)
+            self._buf[got_rid] = (pgm, ready)
+        return self._buf.pop(rid)
 
 
 # --------------------------------------------------------------- pipeline --
@@ -1047,6 +1115,30 @@ class ServingPipeline:
 
     Lifecycle: a pipeline is a context manager; ``close()`` stops and joins
     any live ingest feeder threads and refuses further ``serve`` calls.
+
+    On a mesh (an engine of the sharded backend, ``repro_torch.dist``) every
+    rank of the mesh runs this pipeline on the same stream, and every
+    decision that depends on time or thread timing is taken once, by the
+    mesh's rank 0 (``role == "leader"``): the clock readings that culling,
+    ``pick_many`` and ``should_evict`` read, which requests a non-blocking
+    pull took from the feeder, the holds and sleeps while nothing is
+    resident -- in effect, which rids are culled, admitted into which
+    slots, backfilled, evicted and compacted. Its decisions, with the
+    timeline stamps, go to the mesh's other ranks (``role ==
+    "follower"``) by ``dist.comm.publish`` on the mesh's gloo group at
+    most twice a cycle: before the chunks are stepped (pulls, culls,
+    admissions) and after the slots' syncs (releases, evictions,
+    backfills, compactions). A follower applies them and never consults
+    its clock, its policy or the order of its feeder: it takes from its own
+    copy of the stream exactly the requests the leader names, by rid,
+    waiting on its feeder for them. So every rank of a mesh issues the same
+    collectives in the same order and yields the same records. On a mesh a
+    cycle decides first and then runs the device work its decisions imply
+    -- results, slot loads, compactions, all collectives -- in decision
+    order (``_apply``), so its stamps are decision times: ``t_done`` before
+    the result is read, a backfill's ``t_admit`` before its load. On one
+    device that work runs as each decision is taken, and ``t_done`` follows
+    the read of the result.
     """
 
     def __init__(self, engine: BPEngine, rng, *,
@@ -1096,20 +1188,32 @@ class ServingPipeline:
                 admission_kwargs = dict(cfg.admission_kwargs)
         self.policy = get_admission_policy(
             admission, **dict(admission_kwargs or {})).bind(self)
-        by_clock = self._clock_on_chunk is None and isinstance(
-            self.policy, (WindowedAdmission, DeadlineAdmission))
-        if getattr(engine.update_fn, "mesh", None) is not None and (
-                ingest_threads or by_clock):
-            # Every rank of the sharded backend runs this pipeline and must
-            # take the same decisions; timing differs between ranks.
-            raise NotImplementedError(
-                "the sharded backend serves one pipeline per rank, and "
-                "every rank must take the same serving decisions or the "
-                "next collective deadlocks; ingest threads and "
-                f"{self.policy.name!r} admission on a wall clock decide by "
-                "timing. Use fifo or residual admission, windowed or "
-                "deadline admission under a SweepClock, and "
-                "ingest_threads=0")
+        #: ``"leader"`` or ``"follower"`` on a mesh of several ranks, else
+        #: ``None`` (see the class docstring)
+        self.role = None
+        self._decisions = None          # the mesh, for its gloo group
+        mesh = getattr(engine.update_fn, "mesh", None)
+        if mesh is not None:
+            from repro_torch import dist as D
+            axis = getattr(engine.update_fn, "axis", D.BP_AXIS)
+            n, rank, _ = D.mesh_axis(mesh, axis)
+            if n > 1:
+                if not isinstance(mesh, D.BPMesh):
+                    raise ValueError(
+                        "serving on a mesh needs the gloo group beside it "
+                        "that repro_torch.dist.make_bp_mesh makes")
+                self.role = "leader" if rank == 0 else "follower"
+                self._decisions = mesh
+        #: how long a follower waits on its stream for a named request
+        self._wait_s = (D.comm.world_timeout().total_seconds()
+                        if mesh is not None else 0.0)
+        self._log: List[tuple] | None = [] if self.role == "leader" else None
+        #: rid -> an opaque picklable note a source attaches to a request
+        #: before yielding it; a leader passes it on to its followers
+        self.tags: Dict[int, Any] = {}
+        #: called with no argument after each stepped cycle
+        self.on_cycle = None
+        self._todo: List[tuple] = []    # the cycle's device work, in order
         self.stats = AsyncServeStats(policy=self.policy.name)
         self._groups: Dict[tuple, _Group] = {}
         self._exhausted = False
@@ -1120,8 +1224,12 @@ class ServingPipeline:
         self._seen_rids: set[int] = set()
         self._feeder: _IngestFeeder | None = None
         self._closed = False
+        # A sharded engine copies each rank's slice to the card itself
+        # (engine.init): its staged requests stay on the host.
+        self._host_staging = mesh is not None
         self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+                             if self.device.type == "cuda"
+                             and not self._host_staging else None)
 
     # -- staging (host padding + copy to the device) -----------------------
 
@@ -1133,13 +1241,16 @@ class ServingPipeline:
             key = ceilings = bucket_shape(pgm, self.growth)
         group = self._groups.get(key)
         if group is None:
-            group = self._groups[key] = _Group(ceilings)
+            group = self._groups[key] = _Group(ceilings, key)
         return group
 
     def _to_device(self, host: Dict[str, np.ndarray]):
         """``(tensors on the engine's device, copy)``: on a GPU, from
         pinned host memory on the copy stream, ``copy = (event, pinned
-        tensors)``; elsewhere a plain copy and ``copy = None``."""
+        tensors)``; elsewhere a plain copy and ``copy = None``. A sharded
+        engine's stay on the host."""
+        if self._host_staging:
+            return {k: torch.from_numpy(v) for k, v in host.items()}, None
         if self._copy_stream is None:
             return {k: torch.tensor(v, device=self.device)
                     for k, v in host.items()}, None
@@ -1212,21 +1323,45 @@ class ServingPipeline:
                 t = self.clock()
                 rid_auto = self._arrival
                 ready = _entry_event(item)
-            slo = None
-            if isinstance(item, tuple):
-                if len(item) == 3:
-                    rid, pgm, slo = item
-                    slo = None if slo is None else float(slo)
-                else:
-                    rid, pgm = item
-                if rid is None:         # keep arrival-order rid assignment
-                    rid = rid_auto
-                else:
-                    self._explicit_rids = True
-            else:
-                rid, pgm = rid_auto, item
+            rid, pgm, slo, explicit = _parse(item, rid_auto)
+            if explicit:
+                self._explicit_rids = True
             self._arrival += 1
-            self._stage(int(rid), pgm, t, slo=slo, ready=ready)
+            self._stage(rid, pgm, t, slo=slo, ready=ready)
+            self._note("pull", rid, t, slo, self.tags.get(rid))
+
+    # -- decisions: taken by the leader, applied by every rank -------------
+
+    def _note(self, *decision) -> None:
+        """Log one decision for the followers (a leader only)."""
+        if self._log is not None:
+            self._log.append(decision)
+
+    def _publish(self, final: bool = False) -> None:
+        """A leader sends its decisions since the last call to its group
+        (``final`` appends the end of the stream); a no-op elsewhere."""
+        if self._log is None:
+            return
+        from repro_torch.dist import comm
+        log, self._log = self._log, []
+        if final:
+            log.append(("finish",))
+        comm.publish(log, self._decisions.host_group)
+
+    def _receive(self) -> List[tuple]:
+        """A follower's next batch of its leader's decisions."""
+        from repro_torch.dist import comm
+        return comm.publish(None, self._decisions.host_group)
+
+    def _claim(self, group: _Group, rid: int) -> _Staged:
+        """Remove staged request ``rid`` from ``group``'s queue: a follower
+        applying its leader's choice."""
+        for k, staged in enumerate(group.queue):
+            if staged.rid == rid:
+                del group.queue[k]
+                return staged
+        raise RuntimeError(f"request {rid} is not staged on this rank: its "
+                           "leader's decisions diverged from its state")
 
     # -- slot lifecycle ----------------------------------------------------
 
@@ -1235,10 +1370,16 @@ class ServingPipeline:
         min(max_batch, pending), composition chosen by the admission
         policy, stacked on the device from staged elements."""
         width = min(self.max_batch or len(group.queue), len(group.queue))
-        take = self.policy.take(group, width)
+        return self._open(group, self.policy.take(group, width))
+
+    def _open(self, group: _Group, take: List[_Staged],
+              t: float | None = None) -> _Slot:
+        """The resident bucket of the staged requests ``take``; ``t`` is
+        the admission stamp (the clock's, read after ``init``, if None)."""
         batch = BatchedPGM.from_pgms([self._ready(s) for s in take])
         state = self.engine.init(batch, [s.key for s in take])
-        t = self.clock()
+        t = self.clock() if t is None else t
+        self._note("admit", group.key, [s.rid for s in take], t)
         self.stats.buckets_opened += 1
         if self.record_events:
             self.stats.admission_widths.append(len(take))
@@ -1250,49 +1391,44 @@ class ServingPipeline:
                                              slo=s.slo, extra=s.extra)
                            for s in take})
 
-    def _release(self, slot: _Slot, j: int, rounds: int) -> RequestRecord:
-        rid = slot.live[j]
-        assert rid is not None
-        result = self.engine._slice_result(slot.state, j)
-        slot.live[j] = None
-        self.stats.evacuated += 1
-        if self.record_events:      # O(requests) log; off for infinite streams
-            self.stats.evacuation_log.append((self.stats.chunks, rid))
-        meta = slot.meta.pop(rid)
-        t_done = self.clock()
-        self.policy.observe(slot.group, meta.score, rounds,
-                            service_s=max(t_done - meta.t_admit, 0.0),
-                            extra=meta.extra)
-        self.policy.forget(rid)
-        return RequestRecord(rid=rid, result=result,
-                             t_enqueue=meta.t_enqueue,
-                             t_admit=meta.t_admit, t_done=t_done,
-                             slo_s=meta.slo)
-
-    def _evict(self, slot: _Slot, j: int, rounds: int) -> RequestRecord:
-        """Release batch slot ``j`` as *evicted*: the partial beliefs at
-        the last chunk sync, ``status="evicted"``, sweep accounting under
-        ``evicted_sweeps``. The policy is not ``observe``d (an evicted
+    def _release(self, i: int, slot: _Slot, j: int, rounds: int,
+                 t: float | None = None, status: str = "completed") -> None:
+        """Release batch slot ``j`` of resident slot ``i``: its record, with
+        ``status``, at ``t`` (the clock's, read after the result on one
+        device; on a mesh ``_apply`` reads it after the decisions). An
+        evicted request (``status="evicted"``) releases its
+        partial beliefs at the last chunk sync, and its sweeps count under
+        ``evicted_sweeps``; the policy is not ``observe``d (an evicted
         round count is not a convergence effort sample), only
         ``forget``-ed."""
         rid = slot.live[j]
         assert rid is not None
-        result = self.engine._slice_result(slot.state, j)
         slot.live[j] = None
         self.stats.evacuated += 1
-        self.stats.evictions += 1
-        self.stats.evicted_sweeps += rounds
-        if self.record_events:
-            self.stats.eviction_log.append((self.stats.chunks, rid))
+        evicted = status == "evicted"
+        if evicted:
+            self.stats.evictions += 1
+            self.stats.evicted_sweeps += rounds
+        if self.record_events:      # O(requests) log; off for infinite streams
+            (self.stats.eviction_log if evicted else
+             self.stats.evacuation_log).append((self.stats.chunks, rid))
         meta = slot.meta.pop(rid)
+        result = (None if self.role is not None
+                  else self.engine._slice_result(slot.state, j))
+        t_done = self.clock() if t is None else t
+        if not evicted:
+            self.policy.observe(slot.group, meta.score, rounds,
+                                service_s=max(t_done - meta.t_admit, 0.0),
+                                extra=meta.extra)
         self.policy.forget(rid)
-        return RequestRecord(rid=rid, result=result,
-                             t_enqueue=meta.t_enqueue,
-                             t_admit=meta.t_admit, t_done=self.clock(),
-                             slo_s=meta.slo, status="evicted")
+        self._note("release", i, j, rounds, t_done, status)
+        self._todo.append(("result", slot, j, RequestRecord(
+            rid=rid, result=result, t_enqueue=meta.t_enqueue,
+            t_admit=meta.t_admit, t_done=t_done, slo_s=meta.slo,
+            status=status)))
 
-    def _evict_staged(self, group: _Group,
-                      staged: _Staged) -> RequestRecord:
+    def _evict_staged(self, group: _Group, staged: _Staged,
+                      t: float | None = None) -> RequestRecord:
         """Give up on a request whose deadline expired while queued: zero
         service, prior beliefs (normalized unary potentials -- uniform
         initial messages cancel in per-vertex normalization) and round-0
@@ -1329,7 +1465,8 @@ class ServingPipeline:
         self.stats.evictions += 1
         if self.record_events:
             self.stats.eviction_log.append((self.stats.chunks, staged.rid))
-        t = self.clock()
+        t = self.clock() if t is None else t
+        self._note("cull", group.key, staged.rid, t)
         self.policy.forget(staged.rid)
         return RequestRecord(rid=staged.rid, result=result,
                              t_enqueue=staged.t_enqueue,
@@ -1344,18 +1481,28 @@ class ServingPipeline:
             for staged in self.policy.cull(group, now):
                 yield self._evict_staged(group, staged)
 
-    def _backfill(self, slot: _Slot, j: int) -> None:
-        staged = self.policy.take(slot.group, 1, slot=slot)[0]
-        slot.state = self.engine.load_slot(slot.state, j,
-                                           self._ready(staged), staged.key)
+    def _backfill(self, i: int, slot: _Slot, j: int, rid: int | None = None,
+                  t: float | None = None) -> None:
+        """Load a staged request into free batch slot ``j`` of resident
+        slot ``i``: the policy's pick (request ``rid`` on a follower),
+        admitted at ``t`` (the clock's if None); loaded now on one device,
+        by ``_apply`` on a mesh."""
+        staged = (self.policy.take(slot.group, 1, slot=slot)[0]
+                  if rid is None else self._claim(slot.group, rid))
+        if self.role is None:
+            self._load(slot, j, staged)
+        else:
+            self._todo.append(("load", slot, j, staged))
         slot.live[j] = staged.rid
         slot.rounds_host[j] = 0
-        slot.meta[staged.rid] = _AdmitMeta(staged.t_enqueue, self.clock(),
+        t = self.clock() if t is None else t
+        slot.meta[staged.rid] = _AdmitMeta(staged.t_enqueue, t,
                                            staged.score, slo=staged.slo,
                                            extra=staged.extra)
         self.stats.backfilled += 1
+        self._note("backfill", i, j, staged.rid, t)
 
-    def _maybe_compact(self, slot: _Slot) -> None:
+    def _maybe_compact(self, i: int, slot: _Slot) -> None:
         """Re-bucket survivors into a narrower batch once no backfill can
         ever arrive (queue drained, stream exhausted). Pow2 target widths;
         surplus slots are filled with already-dead entries, which the gated
@@ -1370,15 +1517,23 @@ class ServingPipeline:
         if new_w >= slot.width:
             return
         dead = [j for j, rid in enumerate(slot.live) if rid is None]
-        chosen = sorted(keep + dead[:new_w - len(keep)])
+        self._compact(i, slot, sorted(keep + dead[:new_w - len(keep)]))
+
+    def _compact(self, i: int, slot: _Slot, chosen: List[int]) -> None:
+        """Narrow resident slot ``i`` to batch slots ``chosen`` (now on one
+        device, by ``_apply`` on a mesh)."""
         self.stats.compactions += 1
         if self.record_events:
             self.stats.compaction_log.append(
-                (self.stats.chunks, slot.width, new_w))
-        slot.state = _narrow_state(slot.state, chosen)
+                (self.stats.chunks, slot.width, len(chosen)))
         slot.live = [slot.live[j] for j in chosen]
         slot.rounds_host = slot.rounds_host[chosen]
         slot.r_before = slot.r_before[chosen]
+        self._note("compact", i, chosen)
+        if self.role is None:
+            slot.state = _narrow_state(slot.state, chosen)
+        else:
+            self._todo.append(("narrow", slot, chosen, None))
 
     def _sync(self, state: BPState):
         """One device-to-host copy per slot sync: per-graph rounds, done
@@ -1392,12 +1547,11 @@ class ServingPipeline:
         return (host[:w].astype(np.int64), host[w:2 * w] > 0,
                 host[2 * w:3 * w], int(host[-1]))
 
-    def _service(self, slot: _Slot) -> Iterable[RequestRecord]:
-        """Sync one stepped slot and apply the straggler policies: account
-        sweeps, release finished graphs, backfill freed slots from the
-        group queue, then consider compaction."""
+    def _account(self, slot: _Slot):
+        """Sync one stepped slot and account its sweeps; ``(rounds, done,
+        residuals)`` per batch slot. On a mesh these are the whole vectors
+        on every rank, so every rank accounts alike."""
         r_after, done, resid, chunk_iters = self._sync(slot.state)
-        max_rounds = self.engine.config.max_rounds
         inner = self.engine.scheduler.inner_sweeps
         self.stats.chunks += 1
         chunk_sweeps = chunk_iters * inner * slot.width
@@ -1408,21 +1562,33 @@ class ServingPipeline:
         slot.rounds_host = r_after.copy()
         if self._clock_on_chunk is not None:   # virtual clocks tick in sweeps
             self._clock_on_chunk(chunk_sweeps)
+        return r_after, done, resid
+
+    def _service(self, i: int, slot: _Slot) -> Iterator[RequestRecord]:
+        """Sync resident slot ``i`` and decide its straggler policies:
+        account sweeps, release finished graphs, backfill freed slots from
+        the group queue, evict, then consider compaction. One device yields
+        each record as it is released; on a mesh the device work these
+        imply is queued for ``_apply``."""
+        r_after, done, resid = self._account(slot)
+        max_rounds = self.engine.config.max_rounds
         if not self.evacuate:
             # Run-to-completion baseline: release everything only when the
             # whole bucket is finished; never backfill, never compact.
             if all(bool(done[j]) or r_after[j] >= max_rounds
                    for j in range(slot.width)):
                 for j in range(slot.width):
-                    yield self._release(slot, j, int(r_after[j]))
+                    self._release(i, slot, j, int(r_after[j]))
+                    yield from self._released()
             return
         for j in range(slot.width):
             if slot.live[j] is None:
                 continue
             if bool(done[j]) or r_after[j] >= max_rounds:
-                yield self._release(slot, j, int(r_after[j]))
+                self._release(i, slot, j, int(r_after[j]))
+                yield from self._released()
                 if slot.group.queue:
-                    self._backfill(slot, j)
+                    self._backfill(i, slot, j)
         if self.policy.evicts:
             # Mid-flight eviction: per-graph residuals at this sync are the
             # converging-too-slowly signal; hopeless requests release now
@@ -1436,15 +1602,44 @@ class ServingPipeline:
                     continue
                 if self.policy.should_evict(slot, rid, int(r_after[j]),
                                             float(resid[j]), now):
-                    yield self._evict(slot, j, int(r_after[j]))
+                    self._release(i, slot, j, int(r_after[j]),
+                                  status="evicted")
+                    yield from self._released()
                     if slot.group.queue:
-                        self._backfill(slot, j)
+                        self._backfill(i, slot, j)
         # Slots that went dead while the queue was momentarily empty are
         # revived by later arrivals.
         for j in range(slot.width):
             if slot.live[j] is None and slot.group.queue:
-                self._backfill(slot, j)
-        self._maybe_compact(slot)
+                self._backfill(i, slot, j)
+        self._maybe_compact(i, slot)
+
+    def _load(self, slot: _Slot, j: int, staged: _Staged) -> None:
+        """Load a backfilled request into batch slot ``j``'s state."""
+        slot.state = self.engine.load_slot(slot.state, j,
+                                           self._ready(staged), staged.key)
+
+    def _released(self) -> Iterator[RequestRecord]:
+        """One device: the record just released, its result already read.
+        On a mesh nothing: ``_apply`` yields it after the decisions."""
+        if self.role is None:
+            yield from self._apply()
+
+    def _apply(self) -> Iterator[RequestRecord]:
+        """Yield the released records in decision order. On a mesh, first
+        run the device work the decisions imply, in their order -- each
+        released request's result, each backfill's load, each compaction:
+        collectives that every rank issues in this order."""
+        todo, self._todo = self._todo, []
+        for op, slot, j, x in todo:
+            if op == "result":
+                if x.result is None:
+                    x.result = self.engine._slice_result(slot.state, j)
+                yield x
+            elif op == "load":
+                self._load(slot, j, x)
+            else:
+                slot.state = _narrow_state(slot.state, j)
 
     # -- the drive loop ----------------------------------------------------
 
@@ -1476,9 +1671,10 @@ class ServingPipeline:
         Each cycle: (1) admit staged groups into free slots, (2) step a
         chunk on every slot, (3) pull and stage new arrivals (from the
         feeder queue when ``ingest_threads`` is set, never blocking on the
-        source), (4) sync and service each slot, yielding released results.
+        source), (4) sync and service each slot, then release the results.
         Terminates when the stream is exhausted and every admitted graph
-        has been released."""
+        has been released. A follower applies its leader's decisions
+        instead (see the class docstring)."""
         if self._closed:
             raise ValueError("ServingPipeline is closed")
         it = iter(stream)
@@ -1488,7 +1684,10 @@ class ServingPipeline:
             it = self._feeder = _IngestFeeder(it, self.ingest_threads, bound,
                                               clock=self.clock)
         try:
-            yield from self._drive(it)
+            if self.role == "follower":
+                yield from self._follow(_Provider(it, self._wait_s))
+            else:
+                yield from self._drive(it)
         finally:
             # An abandoned generator or a staging error must not leak
             # feeder threads blocked on a full queue.
@@ -1512,8 +1711,14 @@ class ServingPipeline:
         """Context-manager exit: ``close()`` -- feeder threads joined."""
         self.close()
 
+    def _step(self, resident: List[_Slot]) -> None:
+        for slot in resident:
+            slot.r_before = slot.rounds_host.copy()
+            slot.state = self.engine.step(slot.state, chunk_rounds=self.chunk)
+
     def _drive(self, it) -> Iterator[RequestRecord]:
-        """The cycle loop behind ``serve`` (source already feeder-wrapped)."""
+        """The cycle loop behind ``serve`` (source already feeder-wrapped),
+        which a leader also publishes its decisions from."""
         resident: List[_Slot] = []
         if self.prefetch is None:
             self._pump(it, float("inf"), block=True)
@@ -1531,18 +1736,18 @@ class ServingPipeline:
                     if not picks:
                         if self._staged_count():   # held by an open window
                             self.stats.admission_holds += 1
+                            self._note("hold")
                         break
                 for group in picks[:free]:
                     if group.queue:
                         resident.append(self._admit(group))
             if not resident:
                 if not self._await_work(it):
+                    self._publish(final=True)
                     return
                 continue
-            for slot in resident:
-                slot.r_before = slot.rounds_host.copy()
-                slot.state = self.engine.step(slot.state,
-                                              chunk_rounds=self.chunk)
+            self._publish()             # before the step's collectives
+            self._step(resident)
             if self.prefetch:
                 # Host-side staging after the chunks. Dead slots whose group
                 # queue is empty raise the pull target: staged work from
@@ -1553,10 +1758,75 @@ class ServingPipeline:
                              if rid is None and not slot.group.queue)
                 self._pump(it, self.prefetch + hunger
                            + self.policy.pull_bonus())
-            for slot in list(resident):
-                yield from self._service(slot)
-                if all(rid is None for rid in slot.live):
-                    resident.remove(slot)
+            for i, slot in enumerate(resident):
+                yield from self._service(i, slot)
+            self._publish()             # before the results' collectives
+            yield from self._apply()
+            resident[:] = [s for s in resident
+                           if any(rid is not None for rid in s.live)]
+            if self.on_cycle is not None:
+                self.on_cycle()
+
+    def _follow(self, provider: _Provider) -> Iterator[RequestRecord]:
+        """A follower's cycle loop: the leader's decisions applied as
+        ``_drive`` takes them, with the same device work in the same order
+        and the leader's stamps, so its records are the leader's."""
+        resident: List[_Slot] = []
+
+        def stage(rid, t, slo, tag):
+            pgm, ready = provider.take(rid)
+            if tag is not None:
+                self.tags[rid] = tag
+            self._arrival += 1
+            self._stage(rid, pgm, t, slo=slo, ready=ready)
+
+        while True:
+            for d in self._receive():
+                if d[0] == "pull":
+                    stage(*d[1:])
+                elif d[0] == "cull":
+                    group = self._groups[d[1]]
+                    yield self._evict_staged(group, self._claim(group, d[2]),
+                                             d[3])
+                elif d[0] == "admit":
+                    group = self._groups[d[1]]
+                    resident.append(self._open(
+                        group, [self._claim(group, r) for r in d[2]], d[3]))
+                elif d[0] == "hold":
+                    self.stats.admission_holds += 1
+                elif d[0] == "finish":
+                    return
+                else:
+                    raise RuntimeError(f"decision {d!r} before a step")
+            if not resident:
+                raise RuntimeError("the leader stepped with no bucket "
+                                   "resident on this rank")
+            self._step(resident)
+            synced = 0
+            for d in self._receive():
+                if d[0] == "pull":
+                    stage(*d[1:])
+                    continue
+                i = d[1]
+                while synced <= i:      # the leader's order: sync, decide
+                    self._account(resident[synced])
+                    synced += 1
+                slot = resident[i]
+                if d[0] == "release":
+                    self._release(i, slot, *d[2:])
+                elif d[0] == "backfill":
+                    self._backfill(i, slot, *d[2:])
+                elif d[0] == "compact":
+                    self._compact(i, slot, d[2])
+                else:
+                    raise RuntimeError(f"decision {d!r} after a step")
+            for slot in resident[synced:]:
+                self._account(slot)
+            yield from self._apply()
+            resident[:] = [s for s in resident
+                           if any(rid is not None for rid in s.live)]
+            if self.on_cycle is not None:
+                self.on_cycle()
 
 
 def _materialized_plan(pgms: Sequence[PGM], growth: float):

@@ -63,12 +63,21 @@ a **rank-resident** graph and messages.
   graph or bucket into the rank's rank-resident one; the whole graph may
   sit on the host, so that only the rank's slice ever reaches the card.
   A one-device engine handed a rank-resident graph raises.
-- **Serving.** A serving decision taken from the wall clock can differ
-  between ranks, and a rank that diverges deadlocks the next collective. So
-  ``ServingPipeline`` refuses the sharded backend with ``windowed`` or
-  ``deadline`` admission on a wall clock (a ``SweepClock`` is fine) and with
-  ingest threads, and the router tier refuses it outright, each with a
-  ``NotImplementedError``.
+- **Sub-meshes.** ``make_bp_mesh(n)`` takes the first ``n`` ranks, and
+  ``make_bp_mesh(ranks=...)`` any set of them, as the reference's mesh on a
+  device slice: a ``BPMesh``, with the mesh's process group and a gloo
+  group on the same ranks for its host decisions. Every rank of the world
+  makes every sub-mesh (``new_group`` needs them all; each group is made
+  once per world), and a rank outside a mesh holds it with no coordinate:
+  an engine built on it there is never run.
+- **Serving.** Every rank of a mesh runs the same ``ServingPipeline`` on
+  the same stream, and the mesh's rank 0, its leader, takes every decision
+  that depends on time or thread timing (admission, eviction, backfill,
+  compaction, what the feeder took) and ``comm.publish``es them on the
+  gloo group at most twice a cycle; the other ranks apply them
+  (``core.serving``). A router's replicas each span a sub-mesh
+  (``serve.router``): world rank 0 routes, and each leader pulls its
+  requests from it over a ``comm.Channel``.
 
 ``make_bp_mesh`` never creates a world: the caller runs
 ``torch.distributed.init_process_group`` on every rank first (``torchrun``,
@@ -96,7 +105,8 @@ from repro_torch.dist.bp_banded import (BANDED_SCHEDULERS, BandedPartition,
 from repro_torch.kernels import triton_update as TT
 
 __all__ = [
-    "BP_AXIS", "SlicePlan", "ShardPGM", "ShardBatch", "make_bp_mesh",
+    "BP_AXIS", "BPMesh", "SlicePlan", "ShardPGM", "ShardBatch",
+    "make_bp_mesh",
     "mesh_axis", "require_world", "shard_pgm", "place", "tensor_bytes",
     "slice_update", "make_sharded_update", "make_sharded_engine",
     "run_bp_sharded", "BANDED_SCHEDULERS", "BandedPartition",
@@ -121,25 +131,94 @@ def require_world() -> None:
             "mesh spans the initialized world and never creates one")
 
 
-def make_bp_mesh(n_devices: int | None = None, *, axis: str = BP_AXIS,
-                 device="cuda"):
-    """1-D ``DeviceMesh`` over the default group's ranks, its one dimension
-    named ``axis`` (default ``"bp"``), built by ``init_device_mesh`` on
-    ``device``'s type (the card by default; pass ``device="cpu"`` for a
-    gloo world on the CPU).
+@dataclasses.dataclass(frozen=True, eq=False)
+class BPMesh:
+    """A 1-D mesh on ``ranks`` of the world (ascending global ranks), its
+    one dimension named ``axis``: the twin of a ``jax.sharding.Mesh`` on a
+    device slice. ``group`` is the mesh's process group (the world's own
+    when the mesh spans it), ``None`` on a rank outside the mesh, which has
+    no coordinate on it. It answers the ``DeviceMesh`` calls the package
+    makes (``size``, ``get_local_rank``, ``get_group``,
+    ``mesh_dim_names``)."""
 
-    The mesh spans the whole world: ``n_devices`` is ``None`` or the world
-    size. With no initialized process group it raises a ``RuntimeError``
-    naming ``torch.distributed.init_process_group``."""
-    dev = resolve_device(device)
+    ranks: Tuple[int, ...]
+    axis: str
+    group: Any = dataclasses.field(repr=False)
+
+    @property
+    def mesh_dim_names(self) -> Tuple[str]:
+        return (self.axis,)
+
+    @property
+    def member(self) -> bool:
+        """Does this process hold a rank of the mesh?"""
+        return self.group is not None
+
+    @property
+    def host_group(self):
+        """A gloo group on the mesh's ranks, for host decisions
+        (``comm.publish``): the mesh's own group where that is gloo, else
+        one made beside it (by ``make_bp_mesh`` for a sub-mesh, at its
+        first use for the whole world's, which every rank reaches
+        together); ``None`` off the mesh."""
+        return comm.group_of(self.ranks, "gloo") if self.member else None
+
+    def size(self, dim: int | None = None) -> int:
+        return len(self.ranks)
+
+    def _check(self, axis) -> None:
+        if axis not in (None, self.axis):
+            raise ValueError(f"mesh has no axis {axis!r}; its axes: "
+                             f"{[self.axis]}")
+        if not self.member:
+            raise ValueError(
+                f"rank {dist.get_rank()} is not on the mesh of ranks "
+                f"{list(self.ranks)}; an engine built on it there is never "
+                "run")
+
+    def get_local_rank(self, axis: str | None = None) -> int:
+        self._check(axis)
+        return self.ranks.index(dist.get_rank())
+
+    def get_group(self, axis: str | None = None):
+        self._check(axis)
+        return self.group
+
+
+def make_bp_mesh(n_devices: int | None = None, *, axis: str = BP_AXIS,
+                 device="cuda", ranks: Sequence[int] | None = None) -> BPMesh:
+    """A 1-D ``BPMesh`` named ``axis`` (default ``"bp"``) on the first
+    ``n_devices`` ranks of the world (all of them when ``None``), as the
+    reference takes the first devices, or on the global ranks ``ranks``;
+    ``device`` is where its tensors live (the card by default, which
+    raises without one; pass ``device="cpu"`` for a gloo world on the
+    CPU).
+
+    The whole world's mesh takes the world's group and makes none. A
+    sub-mesh's groups (its own and a gloo one beside it, with the world's
+    timeout) are made the first time it is asked for and reused after
+    (``comm.group_of``), so every rank of the world makes every sub-mesh,
+    members or not, in the same order. With no initialized process group
+    it raises a ``RuntimeError`` naming
+    ``torch.distributed.init_process_group``."""
+    resolve_device(device)
     require_world()
     world = dist.get_world_size()
-    n = n_devices or world
-    if n != world:
-        raise ValueError(f"a bp mesh spans the whole world of {world} "
-                         f"ranks, asked for {n}; start a world of {n} ranks")
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(dev.type, (n,), mesh_dim_names=(axis,))
+    if ranks is None:
+        ranks = range(n_devices or world)
+    ranks = tuple(sorted(int(r) for r in ranks))
+    if n_devices is not None and n_devices != len(ranks):
+        raise ValueError(f"n_devices={n_devices} but {len(ranks)} ranks "
+                         "given")
+    if not ranks or len(set(ranks)) != len(ranks) or ranks[0] < 0 or \
+            ranks[-1] >= world:
+        raise ValueError(f"a bp mesh takes distinct ranks of the world of "
+                         f"{world}, got {list(ranks)}")
+    group = comm.group_of(ranks)
+    if len(ranks) < world:          # made now, while every rank is here
+        comm.group_of(ranks, "gloo")
+    member = dist.get_rank() in ranks
+    return BPMesh(ranks=ranks, axis=axis, group=group if member else None)
 
 
 def mesh_axis(mesh, axis: str = BP_AXIS):
@@ -668,7 +747,8 @@ def make_sharded_update(mesh=None, *, axis: str = BP_AXIS):
     initialized world is built now -- what the registry entry
     ``UPDATE_BACKENDS["sharded"]`` does, so ``BPConfig(backend="sharded")``
     stays a plain string; that mesh is named after the world's backend
-    (``"cuda"`` for NCCL, else ``"cpu"``), which moves no tensor.
+    (``"cuda"`` for NCCL, else ``"cpu"``), which moves no tensor. On a rank
+    outside a sub-mesh the backend builds, and raises if it is called.
 
     Contract on the graph: the padded edge count splits into even-sized
     slices (``E % n == 0`` and ``E/n`` even) with reverse pairs on one rank.
@@ -679,9 +759,14 @@ def make_sharded_update(mesh=None, *, axis: str = BP_AXIS):
         require_world()
         mesh = make_bp_mesh(axis=axis,
                             device=_mesh_device(dist.get_backend()))
-    n, rank, group = mesh_axis(mesh, axis)
+    if getattr(mesh, "member", True):
+        n, rank, group = mesh_axis(mesh, axis)
+    else:       # built on every rank, run only on the mesh's own
+        n, rank, group = mesh.size(), None, None
 
     def update_fn(pgm: PGM, logm: torch.Tensor):
+        if group is None:
+            mesh_axis(mesh, axis)       # raises: not on the mesh
         if not getattr(pgm, "rank_resident", False):
             e = logm.shape[0]
             if e % n or (e // n) % 2:

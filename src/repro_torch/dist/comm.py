@@ -47,11 +47,35 @@ replicated tensor are bitwise equal.
 
 ``STATS["collectives"]`` counts the calls of the collectives below, those
 of the backward passes included.
+
+Host data. Two more channels carry small host objects (pickled; ints,
+floats, short id lists, finished records), never tensors a computation
+reads:
+
+- ``publish``: one object from rank 0 of a gloo group to every rank of it
+  (the decisions a sharded serving pipeline's leader takes for its group).
+  It runs on a gloo group on the mesh's ranks (``BPMesh.host_group``: the
+  mesh's own group under gloo, one beside it under NCCL), so nothing is
+  staged through the card and the card is never synchronized for a
+  decision. ``STATS["decisions"]``,
+  ``["decision_bytes"]`` and ``["decision_ms"]`` count the calls, their
+  payload bytes and their host milliseconds.
+- ``Channel``: point-to-point messages between ranks of a gloo group (the
+  router's front and the leaders of its replicas). A send completes once
+  the peer has posted the matching receive; a receive from no named peer
+  takes the next message of any.
+
+Every wait of both raises after the world's timeout (``world_timeout``):
+a rank that diverges fails, it does not hang. ``group_of`` makes each such
+group once per world.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import datetime
+import pickle
+import time
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,10 +83,14 @@ import torch.distributed as dist
 __all__ = ["STATS", "reset_stats", "transport", "all_gather",
            "all_gather_into", "all_gather_cat", "rank_order_sum", "enter",
            "all_reduce_count", "exchange", "send_next", "recv_prev",
-           "broadcast"]
+           "broadcast", "publish", "Channel", "world_timeout", "group_of"]
 
-#: collective calls and host-staged bytes since the last ``reset_stats``
-STATS: Dict[str, int] = {"collectives": 0, "staged_bytes": 0}
+#: collective calls and host-staged bytes, and the decision broadcasts
+#: (``publish``: calls, payload bytes, host milliseconds), since the last
+#: ``reset_stats``
+STATS: Dict[str, float] = {"collectives": 0, "staged_bytes": 0,
+                           "decisions": 0, "decision_bytes": 0,
+                           "decision_ms": 0.0}
 
 # all_gather_into_tensor under the name newer torch releases give it
 _GATHER_INTO = getattr(dist, "all_gather_single", None) or \
@@ -72,7 +100,52 @@ _GATHER_INTO = getattr(dist, "all_gather_single", None) or \
 def reset_stats() -> None:
     """Zero ``STATS``."""
     for k in STATS:
-        STATS[k] = 0
+        STATS[k] = 0.0 if k == "decision_ms" else 0
+
+
+def world_timeout() -> datetime.timedelta:
+    """The default process group's timeout, as the caller initialized it
+    (torch's default of 30 minutes where the backend does not say): the
+    timeout of every group and wait this package makes beside a mesh."""
+    backend = dist.get_backend()
+    device = torch.device("cuda" if backend == "nccl" else "cpu")
+    try:
+        pg = dist.distributed_c10d._get_default_group()
+        return pg._get_backend(device).options._timeout
+    except (AttributeError, RuntimeError):
+        return datetime.timedelta(minutes=30)
+
+
+# (backend, ranks, tag) -> process group, for the world in _GROUPS_OF
+_GROUPS: Dict[tuple, Any] = {}
+_GROUPS_OF: List[Any] = [None]
+
+
+def group_of(ranks: Sequence[int], backend: str | None = None,
+             tag: str | None = None):
+    """The process group on the ascending global ``ranks`` over
+    ``backend`` (the world's when ``None``): the world's own group where
+    that is the same ranks and backend and no ``tag`` is given, else one
+    ``new_group`` (with ``world_timeout()``), made the first time it is
+    asked for and reused for the rest of the world's life. A group that
+    ``new_group`` makes needs every rank of the world, members or not, so
+    every rank asks for the same groups in the same order. ``tag`` keeps a
+    group apart from any other on the same ranks (a channel that another
+    thread drives)."""
+    world = dist.group.WORLD
+    if _GROUPS_OF[0] is not world:      # a new world: the old groups died
+        _GROUPS.clear()
+        _GROUPS_OF[0] = world
+    ranks = tuple(int(r) for r in ranks)
+    backend = backend or dist.get_backend()
+    if tag is None and backend == dist.get_backend() and \
+            ranks == tuple(range(dist.get_world_size())):
+        return world
+    key = (backend, ranks, tag)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(ranks), backend=backend,
+                                      timeout=world_timeout())
+    return _GROUPS[key]
 
 
 def transport(group, device) -> str:
@@ -286,3 +359,73 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
         _host_staged(group, [], [t], lambda i, o: dist.broadcast(
             o[0], root, group=group))
     return t
+
+
+# ------------------------------------------------------------ host data --
+
+def _pickled(obj) -> torch.Tensor:
+    return torch.frombuffer(bytearray(pickle.dumps(
+        obj, protocol=pickle.HIGHEST_PROTOCOL)), dtype=torch.uint8)
+
+
+def _unpickled(buf: torch.Tensor):
+    return pickle.loads(buf.numpy().tobytes())
+
+
+def publish(obj: Any, group) -> Any:
+    """``obj`` of rank 0 of ``group`` (a gloo group), on every rank of it:
+    rank 0 passes the object, the others anything (``None``) and get rank
+    0's back. Two broadcasts, its size and its pickle; counted in
+    ``STATS`` as one decision."""
+    t0 = time.perf_counter()
+    root = dist.get_global_rank(group, 0)
+    size = torch.zeros(1, dtype=torch.int64)
+    if dist.get_rank(group) == 0:
+        buf = _pickled(obj)
+        size[0] = buf.numel()
+        dist.broadcast(size, root, group=group)
+        dist.broadcast(buf, root, group=group)
+    else:
+        dist.broadcast(size, root, group=group)
+        buf = torch.empty(int(size[0]), dtype=torch.uint8)
+        dist.broadcast(buf, root, group=group)
+        obj = _unpickled(buf)
+    STATS["decisions"] += 1
+    STATS["decision_bytes"] += int(size[0])
+    STATS["decision_ms"] += (time.perf_counter() - t0) * 1e3
+    return obj
+
+
+class Channel:
+    """Point-to-point messages of picklable host objects between ranks of
+    a gloo ``group`` (peers named by global rank). A message is a header
+    (sender, size) and its pickle, under two tags; ``recv()`` with no peer
+    takes the next header of any. One thread of a process uses a channel
+    at a time (gloo takes one operation per group at once); each wait
+    raises after ``world_timeout()``."""
+
+    HEAD, BODY = 1, 2
+
+    def __init__(self, group):
+        self.group = group
+        self.timeout = world_timeout()
+
+    def send(self, obj: Any, dst: int) -> None:
+        """Send ``obj`` to global rank ``dst``; returns once it took it."""
+        body = _pickled(obj)
+        head = torch.tensor([dist.get_rank(), body.numel()],
+                            dtype=torch.int64)
+        for t, tag in ((head, self.HEAD), (body, self.BODY)):
+            dist.isend(t, dst, group=self.group, tag=tag).wait(self.timeout)
+
+    def recv(self, src: "int | None" = None) -> Tuple[int, Any]:
+        """``(sender's global rank, object)``: the next message from
+        ``src``, or from any peer when ``src`` is ``None``."""
+        head = torch.empty(2, dtype=torch.int64)
+        dist.irecv(head, src, group=self.group,
+                   tag=self.HEAD).wait(self.timeout)
+        src = int(head[0])
+        body = torch.empty(int(head[1]), dtype=torch.uint8)
+        dist.irecv(body, src, group=self.group,
+                   tag=self.BODY).wait(self.timeout)
+        return src, _unpickled(body)

@@ -21,10 +21,15 @@ bitwise-invisible in results -- a request's trajectory depends only on
 running each replica's share through ``serve_async`` solo.
 
 Entry points: :func:`serve_routed` (collect everything), :class:`Router`
-(incremental generator + context manager).
+(incremental generator + context manager). An engine list on sub-meshes of
+a ``torch.distributed`` world (``repro_torch.dist.make_sharded_engine``,
+one mesh a replica) spans processes: world rank 0 is the front, each mesh's
+rank 0 leads its replica, and a :class:`RemoteReplica` stands for a replica
+led elsewhere (``router``'s module docstring).
 """
 
-from repro_torch.serve.replica import Replica, ReplicaLoad, RoutedRecord
+from repro_torch.serve.replica import (RemoteReplica, Replica, ReplicaLoad,
+                                       RoutedRecord)
 from repro_torch.serve.router import (Router, RouterResult, RouterStats,
                                       serve_routed)
 from repro_torch.serve.routing import (DeadlineRouting, KindAffinityRouting,
@@ -37,7 +42,8 @@ from repro_torch.serve.routing import (DeadlineRouting, KindAffinityRouting,
 __all__ = [
     "DeadlineRouting", "KindAffinityRouting", "LeastLoadedRouting",
     "ROUTING_POLICIES",
-    "Replica", "ReplicaLoad", "RoundRobinRouting", "RoutedRecord",
+    "RemoteReplica", "Replica", "ReplicaLoad", "RoundRobinRouting",
+    "RoutedRecord",
     "Router", "RouterResult", "RouterStats", "RoutingPolicy",
     "get_routing_policy", "list_routing_policies",
     "register_routing_policy", "serve_routed",

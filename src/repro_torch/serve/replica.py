@@ -28,6 +28,21 @@ the router recorded on the submitting thread's stream; the replica's
 source has its pull wait on it, and staging waits on the pull's own event
 (``repro_torch.core.serving``), so the graph is read after its producer.
 
+**Replicas on sub-meshes** (``repro_torch.serve.router``): a replica
+whose engine is sharded over a group of ranks runs in every process of the
+group. Its leader (the group's rank 0) runs the ``Replica`` -- the feeder
+and the source -- and its pipeline decides for the group
+(``core.serving``); the followers run the same pipeline as followers over
+their own copy of the stream. Only world rank 0, the front, holds the
+inboxes: a leader in another process pulls its requests from the front
+by a blocking request over a ``dist.comm.Channel`` (``_FrontLink``), and
+the front keeps a :class:`RemoteReplica` as its stand-in (inbox, the load
+the leader reports after each cycle, its stats at the end). The graph
+itself never travels: every rank passes the same stream, and a rank takes
+a request's graph from its own copy by rid. An absolute router-clock
+deadline leaves the front as a *remaining* budget, and released records
+come back to the front on the host.
+
 Work stealing happens at the inbox boundary, *before* a request is staged:
 when this replica's pending work (inbox + feeder buffer + staged) drains
 below ``low_watermark``, its source invokes the router's steal hook, which
@@ -43,20 +58,27 @@ from __future__ import annotations
 import dataclasses
 import queue as _queue
 import threading
+import time
+import traceback
 from collections import deque
 from typing import Callable, Deque, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.batch import RoundsHistory
-from repro_torch.core.engine import BPEngine
+from repro_torch.core.engine import BPEngine, BPResult
 from repro_torch.core.graph import PGM
-from repro_torch.core.serving import RequestRecord, ServingPipeline
+from repro_torch.core.serving import (AsyncServeStats, RequestRecord,
+                                      ServingPipeline, _Provider)
 
-__all__ = ["Replica", "ReplicaLoad", "RoutedRecord"]
+__all__ = ["Replica", "ReplicaLoad", "RemoteReplica", "RoutedRecord"]
 
 _CLOSED = object()
 _EMPTY = object()
+
+#: seconds a remote leader waits before asking again when its inbox at the
+#: front is empty
+PULL_POLL_S = 0.005
 
 
 @dataclasses.dataclass
@@ -163,6 +185,25 @@ class ReplicaLoad:
         return self.effort
 
 
+def _load(index: int, inbox: "_Inbox", history: RoundsHistory | None,
+          staged: int, in_flight: int) -> ReplicaLoad:
+    """A :class:`ReplicaLoad`: each inbox request weighted by ``history``'s
+    expected rounds for its kind (``RoundsHistory.mean`` falls back kind ->
+    global -> 1.0 cold, so unobserved kinds assume the tier-wide average);
+    staged/in-flight requests weigh the global fallback since their kinds
+    are already device-committed. ``urgent`` counts deadlined inbox
+    requests -- the deadline routing policy's signal."""
+    snap = inbox.snapshot()
+    fallback = 1.0 if history is None else history.mean(None, default=1.0)
+    est = [fallback if history is None
+           else history.mean(("routed", k), default=fallback)
+           for k, _ in snap]
+    effort = sum(est) + (staged + in_flight) * fallback
+    return ReplicaLoad(replica=index, inbox=len(snap), staged=staged,
+                       in_flight=in_flight, effort=effort,
+                       urgent=sum(1 for _, d in snap if d is not None))
+
+
 class _Inbox:
     """Bounded, stealable inbound queue (one lock + condition).
 
@@ -247,7 +288,152 @@ class _Inbox:
             self._cond.notify_all()
 
 
-class Replica:
+def _take(rep, steal, timeout: float):
+    """The next request for replica ``rep`` from its inbox: the request,
+    ``_EMPTY`` (nothing yet) or ``_CLOSED`` (no more). ``steal`` (the
+    router's hook, or ``None``) is tried whenever ``rep``'s pending work is
+    below its low watermark. Once the stream finished and the inbox
+    drained, peers may still hold stealable work: stay while buckets are
+    busy; once pending drains below the watermark, a steal that comes back
+    empty means no peer is above *its* watermark -- and post-finish inboxes
+    only shrink, so nothing more can arrive."""
+    inbox = rep._inbox
+    if steal is not None and not inbox.dead and \
+            rep.pending() < rep.low_watermark:
+        steal(rep)
+    got = inbox.pop(timeout=timeout)
+    if got is not _CLOSED:
+        return got
+    if inbox.dead or steal is None:
+        return _CLOSED
+    if rep.pending() >= rep.low_watermark:
+        return _EMPTY
+    if not steal(rep) and not len(inbox):
+        return _CLOSED
+    return _EMPTY
+
+
+class _Routed:
+    """What the router reaches on every replica, local or remote: the
+    inbox it dispatches into and steals from, and the counters."""
+
+    def __init__(self, index: int, low_watermark: int, inbox_capacity: int):
+        self.index = index
+        self.low_watermark = max(0, low_watermark)
+        self._inbox = _Inbox(inbox_capacity)
+        self.submitted = 0
+        self.stolen_in = 0
+        self.stolen_out = 0
+        self.served = 0
+
+    def submit(self, req: _Request) -> None:
+        """Enqueue one routed request (router thread; blocks while the
+        inbox is at capacity -- the tier's backpressure)."""
+        self._inbox.put(req)
+        self.submitted += 1
+
+    def finish(self) -> None:
+        """No more submissions: drain the inbox, serve what remains (and
+        keep stealing from deeper peers), then exit."""
+        self._inbox.finish()
+
+    def steal_into(self, reqs: List[_Request]) -> None:
+        """Transplant stolen requests into this inbox (steal hook side;
+        bypasses the capacity bound -- the work was already admitted
+        tier-wide)."""
+        for r in reqs:
+            r.stolen = True
+            self._inbox.put(r, force=True)
+        self.stolen_in += len(reqs)
+
+    def steal_from(self, k: int) -> List[_Request]:
+        """Give up to ``k`` tail requests, keeping ``low_watermark``."""
+        out = self._inbox.steal(k, self.low_watermark)
+        self.stolen_out += len(out)
+        return out
+
+
+class RemoteReplica(_Routed):
+    """The front's stand-in for a replica whose leader, global rank
+    ``leader``, is another process: the replica's inbox (routed into,
+    stolen from, drained by the leader's pulls over the channel), the load
+    the leader last reported (``report``: requests ahead of its device --
+    feeder buffer plus staged --, staged, in flight) and the pipeline
+    stats it sent at its end (``stats``)."""
+
+    def __init__(self, index: int, leader: int, *,
+                 history: RoundsHistory | None = None,
+                 low_watermark: int = 2, inbox_capacity: int = 64):
+        super().__init__(index, low_watermark, inbox_capacity)
+        self.leader = leader
+        self._history = history
+        self._reported = (0, 0, 0)
+        self.stats = AsyncServeStats()
+
+    def start(self) -> "RemoteReplica":
+        return self
+
+    def close(self) -> None:
+        """Abandon queued work: the leader's next pull is told to end."""
+        self._inbox.close()
+
+    def report(self, ahead: int, staged: int, in_flight: int) -> None:
+        self._reported = (int(ahead), int(staged), int(in_flight))
+
+    def pending(self) -> int:
+        return len(self._inbox) + self._reported[0]
+
+    def load(self) -> ReplicaLoad:
+        return _load(self.index, self._inbox, self._history,
+                     *self._reported[1:])
+
+
+class _FrontLink:
+    """A remote leader's end of the channel to the front (world rank 0):
+    its pulls (each answered at once: a request, ``("empty",)`` or
+    ``("closed",)``), its load reports, its records (on the host) and its
+    end. A lock keeps one thread at a time on the channel; after ``done``
+    every pull answers ``("closed",)``."""
+
+    FRONT = 0
+
+    def __init__(self, channel):
+        self._ch = channel
+        self._lock = threading.Lock()
+        self._closed = False
+
+    def _send(self, msg) -> None:
+        with self._lock:
+            if not self._closed:
+                self._ch.send(msg, self.FRONT)
+
+    def pull(self, ahead: int, staged: int, in_flight: int):
+        with self._lock:
+            if self._closed:
+                return ("closed",)
+            self._ch.send(("pull", ahead, staged, in_flight), self.FRONT)
+            return self._ch.recv(self.FRONT)[1]
+
+    def report(self, ahead: int, staged: int, in_flight: int) -> None:
+        self._send(("load", ahead, staged, in_flight))
+
+    def emit(self, rec: "RoutedRecord") -> None:
+        res = rec.record.result
+        host = BPResult(**{
+            f.name: (lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                     else x)(getattr(res, f.name))
+            for f in dataclasses.fields(BPResult)})
+        self._send(("rec", dataclasses.replace(
+            rec, record=dataclasses.replace(rec.record, result=host))))
+
+    def done(self, error: str | None, stats: AsyncServeStats) -> None:
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._ch.send(("done", error, stats), self.FRONT)
+
+
+class Replica(_Routed):
     """One serving worker: a ``ServingPipeline`` driven on its own thread
     from a bounded inbox, emitting :class:`RoutedRecord`\\ s onto a shared
     output queue.
@@ -269,7 +455,13 @@ class Replica:
     stream complete (the replica drains and exits); ``close()`` abandons
     queued work, joins the replica thread, and closes the pipeline
     (joining its feeder threads). The router calls these; replicas are not
-    usually driven by hand."""
+    usually driven by hand.
+
+    On a sub-mesh the router sets ``link`` (a ``_FrontLink``) on a leader
+    in another process than the front, and ``requests`` (the whole stream)
+    on it and on a follower: the leader then pulls its requests from the
+    front and takes their graphs from ``requests`` by rid, and a
+    follower's pipeline follows its leader over ``requests``."""
 
     def __init__(self, engine: BPEngine, rng, *, index: int = 0,
                  out: "Optional[_queue.Queue]" = None,
@@ -296,24 +488,19 @@ class Replica:
             # aware policy reads/writes one shared (internally locked)
             # history.
             admission_kwargs.setdefault("history", history)
-        self.index = index
+        super().__init__(index, low_watermark, inbox_capacity)
         self.stream = (torch.cuda.Stream(engine.device)
                        if engine.device.type == "cuda" else None)
-        self.low_watermark = max(0, low_watermark)
         self._history = history
         self._steal_fn = steal_fn
-        self._inbox = _Inbox(inbox_capacity)
         self._out: _queue.Queue = out if out is not None else _queue.Queue()
-        self._meta: dict[int, _Request] = {}
         self.pipeline = ServingPipeline(
             engine, rng, growth=growth, prefetch=prefetch,
             ingest_threads=max(1, ingest_threads),
             ingest_queue=ingest_queue, admission=admission,
             admission_kwargs=admission_kwargs, **pipeline_kwargs)
-        self.submitted = 0
-        self.stolen_in = 0
-        self.stolen_out = 0
-        self.served = 0
+        self.link: _FrontLink | None = None
+        self.requests = None            # the whole stream, on a sub-mesh
         self._thread = threading.Thread(
             target=self._run, name=f"bp-replica-{index}", daemon=True)
 
@@ -324,16 +511,10 @@ class Replica:
         self._thread.start()
         return self
 
-    def submit(self, req: _Request) -> None:
-        """Enqueue one routed request (router thread; blocks while the
-        inbox is at capacity -- the tier's backpressure)."""
-        self._inbox.put(req)
-        self.submitted += 1
-
-    def finish(self) -> None:
-        """No more submissions: drain the inbox, serve what remains (and
-        keep stealing from deeper peers), then exit."""
-        self._inbox.finish()
+    @property
+    def stats(self) -> AsyncServeStats:
+        """The pipeline's stats."""
+        return self.pipeline.stats
 
     def close(self, *, join_timeout: float = 5.0) -> None:
         """Abandon queued work and tear the replica down: close the inbox
@@ -363,77 +544,38 @@ class Replica:
                 continue
         return 0
 
-    def pending(self) -> int:
-        """Requests queued ahead of the device: inbox + feeder buffer +
-        staged (the steal trigger's watermark quantity)."""
+    def _ahead(self) -> Tuple[int, int, int]:
+        """(feeder buffer + staged, staged, in flight): this replica's
+        requests between its inbox and its released results."""
         feeder = self.pipeline._feeder
         buffered = feeder._q.qsize() if feeder is not None else 0
-        return len(self._inbox) + buffered + self._staged()
-
-    def load(self) -> ReplicaLoad:
-        """A :class:`ReplicaLoad` snapshot for routing decisions. Effort
-        weights each inbox request by the shared history's expected rounds
-        for its kind (``RoundsHistory.mean`` falls back kind -> global ->
-        1.0 cold, so unobserved kinds assume the tier-wide average);
-        staged/in-flight requests weigh the global fallback since their
-        kinds are already device-committed. ``urgent`` counts deadlined
-        inbox requests -- the deadline routing policy's signal."""
-        snap = self._inbox.snapshot()
-        fallback = 1.0 if self._history is None \
-            else self._history.mean(None, default=1.0)
-        est = [fallback if self._history is None
-               else self._history.mean(("routed", k), default=fallback)
-               for k, _ in snap]
         staged = self._staged()
         stats = self.pipeline.stats
         in_flight = max(0, int(stats.staged) - int(stats.evacuated) - staged)
-        effort = sum(est) + (staged + in_flight) * fallback
-        return ReplicaLoad(replica=self.index, inbox=len(snap),
-                           staged=staged, in_flight=in_flight, effort=effort,
-                           urgent=sum(1 for _, d in snap if d is not None))
+        return buffered + staged, staged, in_flight
+
+    def pending(self) -> int:
+        """Requests queued ahead of the device: inbox + feeder buffer +
+        staged (the steal trigger's watermark quantity)."""
+        return len(self._inbox) + self._ahead()[0]
+
+    def load(self) -> ReplicaLoad:
+        """A :class:`ReplicaLoad` snapshot for routing decisions (see
+        ``_load``)."""
+        return _load(self.index, self._inbox, self._history,
+                     *self._ahead()[1:])
 
     # -- the serving thread ------------------------------------------------
-
-    def steal_into(self, reqs: List[_Request]) -> None:
-        """Transplant stolen requests into this inbox (steal hook side;
-        bypasses the capacity bound -- the work was already admitted
-        tier-wide)."""
-        for r in reqs:
-            r.stolen = True
-            self._inbox.put(r, force=True)
-        self.stolen_in += len(reqs)
-
-    def steal_from(self, k: int) -> List[_Request]:
-        """Give up to ``k`` tail requests, keeping ``low_watermark``."""
-        out = self._inbox.steal(k, self.low_watermark)
-        self.stolen_out += len(out)
-        return out
 
     def _source(self):
         """The pipeline's request iterator: drain the inbox, triggering a
         steal whenever pending work falls below the low watermark. Runs on
         the pipeline's ingest feeder thread, so blocking here never stalls
         resident buckets."""
-        inbox = self._inbox
         while True:
-            if (self._steal_fn is not None and not inbox.dead
-                    and self.pending() < self.low_watermark):
-                self._steal_fn(self)
-            got = inbox.pop(timeout=0.05)
+            got = _take(self, self._steal_fn, 0.05)
             if got is _CLOSED:
-                if inbox.dead or self._steal_fn is None:
-                    return
-                # Stream finished and inbox drained -- but peers may still
-                # hold stealable work. Stay alive while buckets are busy;
-                # once pending drains below the watermark, a steal attempt
-                # that comes back empty means no peer is above *its*
-                # watermark -- and post-finish inboxes only shrink, so
-                # nothing more can ever arrive: exit.
-                if self.pending() >= self.low_watermark:
-                    continue
-                if not self._steal_fn(self) and not len(inbox):
-                    return
-                continue
+                return
             if got is _EMPTY:
                 continue
             if got.ready is not None:
@@ -441,7 +583,7 @@ class Replica:
                 # current stream) must follow the graph's producer.
                 torch.cuda.current_stream(got.pgm.device).wait_event(
                     got.ready)
-            self._meta[got.rid] = got
+            self.pipeline.tags[got.rid] = (got.kind, got.stolen, got.t_route)
             if got.deadline is None:
                 yield got.rid, got.pgm, None
             else:
@@ -452,6 +594,25 @@ class Replica:
                 yield (got.rid, got.pgm,
                        max(got.deadline - self.pipeline.clock(), 0.0))
 
+    def _pulled(self):
+        """A remote leader's source: its requests pulled from the front
+        (``link``), their graphs taken by rid from its copy of the whole
+        stream (``requests``). Runs on the feeder thread."""
+        provider = _Provider(iter(self.requests), self.pipeline._wait_s)
+        while True:
+            got = self.link.pull(*self._ahead())
+            if got[0] == "closed":
+                return
+            if got[0] == "empty":
+                time.sleep(PULL_POLL_S)
+                continue
+            _, rid, slo, tag = got
+            pgm, ready = provider.take(rid)
+            if ready is not None:
+                torch.cuda.current_stream(pgm.device).wait_event(ready)
+            self.pipeline.tags[rid] = tag
+            yield rid, pgm, slo
+
     def _run(self) -> None:
         err: BaseException | None = None
         try:
@@ -461,12 +622,28 @@ class Replica:
             err = e
         finally:
             self.pipeline.close()
+            if self.link is not None:
+                try:
+                    self.link.done(None if err is None else "".join(
+                        traceback.format_exception(err)),
+                        self.pipeline.stats)
+                except RuntimeError as e:   # the front is gone (timeout)
+                    err = err or e
             self._out.put(("done", self.index, err))
 
     def _serve(self) -> None:
-        """The serving loop, on this replica's stream (``_run``)."""
-        for rec in self.pipeline.serve(self._source()):
-            req = self._meta.pop(rec.rid)
+        """The serving loop, on this replica's stream (``_run``): the
+        inbox (or, on a sub-mesh, the front's pulls or the leader's
+        decisions) in, routed records out."""
+        if self.pipeline.role == "follower":
+            source = self.requests
+        elif self.link is not None:
+            source = self._pulled()
+            self.pipeline.on_cycle = lambda: self.link.report(*self._ahead())
+        else:
+            source = self._source()
+        for rec in self.pipeline.serve(source):
+            kind, stolen, t_route = self.pipeline.tags.pop(rec.rid)
             if self.stream is not None:
                 # The record's tensors, finished for readers on any stream.
                 self.stream.synchronize()
@@ -474,10 +651,11 @@ class Replica:
                 # Evicted round counts are truncation artifacts, not
                 # effort samples -- feeding them in would teach the
                 # predictor that hard requests are cheap.
-                self._history.observe(("routed", req.kind), 0.0,
+                self._history.observe(("routed", kind), 0.0,
                                       float(rec.result.rounds))
             self.served += 1
-            self._out.put(("rec", self.index,
-                           RoutedRecord(replica=self.index,
-                                        kind=req.kind, stolen=req.stolen,
-                                        t_route=req.t_route, record=rec)))
+            routed = RoutedRecord(replica=self.index, kind=kind,
+                                  stolen=stolen, t_route=t_route, record=rec)
+            if self.link is not None:
+                self.link.emit(routed)
+            self._out.put(("rec", self.index, routed))

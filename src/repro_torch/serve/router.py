@@ -33,6 +33,41 @@ can run while another replica's thread does host work. A graph that
 arrives on the card carries an event recorded on the submitting thread's
 current stream as the router pulls it; staging waits on it before
 reading the graph.
+
+**Replicas on sub-meshes.** An engine list whose engines are sharded
+(``repro_torch.dist.make_sharded_engine``), each on its own sub-mesh of a
+``torch.distributed`` world (``dist.make_bp_mesh(ranks=...)``; the meshes
+disjoint, their union the world), makes the tier span processes. Every
+rank builds the same meshes and engines and calls ``Router(engines, ...)``
+and ``serve(stream)`` with the same stream; a rank runs only the replica
+whose mesh holds it.
+
+- **World rank 0 is the front**: it pulls the stream, routes through the
+  unchanged policies, keeps every inbox, arbitrates steals
+  (``_steal_for``, local to it), merges every replica's records in
+  completion order and keeps ``RouterStats``. It also leads its own
+  replica, on a thread as above. A ``RemoteReplica`` stands for each other
+  replica, and one thread (``_desk``) owns the channel to their leaders.
+- **A replica's leader** (its mesh's rank 0) runs the replica: it pulls
+  its requests from the front, takes their graphs from its own copy of the
+  stream by rid, takes the group's serving decisions (``core.serving``),
+  reports its load after each cycle and sends its records to the front on
+  the host.
+- **A follower** runs the same pipeline over the stream and applies its
+  leader's decisions.
+- **Records.** The front's ``RouterResult`` holds every record, and
+  ``serve`` yields every record there in completion order, as the
+  reference's one process does; another rank's result holds its
+  replica's records (the same on every rank of the group) and its stats
+  only that replica's pipeline stats (``RouterStats.routed`` stays zero).
+- **History and clocks.** One ``RoundsHistory`` cannot span processes:
+  the front's feeds routing (``least_loaded``'s effort), from every
+  replica's records, and each leader's feeds its own admission policy.
+  Times are each process's ``clock`` (``perf_counter``: one host's
+  monotonic clock), so ``t_route`` (the front's) and a record's stamps
+  (its leader's) compare only on one host; a deadline leaves the front as
+  a remaining budget. None of this moves a result bit, only where and when
+  requests run.
 """
 
 from __future__ import annotations
@@ -42,15 +77,16 @@ import inspect
 import queue as _queue
 import threading
 import time
-from typing import Dict, Iterable, Iterator, List, Sequence
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.batch import RoundsHistory, bucket_shape
 from repro_torch.core.engine import BPConfig, BPEngine
 from repro_torch.core.serving import AsyncServeStats, _entry_event
-from repro_torch.serve.replica import (Replica, ReplicaLoad, RoutedRecord,
-                                       _Request)
+from repro_torch.serve.replica import (_CLOSED, _EMPTY, RemoteReplica,
+                                       Replica, ReplicaLoad, RoutedRecord,
+                                       _FrontLink, _Request, _take)
 from repro_torch.serve.routing import RoutingPolicy, get_routing_policy
 
 __all__ = ["Router", "RouterResult", "RouterStats", "serve_routed"]
@@ -83,7 +119,8 @@ class RouterResult:
 
     records: List[RoutedRecord]
     stats: RouterStats
-    replica_stats: List[AsyncServeStats]
+    replica_stats: List[AsyncServeStats]    # on a sub-mesh's non-front
+                                            # rank, its replica's alone
 
     @property
     def results(self) -> List:
@@ -179,7 +216,12 @@ class Router:
     ``serve(stream)`` is a one-shot generator of
     :class:`~repro_torch.serve.replica.RoutedRecord` in completion order; a
     router is a context manager, and :func:`serve_routed` wraps the whole
-    lifecycle for collect-everything callers."""
+    lifecycle for collect-everything callers.
+
+    An engine list on sub-meshes (the module docstring) spans the world's
+    processes: call the constructor and ``serve`` on every rank alike.
+    ``front`` is True on world rank 0; ``index`` is the replica this rank
+    runs (``None`` off a sub-mesh)."""
 
     def __init__(self, engine, rng, *,
                  replicas: int | None = None,
@@ -210,15 +252,9 @@ class Router:
                 raise TypeError(
                     "engine must be a BPConfig, a BPEngine, or a sequence "
                     f"of BPEngines, got {type(engine).__name__}")
-        if any(getattr(e.update_fn, "mesh", None) is not None
-               for e in engines):
-            raise NotImplementedError(
-                "the router tier places requests by load and runs each "
-                "replica on its own thread, so ranks of the sharded backend "
-                "would issue their collectives in different orders and "
-                "deadlock; serve through serve_async, one pipeline per rank")
         if steal_batch < 1:
             raise ValueError(f"steal_batch must be >= 1, got {steal_batch}")
+        ranks = _replica_ranks(engines)
         self.rng = rng
         self.growth = growth
         self.steal = steal
@@ -241,13 +277,41 @@ class Router:
         self._steal_lock = threading.Lock()
         self.stats = RouterStats(policy=self._policy.name, steal=steal,
                                  routed=[0] * len(engines))
-        self.replicas = [
-            Replica(eng, rng, index=i, out=self._out, history=self._history,
-                    steal_fn=self._steal_for if steal else None,
-                    low_watermark=low_watermark,
-                    inbox_capacity=inbox_capacity, growth=growth,
-                    **replica_kwargs)
-            for i, eng in enumerate(engines)]
+        kw = dict(out=self._out, history=self._history,
+                  low_watermark=low_watermark, inbox_capacity=inbox_capacity,
+                  growth=growth, **replica_kwargs)
+        self._channel = None
+        self._desk_thread: threading.Thread | None = None
+        self.front, self.index = True, None
+        if ranks is None:
+            self.replicas = [
+                Replica(eng, rng, index=i,
+                        steal_fn=self._steal_for if steal else None, **kw)
+                for i, eng in enumerate(engines)]
+        else:
+            import torch.distributed as dist
+            from repro_torch.dist import comm
+            me = dist.get_rank()
+            self.index = next(k for k, r in enumerate(ranks) if me in r)
+            self.front = me == 0
+            leaders = sorted(r[0] for r in ranks)
+            if len(leaders) > 1:        # every rank asks for the group
+                self._channel = comm.Channel(comm.group_of(
+                    leaders, "gloo", tag="channel"))
+            mine = Replica(engines[self.index], rng, index=self.index,
+                           steal_fn=(self._steal_for if steal and self.front
+                                     else None), **kw)
+            if self.front:
+                self.replicas = [
+                    mine if k == self.index else RemoteReplica(
+                        k, r[0], history=self._history,
+                        low_watermark=low_watermark,
+                        inbox_capacity=inbox_capacity)
+                    for k, r in enumerate(ranks)]
+            else:
+                self.replicas = [mine]
+                if me == ranks[self.index][0]:
+                    mine.link = _FrontLink(self._channel)
         self._arrival = 0
         self._live = 0
         self._explicit_rids = False
@@ -297,16 +361,25 @@ class Router:
         travels with the request (across steals too), and the replica
         charges routing + inbox wait against the budget. A graph on the GPU
         carries an event recorded on this thread's current stream as it is
-        pulled (``serving._entry_event``)."""
+        pulled (``serving._entry_event``). On a sub-mesh every rank passes
+        the same stream; a rank other than the front yields its replica's
+        records."""
         if self._started:
             raise ValueError("Router.serve is one-shot; build a fresh "
                              "Router per stream")
         if self._closed:
             raise ValueError("Router is closed")
         self._started = True
+        if not self.front:
+            yield from self._serve_replica(stream)
+            return
         for r in self.replicas:
             r.start()
         self._live = len(self.replicas)
+        if any(isinstance(r, RemoteReplica) for r in self.replicas):
+            self._desk_thread = threading.Thread(
+                target=self._desk, name="bp-router-desk", daemon=True)
+            self._desk_thread.start()
         try:
             for item in iter(stream):
                 t = self.clock()
@@ -352,6 +425,69 @@ class Router:
         finally:
             self.close()
 
+    def _serve_replica(self, stream: Iterable) -> Iterator[RoutedRecord]:
+        """A rank other than the front: run this rank's replica -- as its
+        leader, pulling from the front, or as a follower -- over
+        ``stream``, yielding its records."""
+        mine, = self.replicas
+        mine.requests = stream
+        mine.start()
+        self._live = 1
+        try:
+            while self._live:
+                yield from self._drain(block=True)
+        finally:
+            self.close()
+
+    def _dispatch(self, rep: RemoteReplica):
+        """The front's answer to a pull of ``rep``'s leader: its next
+        request (``("item", rid, remaining budget, (kind, stolen,
+        t_route))``), ``("empty",)`` or ``("closed",)`` -- the rules of
+        ``Replica._source`` (``replica._take``) on the front's inbox,
+        stealing for it."""
+        got = _take(rep, self._steal_for if self.steal else None, 0.0)
+        if got is _CLOSED:
+            return ("closed",)
+        if got is _EMPTY:
+            return ("empty",)
+        slo = None if got.deadline is None else max(
+            got.deadline - self.clock(), 0.0)
+        return ("item", got.rid, slo, (got.kind, got.stolen, got.t_route))
+
+    def _desk(self) -> None:
+        """The front's end of the channel, on its own thread: answers the
+        remote leaders' pulls, takes their load reports, their records
+        (onto the output queue, the front's history fed) and their ends.
+        An error ends every remote replica still live."""
+        remote = {r.leader: r for r in self.replicas
+                  if isinstance(r, RemoteReplica)}
+        try:
+            while remote:
+                src, msg = self._channel.recv()
+                rep = remote[src]
+                if msg[0] == "pull":
+                    rep.report(*msg[1:])
+                    self._channel.send(self._dispatch(rep), src)
+                elif msg[0] == "load":
+                    rep.report(*msg[1:])
+                elif msg[0] == "rec":
+                    rec = msg[1]
+                    rep.served += 1
+                    if not rec.evicted:
+                        self._history.observe(("routed", rec.kind), 0.0,
+                                              float(rec.result.rounds))
+                    self._out.put(("rec", rep.index, rec))
+                else:                   # ("done", error text, stats)
+                    rep.stats = msg[2]
+                    del remote[src]
+                    self._out.put(("done", rep.index, None if msg[1] is None
+                                   else RuntimeError(
+                                       f"replica {rep.index} (leader rank "
+                                       f"{src}) failed:\n{msg[1]}")))
+        except BaseException as e:      # surfaced on the router thread
+            for rep in remote.values():
+                self._out.put(("done", rep.index, e))
+
     def _drain(self, block: bool) -> Iterator[RoutedRecord]:
         """Pull completed records off the shared output queue: everything
         currently available, waiting for at most one item when ``block``.
@@ -382,6 +518,9 @@ class Router:
         self._closed = True
         for r in self.replicas:
             r.close()
+        if self._desk_thread is not None:
+            # the remote leaders' next pulls are answered "closed"
+            self._desk_thread.join(timeout=30.0)
 
     def __enter__(self) -> "Router":
         return self
@@ -409,4 +548,30 @@ def serve_routed(engine, stream, rng, *,
         records = list(router.serve(stream))
         return RouterResult(
             records=records, stats=router.stats,
-            replica_stats=[r.pipeline.stats for r in router.replicas])
+            replica_stats=[r.stats for r in router.replicas])
+
+
+def _replica_ranks(engines) -> "List[Tuple[int, ...]] | None":
+    """Each engine's mesh's global ranks when the engines are sharded (one
+    sub-mesh a replica), or ``None`` when none is: the meshes must be
+    disjoint, cover the world, and world rank 0 must lead its own."""
+    meshes = [getattr(e.update_fn, "mesh", None) for e in engines]
+    if all(m is None for m in meshes):
+        return None
+    if any(m is None for m in meshes):
+        raise ValueError("a router's engines are all sharded, one sub-mesh "
+                         "a replica, or none is")
+    import torch.distributed as dist
+    if not all(hasattr(m, "ranks") for m in meshes):
+        raise ValueError("a router's sub-meshes are built by "
+                         "repro_torch.dist.make_bp_mesh")
+    ranks = [m.ranks for m in meshes]
+    flat = sorted(r for rs in ranks for r in rs)
+    if flat != list(range(dist.get_world_size())):
+        raise ValueError(f"the replicas' meshes {ranks} must be disjoint "
+                         f"and cover the world of {dist.get_world_size()} "
+                         "ranks")
+    if not any(r[0] == 0 for r in ranks):
+        raise ValueError(f"world rank 0, the front, must be rank 0 of its "
+                         f"replica's mesh: {ranks}")
+    return ranks

@@ -234,7 +234,11 @@ def test_serving_phase_on_cpu(counted):
         {"launches": {"fused_update_e/sum": 17, "fused_update_e/max": 18,
                       "fused_update_t/sum": 19}},
         {"launches": {"fused_update_e/sum": 20, "fused_update_e/max": 21,
-                      "fused_update_t/sum": 22}})
+                      "fused_update_t/sum": 22}},
+        {"launches": {"fused_update_e/sum": 23}})
+    assert [by_path[k]["sub_meshes"] for k in (
+        "fused_update_e/sum", "fused_update_e/max",
+        "fused_update_t/sum")] == [23, 0, 0]
     assert [by_path[k]["lm_blocks"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [20, 21, 22]
@@ -245,7 +249,7 @@ def test_serving_phase_on_cpu(counted):
     assert [by_path[k]["lm_sharded_train"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [17, 18, 19]
-    assert all(len(by_path[k]) == 12 for k in by_path)
+    assert all(len(by_path[k]) == 13 for k in by_path)
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -427,9 +431,41 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
-                      "fused_update_t/sum": 0}})
+                      "fused_update_t/sum": 0}},
+        {"launches": {"fused_update_e/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
+
+
+def test_submesh_phase_on_cpu(tmp_path):
+    """Phase 23 at a tiny size over gloo: four spawned ranks in two
+    sub-meshes of two; (a) ``serve_async`` on one sub-mesh under wall-clock
+    ``windowed`` admission with two ingest threads, both ranks' records
+    bitwise the one-device yardstick's; (b) ``serve_routed`` round robin
+    bitwise the yardstick with each share bitwise its solo sharded run,
+    and ``least_loaded`` with stealing on the skewed stream, at least one
+    steal, bitwise a one-device run; the slices against the plain update
+    (both plain here, so the spawned ranks launch nothing)."""
+    out = cs.phase_submesh(
+        CPU, tmp_path / "submesh", frames=2,
+        scene=dict(height=12, width=16, n_disp=4), zoo_n=4, max_rounds=200,
+        skew_fast=cs.SUB_SKEW_FAST, skew_hold=0.2)
+    assert out["requests"] == 6 and out["transport"] == "gloo"
+    for i, r in out["a"].items():
+        assert r["decisions"] == 2 * r["cycles"] + 1 > 2
+        assert r["requests_per_s"] > 0 and r["staged_bytes"] == 0
+        assert r["collectives"] > 3 * r["cycles"] and r["decision_bytes"]
+    assert out["rr"][0]["routed"] == [3, 3]
+    # the remote leader (rank 2) sent its replica's records to the front
+    assert [r["sent_to_front"]["records"] for r in out["rr"].values()] == \
+        [0, 0, 3, 0]
+    assert out["rr"][2]["sent_to_front"]["tensor_bytes"] > 0
+    assert out["ll"][0]["steals"] >= 1
+    assert out["launches"] == {"fused_update_e/sum": 0}
+    assert all(r["peak_memory_bytes"] == 0 for r in out["rr"].values())
+    assert out["kernel_check"] and out["max_abs_err"] == 0.0
+    assert not (tmp_path / "submesh").exists()
+    cs.log_submesh(out)
 
 
 def test_lm_phase_on_cpu():

@@ -232,7 +232,8 @@ def _checks_resilient(mesh, ckpt_dir, out):
 
 def _checks_buckets(mesh, out):
     """Twins of the bucket-fold and async-serving tests; the registry
-    path; the refusals of timing-driven serving."""
+    path; the calls that timing-driven serving makes, which the sharded
+    backend once refused."""
     from repro_torch.core import serve_async
     from repro_torch.serve import Router
     pgms = [TD.ising_grid(10 + (i % 3), 2.0, seed=i, device=CPU)
@@ -266,18 +267,20 @@ def _checks_buckets(mesh, out):
         compactions=rep.stats.compactions, backfilled=rep.stats.backfilled,
         same=[_same(r, o) for r, o in zip(rep.results, rep1.results)])
 
-    refused = []
-    for kwargs in (dict(admission="windowed"), dict(admission="deadline"),
-                   dict(ingest_threads=1)):
-        try:
-            serve_async(sharded, stream[:1], 0, **kwargs)
-        except NotImplementedError as e:
-            refused.append(str(e))
-    try:
-        Router([sharded], 0)
-    except NotImplementedError as e:
-        refused.append(str(e))
-    out["refused"] = refused
+    timed = {}
+    for name, kwargs in (("windowed", dict(admission="windowed")),
+                         ("deadline", dict(admission="deadline")),
+                         ("ingest", dict(ingest_threads=1))):
+        rep = serve_async(sharded, stream, 0, **kwargs)
+        timed[name] = [(r.rid, all(_same(r.result, rep1.results[r.rid])
+                                   .values())) for r in rep.records]
+    online = serve_async(_engine("lbp", eps=1e-5, max_rounds=192),
+                         iter(stream), 0)
+    with Router([sharded], 0) as router:
+        timed["router"] = [(r.rid, all(_same(
+            r.result, online.results[r.rid]).values()))
+            for r in router.serve(iter(stream))]
+    out["timed"] = timed
 
     g = TD.ising_grid(8, 1.5, seed=0, device=CPU)
     from repro_torch.core import BPEngine
@@ -464,10 +467,17 @@ def test_async_serving_through_sharded_backend(worlds, world):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_sharded_backend_refuses_timing_driven_serving(worlds, world):
-    refused = worlds[world][0]["refused"]
-    assert len(refused) == 4
-    assert all("sharded" in m for m in refused)
-    assert "'windowed'" in refused[0] and "'deadline'" in refused[1]
+    """The four calls the sharded backend once refused -- ``windowed`` and
+    ``deadline`` admission on the wall clock, an ingest thread, and the
+    router over one sharded engine -- now serve on every rank: every rid
+    once, each bitwise the port's one-device result (the router's against
+    the online ``serve_async``, whose padding it shares)."""
+    for r in worlds[world]:
+        timed = r["timed"]
+        assert sorted(timed) == ["deadline", "ingest", "router", "windowed"]
+        for name, got in timed.items():
+            assert sorted(rid for rid, _ in got) == list(range(6)), name
+            assert all(ok for _, ok in got), name
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -838,7 +848,9 @@ def test_host_staging_round_trips_through_the_host(tmp_path, monkeypatch):
         c = torch.tensor(5)
         assert int(D.comm.all_reduce_count(c, group)) == 5
         assert D.comm.STATS == {"collectives": 3,
-                                "staged_bytes": 4 * 24 + 2 * 8}
+                                "staged_bytes": 4 * 24 + 2 * 8,
+                                "decisions": 0, "decision_bytes": 0,
+                                "decision_ms": 0.0}
     finally:
         dist.destroy_process_group()
 
@@ -863,6 +875,8 @@ def test_chain_pass_and_broadcast_in_a_world_of_one(tmp_path, monkeypatch):
         assert torch.equal(buf, torch.full((3, 2), 7.0))
         assert D.comm.broadcast(x, 0, group) is x
         assert torch.equal(x, torch.arange(6.0).reshape(3, 2))
-        assert D.comm.STATS == {"collectives": 1, "staged_bytes": 24}
+        assert D.comm.STATS == {"collectives": 1, "staged_bytes": 24,
+                                "decisions": 0, "decision_bytes": 0,
+                                "decision_ms": 0.0}
     finally:
         dist.destroy_process_group()
