@@ -123,7 +123,19 @@ main paths and its serving path at full size and measures them:
   skewed stream (a steal at least) bitwise a one-device run; requests/s,
   latency, collectives, staged bytes, decisions per cycle and each rank's
   peak; ``fused_update_e`` against its plain version on every served
-  slice shape (phase 23).
+  slice shape (phase 23);
+- the cost counters (``roofline.op_cost``, ``kernel_model.round_cost``,
+  ``launch.dryrun``): one engine round of phase 10's stereo bucket counted
+  through the kernels' dispatcher ops under ``"triton"``, ``"pallas"`` and
+  ``"triton"`` at ``semiring="max"``, each kernel against its plain
+  version and its counted bytes exactly ``fused_update_cost``'s, the
+  round's bytes over phase 12's ms a round as a share of the memory rate;
+  Qwen3-4B's train step at B = 1, S = 2,048 counted on fake tensors, its
+  flops beside ``model_flops`` and its predicted peak within 2x of phase
+  19's measured one; ``launch.dryrun`` of Qwen3-4B and Mamba2-130M at
+  ``decode_32k`` on the (16, 16) mesh of a fake world (both counts in
+  subprocesses started after the build, beside phases 3-23: they take no
+  card); the host's cost of a call through a dispatcher op (phase 24).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -137,7 +149,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the thirteen paths (``launches_by_path``), its largest
+  and on each of the fourteen paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -155,6 +167,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -228,7 +241,7 @@ DIST_TIMEOUT_S = 240                 # process groups and the spawned world
 DIST_SHARE = 0.6     # (c): a rank's graph and messages over one device's
 # Resilient runs and the serial baseline.
 RESILIENT_CHUNK = 200
-SRBP_LIMIT_S = 30.0
+SRBP_LIMIT_S = 10.0
 KL_BOUND = 1e-6                      # RnBP on a chain vs variable elimination
 # The LM stack's serving path (phase 18): every family at reduced() on the
 # card against the CPU, Qwen3-4B's width at two layers (two q-blocks of
@@ -5340,9 +5353,283 @@ def log_submesh(out) -> None:
     log(f"  kernel launches on the sub-mesh path: {out['launches']}")
 
 
+ROUND_COST_ARCHS = ("qwen3_4b", "mamba2_130m")   # (c)'s dry-run cells
+ROUND_COST_TRAIN = dict(b=1, s=2048)  # (b): phase 19 (c)'s Qwen3-4B step
+PEAK_RATIO = 2.0      # (b): predicted peak within 2x of phase 19's, each way
+CALL_REPEAT = 2000    # (d): calls timed a way
+
+
+def check_peak(predicted: float, measured) -> float | None:
+    """``predicted / measured`` (None when nothing was measured); raises
+    unless it is within ``PEAK_RATIO`` either way."""
+    if measured is None:
+        return None
+    ratio = predicted / measured
+    if not 1 / PEAK_RATIO <= ratio <= PEAK_RATIO:
+        raise AssertionError(f"predicted peak {predicted} B is not within "
+                             f"{PEAK_RATIO}x of the measured {measured} B")
+    return ratio
+
+
+def round_parts_ms(parts) -> float:
+    """Phase 12's measured ms of one batched round: the sum of its
+    top-level parts (the indented ones are inside ``edge_prelude``)."""
+    return sum(v for k, v in parts.items() if not k.startswith(" "))
+
+
+def train_count(arch: str, b: int, s: int, reduced: bool, path) -> None:
+    """Phase 24 (b)'s count, run in a subprocess (``start_counts``): one
+    train step of ``arch`` (``reduced()`` if asked) at B = ``b``, S = ``s``
+    on one device, counted on fake tensors by ``launch.dryrun``'s count;
+    its flops, bytes, model flops and predicted peak written to ``path``
+    as JSON."""
+    from repro_torch import configs as TC
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import param_specs
+    from repro_torch.roofline import model_flops
+    t0 = time.perf_counter()
+    cfg = TC.get(arch).reduced() if reduced else TC.get(arch)
+    count = dryrun._count_lm(cfg, InputShape("lm_train", s, b, "train"),
+                             None, "tp", 1)
+    flops = count.counter.cost.flops
+    mf = model_flops(param_specs(cfg), b * s, cfg=cfg)
+    Path(path).write_text(json.dumps(dict(
+        arch=cfg.name, b=b, s=s, flops=flops,
+        bytes=count.counter.cost.bytes, model_flops=mf,
+        useful_ratio=mf / flops,
+        predicted_peak_bytes=count.counter.live.peak,
+        argument_bytes=count.argument_bytes,
+        count_s=time.perf_counter() - t0)))
+
+
+def start_counts(out_dir, archs=ROUND_COST_ARCHS, train=ROUND_COST_TRAIN,
+                 train_arch="qwen3_4b", reduced=False) -> dict:
+    """Start phase 24's host counts in two subprocesses, which take no
+    card and so run beside the earlier phases: (b) ``train_count`` and (c)
+    ``python -m repro_torch.launch.dryrun`` over ``archs`` at
+    ``decode_32k`` on the single-pod mesh. ``finish_counts`` collects
+    them."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    code = (f"import sys; sys.path[:0] = [{str(SRC)!r}, {str(REPO)!r}]; "
+            f"import chip_smoke as cs; cs.train_count({train_arch!r}, "
+            f"{train['b']}, {train['s']}, {reduced}, "
+            f"{str(out_dir / 'train_count.json')!r})")
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           ",".join(archs), "--shape", "decode_32k", "--mesh", "single",
+           "--out", str(out_dir)]
+    procs = {}
+    for name, cmd in (("train", [sys.executable, "-c", code]),
+                      ("dryrun", dry)):
+        with open(out_dir / f"{name}.log", "w") as log_file:
+            procs[name] = subprocess.Popen(cmd, cwd=REPO, env=env,
+                                           stdout=log_file,
+                                           stderr=subprocess.STDOUT)
+    return dict(procs, out_dir=out_dir, archs=tuple(archs),
+                t0=time.perf_counter())
+
+
+def finish_counts(started, timeout_s=300):
+    """Wait for ``start_counts``' subprocesses; raise if either failed or a
+    dry-run cell is not ``ok``. Returns ``(train, dryrun)``: the train
+    step's count and ``{"cells": {arch: fields}, "s": seconds}``."""
+    out_dir = started["out_dir"]
+    for name in ("train", "dryrun"):
+        proc = started[name]
+        try:
+            proc.wait(timeout=timeout_s)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            text = (out_dir / f"{name}.log").read_text()
+            raise AssertionError(f"{name} count exited {proc.returncode}:\n"
+                                 f"{text[-4000:]}")
+    wall = time.perf_counter() - started["t0"]
+    train = json.loads((out_dir / "train_count.json").read_text())
+    cells = {}
+    for arch in started["archs"]:
+        rec = json.loads((out_dir / f"{arch}__decode_32k__16x16.json")
+                         .read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun cell {arch}: {rec.get('error')}")
+        cells[arch] = {k: rec[k] for k in (
+            "flops", "hbm_bytes", "coll_bytes", "bottleneck",
+            "useful_ratio", "memory_per_device", "param_bytes",
+            "fake_device", "count_s")}
+    return train, dict(cells=cells, s=wall)
+
+
+def phase_round_cost(device, batch, round_ms, lm_peak, counts):
+    """Phase 24, the cost counters (``roofline.op_cost``, ``kernel_model.
+    round_cost``, ``launch.dryrun``):
+
+    (a) one engine round (``kernel_model.engine_round``) of the stereo
+    bucket's union on ``device`` counted by an ``OpCounter`` under
+    ``"triton"``, ``"pallas"`` and ``"triton"`` at ``semiring="max"``
+    (RnBP as phase 10): each kernel launched through its dispatcher op held
+    against its plain version on the same operands (sum within
+    ``SUM_TOL``, max bitwise), its counted flops and bytes exactly
+    ``fused_update_cost``'s, the round's counted bytes over ``round_ms``
+    (phase 12's ms a round) as a share of the card's memory rate; the
+    launches of the three rounds are the ``round_cost`` path's;
+    (b) Qwen3-4B as published trained one step at ``ROUND_COST_TRAIN``,
+    counted on fake tensors: its flops beside ``model_flops`` and its
+    predicted peak beside ``lm_peak`` (phase 19 (c)'s
+    ``max_memory_allocated``), within ``PEAK_RATIO`` either way;
+    (c) ``python -m repro_torch.launch.dryrun`` over
+    ``ROUND_COST_ARCHS`` at ``decode_32k`` on the single-pod mesh: every
+    cell ``ok``;
+    (d) the host's cost of a call through the dispatcher op against the
+    kernel's launch called directly, at E = 1,024, S = 2 (``CALL_REPEAT``
+    calls each).
+
+    (b) and (c) run on the host in subprocesses that ``counts``
+    (``start_counts``) started before the earlier phases."""
+    import torch
+    from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    from repro_torch.kernels.ops import make_pallas_update, make_triton_update
+    from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
+    from repro_torch.roofline.kernel_model import (card_peaks, engine_round,
+                                                   fused_update_cost)
+    from repro_torch.roofline.op_cost import OpCounter
+
+    class Captured(OpCounter):
+        """An ``OpCounter`` that keeps each kernel op's operands and
+        results."""
+
+        def __init__(self):
+            super().__init__()
+            self.kernel_calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.namespace == "repro_torch":
+                self.kernel_calls.append((func.overloadpacket.__name__,
+                                          args, out))
+            return out
+
+    out = dict(rounds={})
+    union = batch.folded()
+    e, s = union.n_edges, union.n_states_max
+    bw = card_peaks(torch.cuda.get_device_name(0))[0] \
+        if device.type == "cuda" else 3.35e12
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    for label, update, semiring in (
+            ("triton", make_triton_update(), "sum"),
+            ("pallas", make_pallas_update(), "sum"),
+            ("map", make_triton_update(semiring="max"), "max")):
+        one_round, args = engine_round(
+            union, RnBP(**MAIN_KW), update, eps=1e-3,
+            rng=torch.Generator(device=device).manual_seed(0))
+        with Captured() as c:
+            one_round(*args)
+        sync(device)
+        (name, ops, got), = c.kernel_calls
+        plain = (fused_update_e_ref(*ops) if name == "fused_update_e"
+                 else fused_update_t_ref(*ops))
+        err = compare(semiring, got, plain)
+        model = fused_update_cost(e, s, semiring=semiring)
+        fused = c.by_class["fused"]
+        if (fused.flops, fused.bytes) != (model.flops, model.bytes):
+            raise AssertionError(f"{label}: the kernel op counted {fused}, "
+                                 f"not fused_update_cost's {model}")
+        cost = c.cost
+        out["rounds"][label] = dict(
+            kernel=name, semiring=semiring, E=e, S=s, max_abs_err=err,
+            flops=cost.flops, bytes=cost.bytes,
+            by_class={k: [v.flops, v.bytes] for k, v in c.by_class.items()},
+            kernel_bytes=fused.bytes, kernel_flops=fused.flops,
+            bytes_share_of_round=fused.bytes / cost.bytes,
+            round_ms=round_ms,
+            memory_share=cost.bytes / (round_ms / 1e3) / bw
+            if round_ms else None)
+        del args, ops, got, plain
+    out["launches"] = {"fused_update_e/sum": TT.LAUNCHES["sum"],
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "fused_update_t/sum": MU.LAUNCHES["sum"]}
+    if 0 in out["launches"].values():
+        raise AssertionError(f"a kernel of the round_cost path was not "
+                             f"launched: {out['launches']}")
+
+    # (d) the dispatcher's cost a call, against the launch called directly
+    g = torch.Generator(device=device).manual_seed(0)
+    ops = random_operands(1024, 2, g, device)
+
+    def loop(fn):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(CALL_REPEAT):
+            fn()
+        sync(device)
+        return (time.perf_counter() - t0) / CALL_REPEAT * 1e6
+
+    def direct():
+        TT._check(*ops, "sum")
+        return TT._launch(*ops) if device.type == "cuda" \
+            else fused_update_e_ref(*ops)
+    us = {}
+    for way, fn in (("op", lambda: TT.fused_update_e(*ops)),
+                    ("direct", direct), ("direct ", direct),
+                    ("op ", lambda: TT.fused_update_e(*ops))):
+        us.setdefault(way.strip(), []).append(loop(fn))
+    out["call_us"] = {k: sum(v) / len(v) for k, v in us.items()}
+    out["call_us"]["E"], out["call_us"]["S"] = 1024, 2
+
+    # (b) and (c), counted on the host beside the earlier phases
+    train, out["dryrun"] = finish_counts(counts)
+    peak = train["predicted_peak_bytes"]
+    out["train"] = dict(train, measured_peak_bytes=lm_peak,
+                        peak_ratio=check_peak(peak, lm_peak))
+    return out
+
+
+def log_round_cost(out) -> None:
+    """Phase 24's progress lines."""
+    for label, r in out["rounds"].items():
+        share = "" if r["memory_share"] is None else \
+            f", {r['bytes'] / 1e6:.3f} MB over phase 12's " \
+            f"{r['round_ms']:.3f} ms a round = {r['memory_share']:.4f} of " \
+            "the card's memory rate"
+        log(f"  round_cost {label}: E={r['E']} S={r['S']} "
+            f"{r['flops']:.4g} flops, {r['bytes']:.4g} B; the kernel "
+            f"({r['kernel']}/{r['semiring']}, its dispatcher op) "
+            f"{r['kernel_bytes']:.4g} B = fused_update_cost's, "
+            f"{r['bytes_share_of_round']:.3f} of the round's bytes; vs "
+            f"plain max_abs_err={r['max_abs_err']:.3g}{share}")
+    t = out["train"]
+    ratio = "" if t["peak_ratio"] is None else \
+        f" (phase 19: {t['measured_peak_bytes'] / 1e9:.2f} GB, ratio " \
+        f"{t['peak_ratio']:.3f})"
+    log(f"  {t['arch']} train step B={t['b']} S={t['s']} on fake tensors: "
+        f"{t['flops']:.4g} flops, model_flops {t['model_flops']:.4g}, "
+        f"useful {t['useful_ratio']:.3f}; predicted peak "
+        f"{t['predicted_peak_bytes'] / 1e9:.2f} GB{ratio}; counted in "
+        f"{t['count_s']:.1f} s")
+    for arch, c in out["dryrun"]["cells"].items():
+        mem = c["memory_per_device"]
+        log(f"  dryrun {arch} decode_32k 16x16: ok, flops/dev "
+            f"{c['flops']:.4g}, bytes/dev {c['hbm_bytes']:.4g}, coll/dev "
+            f"{c['coll_bytes']:.4g}, bottleneck {c['bottleneck']}, useful "
+            f"{c['useful_ratio']:.3f}, peak {mem['peak_bytes'] / 1e9:.3f} "
+            f"GB, fits 80 GB {mem['peak_ok_80GB']}")
+    log(f"  the host's counts (b), (c): {out['dryrun']['s']:.1f} s in "
+        "subprocesses, from their start")
+    cu = out["call_us"]
+    log(f"  a call at E={cu['E']} S={cu['S']}: {cu['op']:.2f} us through "
+        f"the dispatcher op, {cu['direct']:.2f} us to the launch directly")
+    log(f"  kernel launches on the round_cost path: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                      dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks,
-                     submesh):
+                     submesh, round_cost):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -5354,12 +5641,13 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     parent's launches; its spawned ranks run no BP kernel either), its
     sharded training path (phase 21, ``lm_sharded_train``, the same) and
     its tensor-parallel block families (phase 22, ``lm_blocks``, the
-    same), and serving over sub-meshes (phase 23, ``sub_meshes``: the four
-    ranks' launches in all of its runs, summed)."""
+    same), serving over sub-meshes (phase 23, ``sub_meshes``: the four
+    ranks' launches in all of its runs, summed), and the counted rounds of
+    phase 24 (a) (``round_cost``)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     lmt, lms = lm_train["launches"], lm_shard["launches"]
     lmst, lmb = lm_strain["launches"], lm_blocks["launches"]
-    sub = submesh["launches"]
+    sub, rc = submesh["launches"], round_cost["launches"]
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -5373,7 +5661,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded=lms["fused_update_e/sum"],
                                    lm_sharded_train=lmst["fused_update_e/sum"],
                                    lm_blocks=lmb["fused_update_e/sum"],
-                                   sub_meshes=sub["fused_update_e/sum"]),
+                                   sub_meshes=sub["fused_update_e/sum"],
+                                   round_cost=rc["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -5385,7 +5674,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded=lms["fused_update_e/max"],
                                    lm_sharded_train=lmst["fused_update_e/max"],
                                    lm_blocks=lmb["fused_update_e/max"],
-                                   sub_meshes=0),
+                                   sub_meshes=0,
+                                   round_cost=rc["fused_update_e/max"]),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -5396,7 +5686,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded=lms["fused_update_t/sum"],
                                    lm_sharded_train=lmst["fused_update_t/sum"],
                                    lm_blocks=lmb["fused_update_t/sum"],
-                                   sub_meshes=0)}
+                                   sub_meshes=0,
+                                   round_cost=rc["fused_update_t/sum"])}
 
 
 def log_serving(out) -> None:
@@ -5547,6 +5838,8 @@ def main() -> int:
                                        "spill", "smem")):
                 log(f"  {name}: {line.strip()}")
     log(f"  built {sorted(reports) or 'nothing (cached)'} in {build_s:.2f} s")
+    # phase 24's host counts need no card: they run beside phases 3-23
+    counts = start_counts(REPO / "chiprun_out" / "dryrun_torch")
 
     log("== 3. kernel vs plain version on the card")
     worst = phase_kernels(device)
@@ -5708,6 +6001,18 @@ def main() -> int:
     log_submesh(submesh)
     log(f"  phase 23 in {submesh['phase_s']:.1f} s")
 
+    log("== 24. the cost counters (roofline.op_cost, kernel_model."
+        "round_cost, launch.dryrun): counted rounds through the kernels' "
+        "dispatcher ops, Qwen3-4B's train step on fake tensors, the dry run")
+    t0 = time.perf_counter()
+    costs = phase_round_cost(device, batch,
+                             round_parts_ms(btiming["round_parts_ms"]),
+                             lm_train["trained"]["peak_memory_bytes"],
+                             counts)
+    costs["phase_s"] = time.perf_counter() - t0
+    log_round_cost(costs)
+    log(f"  phase 24 in {costs['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -5724,7 +6029,7 @@ def main() -> int:
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
                                             lm_shard, lm_strain, lm_blocks,
-                                            submesh),
+                                            submesh, costs),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -5735,7 +6040,7 @@ def main() -> int:
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
-                  lm_blocks=lm_blocks, submesh=submesh,
+                  lm_blocks=lm_blocks, submesh=submesh, round_cost=costs,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

@@ -78,10 +78,12 @@ def resolve_device(device) -> torch.device:
 
     Entry points default to ``"cuda"``; a caller that wants the CPU says
     ``device="cpu"``. A missing GPU raises rather than silently running the
-    CPU path.
+    CPU path. Under a ``FakeTensorMode`` (the dry run) nothing runs and
+    ``"cuda"`` tensors hold shapes only, so no GPU is needed.
     """
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and \
+            torch._guards.detect_fake_mode() is None:
         raise RuntimeError(
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")

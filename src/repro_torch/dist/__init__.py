@@ -94,6 +94,7 @@ from typing import Any, ClassVar, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import messages as M
 from repro_torch.core.batch import BatchedPGM
@@ -722,8 +723,10 @@ def slice_update(log_psi_e: torch.Tensor, pre: torch.Tensor,
     """The sum-product update of a contiguous run of edges:
     ``(cand, resid)``. CUDA tensors go through the hand-written kernel
     ``fused_update_e`` (which launches or raises), CPU tensors through the
-    plain ``propagate_ref`` + ``normalize_and_residual``."""
-    if logm.is_cuda:
+    plain ``propagate_ref`` + ``normalize_and_residual``. Fake tensors (the
+    dry run, ``launch.dryrun``) stand for the card's: they take the
+    kernel's op, which gives shapes."""
+    if logm.is_cuda or is_fake(logm):
         return TT.fused_update_e(log_psi_e, pre, logm, dst_mask,
                                  semiring="sum")
     cand = M.propagate_ref(log_psi_e, pre)

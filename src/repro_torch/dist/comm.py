@@ -46,7 +46,20 @@ Every backward sum runs in rank order, so the ranks' gradients of a
 replicated tensor are bitwise equal.
 
 ``STATS["collectives"]`` counts the calls of the collectives below, those
-of the backward passes included.
+of the backward passes included. ``STATS["bytes/<kind>"]`` counts their
+bytes by the kind of collective an XLA program would show, by the
+reference's conventions (``repro.roofline.analysis.collective_bytes``):
+the result's bytes on this rank -- ``all-gather`` (``all_gather``,
+``all_gather_into``, ``all_gather_cat``, and ``rank_order_sum``, a gather
+then an add), ``all-reduce`` at twice its result (``all_reduce_count``),
+``all-to-all`` (the reduce-scatter of ``all_gather_cat(grad="sum")``'s
+backward, which moves one tensor's blocks; so ``reduce-scatter`` stays 0),
+``collective-permute`` (``exchange``, ``send_next``, ``recv_prev``: the
+larger of what the rank sends and receives, the operand every device of
+an XLA permute holds) and ``collective-broadcast`` (``broadcast``: the
+tensor). ``GROUP_BYTES`` holds the same bytes by the global ranks of the
+group they ran on, which ``roofline.analysis`` charges at the speed of the
+links those ranks share.
 
 Host data. Two more channels carry small host objects (pickled; ints,
 floats, short id lists, finished records), never tensors a computation
@@ -80,17 +93,26 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "reset_stats", "transport", "all_gather",
+__all__ = ["STATS", "KINDS", "GROUP_BYTES", "reset_stats", "transport", "all_gather",
            "all_gather_into", "all_gather_cat", "rank_order_sum", "enter",
            "all_reduce_count", "exchange", "send_next", "recv_prev",
            "broadcast", "publish", "Channel", "world_timeout", "group_of"]
 
+#: the kinds of collective whose bytes ``STATS`` counts
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute", "collective-broadcast")
+
 #: collective calls and host-staged bytes, and the decision broadcasts
-#: (``publish``: calls, payload bytes, host milliseconds), since the last
+#: (``publish``: calls, payload bytes, host milliseconds), and the
+#: collectives' bytes by kind (``"bytes/<kind>"``), since the last
 #: ``reset_stats``
 STATS: Dict[str, float] = {"collectives": 0, "staged_bytes": 0,
                            "decisions": 0, "decision_bytes": 0,
-                           "decision_ms": 0.0}
+                           "decision_ms": 0.0,
+                           **{f"bytes/{k}": 0 for k in KINDS}}
+
+#: the collectives' bytes by the global ranks of their group (a tuple)
+GROUP_BYTES: Dict[Tuple[int, ...], int] = {}
 
 # all_gather_into_tensor under the name newer torch releases give it
 _GATHER_INTO = getattr(dist, "all_gather_single", None) or \
@@ -98,9 +120,10 @@ _GATHER_INTO = getattr(dist, "all_gather_single", None) or \
 
 
 def reset_stats() -> None:
-    """Zero ``STATS``."""
+    """Zero ``STATS`` and empty ``GROUP_BYTES``."""
     for k in STATS:
         STATS[k] = 0.0 if k == "decision_ms" else 0
+    GROUP_BYTES.clear()
 
 
 def world_timeout() -> datetime.timedelta:
@@ -162,16 +185,35 @@ def _nbytes(ts: Sequence[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+#: process group -> its global ranks (asked once per group)
+_RANKS: Dict[Any, Tuple[int, ...]] = {}
+
+
+def _count(group, kind: str, inputs, outputs) -> None:
+    """Add one collective's bytes of ``kind`` (see the module docstring)
+    to ``STATS`` and ``GROUP_BYTES``."""
+    if kind in ("collective-permute", "collective-broadcast"):
+        n = max(_nbytes(inputs), _nbytes(outputs))
+    else:
+        n = _nbytes(outputs) * (2 if kind == "all-reduce" else 1)
+    STATS[f"bytes/{kind}"] += n
+    if group not in _RANKS:
+        _RANKS[group] = tuple(dist.get_process_group_ranks(group))
+    ranks = _RANKS[group]
+    GROUP_BYTES[ranks] = GROUP_BYTES.get(ranks, 0) + n
+
+
 def _host_staged(group, inputs: Sequence[torch.Tensor],
                  outputs: Sequence[torch.Tensor],
                  op: Callable[[List[torch.Tensor], List[torch.Tensor]],
-                              None]) -> None:
-    """Run ``op(inputs, outputs)``, the collective, on the group's own
-    transport. On a gloo group with CUDA tensors, ``op`` runs on host
-    copies of ``inputs`` into host buffers shaped like ``outputs``, which
-    are then copied back into ``outputs``; the bytes of both copies are
-    counted."""
+                              None], kind: str) -> None:
+    """Run ``op(inputs, outputs)``, the collective (of ``kind``, one of
+    ``KINDS``), on the group's own transport. On a gloo group with CUDA
+    tensors, ``op`` runs on host copies of ``inputs`` into host buffers
+    shaped like ``outputs``, which are then copied back into ``outputs``;
+    the bytes of both copies are counted."""
     STATS["collectives"] += 1
+    _count(group, kind, inputs, outputs)
     tensors = list(inputs) + list(outputs)
     if not tensors or transport(group, tensors[0].device) != \
             "gloo, host-staged":
@@ -189,7 +231,8 @@ def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     """Every rank's ``t``, in rank order (a list of new tensors)."""
     outs = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     _host_staged(group, [t], outs,
-                 lambda i, o: dist.all_gather(o, i[0], group=group))
+                 lambda i, o: dist.all_gather(o, i[0], group=group),
+                 "all-gather")
     return outs
 
 
@@ -197,7 +240,8 @@ def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
     """Every rank's ``t`` written into ``out`` along its first axis, in
     rank order (``out`` holds world-size times ``t``'s rows)."""
     _host_staged(group, [t], [out],
-                 lambda i, o: _GATHER_INTO(o[0], i[0], group=group))
+                 lambda i, o: _GATHER_INTO(o[0], i[0], group=group),
+                 "all-gather")
 
 
 def _add_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -223,7 +267,7 @@ def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     blocks = torch.stack(torch.chunk(t, n, dim=dim)).contiguous()
     got = torch.empty_like(blocks)
     _host_staged(group, [blocks], [got], lambda i, o: dist.all_to_all_single(
-        o[0], i[0], group=group))
+        o[0], i[0], group=group), "all-to-all")
     acc = torch.promote_types(t.dtype, torch.float32)
     return _add_in_order([b.to(acc) for b in got.unbind(0)]).to(t.dtype)
 
@@ -306,7 +350,7 @@ def all_reduce_count(t: torch.Tensor, group) -> torch.Tensor:
     def op(i, o):
         o[0].copy_(i[0])
         dist.all_reduce(o[0], group=group)
-    _host_staged(group, [t], [t], op)
+    _host_staged(group, [t], [t], op, "all-reduce")
     return t
 
 
@@ -327,7 +371,8 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
                 for (r, _), x in zip(recvs, o)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    _host_staged(group, [t for _, t in sends], [t for _, t in recvs], op)
+    _host_staged(group, [t for _, t in sends], [t for _, t in recvs], op,
+                 "collective-permute")
 
 
 def send_next(t: torch.Tensor, group) -> None:
@@ -354,10 +399,10 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     root = dist.get_global_rank(group, src)
     if dist.get_rank(group) == src:
         _host_staged(group, [t], [], lambda i, o: dist.broadcast(
-            i[0], root, group=group))
+            i[0], root, group=group), "collective-broadcast")
     else:
         _host_staged(group, [], [t], lambda i, o: dist.broadcast(
-            o[0], root, group=group))
+            o[0], root, group=group), "collective-broadcast")
     return t
 
 

@@ -11,12 +11,14 @@ slice in shared memory by asynchronous copies, a chunk of destination
 states at a time (``plan_t`` computes the launch plan on the host).
 
 ``fused_update_t`` is the wrapper. It checks device, dtype, shape and
-contiguity, then
+contiguity, then calls the dispatcher op ``repro_torch::fused_update_t``
+(``_dispatch``), which
 
 - for CPU tensors runs the plain torch version
   (``repro_torch.kernels.ref.fused_update_t_ref``);
 - for CUDA tensors launches the kernel on the current stream, or raises.
-  Nothing falls back to the plain version.
+  Nothing falls back to the plain version;
+- for fake tensors gives the results' shapes.
 
 The reference's TPU sizing (``pick_block_edges``, 128-lane blocks, edge
 padding to a block multiple) has no counterpart: the kernel masks its own
@@ -30,7 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dispatch
 from repro_torch.kernels.ref import fused_update_t_ref
 from repro_torch.kernels.triton_update import (N_SMS_H100, LaunchPlan,
                                                _n_sms, blocks_per_sm,
@@ -158,9 +160,11 @@ def fused_update_t(logpsi_t: torch.Tensor,   # (S, S, E) [x_src, x_dst, e]
 
     Returns ``(new_logm_t (S, E) f32, residual (E,) f32)``, sum-product.
     Rows with no valid destination state give NEG_INF messages and a 0
-    residual. CPU tensors run the plain torch version; CUDA tensors launch
-    the hand-written kernel on ``torch.cuda.current_stream()`` and raise if
-    it cannot build or launch.
+    residual. It calls the dispatcher op
+    ``torch.ops.repro_torch.fused_update_t``: CPU tensors run the plain
+    torch version; CUDA tensors launch the hand-written kernel on
+    ``torch.cuda.current_stream()`` and raise if it cannot build or launch;
+    fake tensors get the shapes only.
     """
     if pre_t.dim() != 2:
         raise ValueError(f"pre_t must be (S, E), got {tuple(pre_t.shape)}")
@@ -170,10 +174,17 @@ def fused_update_t(logpsi_t: torch.Tensor,   # (S, S, E) [x_src, x_dst, e]
                     "logm_t": (logm_t, (s, e), torch.float32),
                     "dmask_t": (dmask_t, (s, e), torch.int8)}, pre_t.device)
     dev = pre_t.device
-    if dev.type == "cpu":
-        return fused_update_t_ref(logpsi_t, pre_t, logm_t, dmask_t)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_update_t runs on cpu or cuda, not {dev}")
+    return torch.ops.repro_torch.fused_update_t(logpsi_t, pre_t, logm_t,
+                                                dmask_t)
+
+
+def _launch(logpsi_t, pre_t, logm_t, dmask_t):
+    """The op's CUDA implementation: one launch of the kernel on the
+    current stream (operands checked by ``fused_update_t``)."""
+    dev = pre_t.device
+    s, e = pre_t.shape
     launch = _kernel()
     if any(t.data_ptr() % 16 for t in (logpsi_t, pre_t, logm_t, dmask_t)):
         raise ValueError("every operand must start on a 16-byte boundary "
@@ -195,3 +206,17 @@ def fused_update_t(logpsi_t: torch.Tensor,   # (S, S, E) [x_src, x_dst, e]
                            f"{err} (E={e}, S={s})")
     LAUNCHES["sum"] += 1
     return new_t, resid
+
+
+def _shapes(logpsi_t, pre_t, logm_t, dmask_t):
+    """The op's fake implementation: the results' shapes, nothing run."""
+    s, e = pre_t.shape
+    return pre_t.new_empty((s, e)), pre_t.new_empty((e,))
+
+
+#: ``repro_torch::fused_update_t``: the plain version on the CPU, the
+#: kernel on CUDA, shapes on fake tensors
+_LIB = _dispatch.define(
+    "fused_update_t(Tensor logpsi_t, Tensor pre_t, Tensor logm_t, "
+    "Tensor dmask_t) -> (Tensor, Tensor)",
+    cpu=fused_update_t_ref, cuda=_launch, fake=_shapes)

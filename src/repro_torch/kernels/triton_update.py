@@ -8,12 +8,16 @@ called through ``ctypes``. It replaces the Pallas kernels ``_sum_kernel``
 and ``_max_kernel``.
 
 ``fused_update_e`` is the wrapper. It checks device, dtype, shape and
-contiguity, then
+contiguity, then calls the dispatcher op ``repro_torch::fused_update_e``
+(``_dispatch``), which
 
 - for CPU tensors runs the plain torch version
   (``repro_torch.kernels.ref.fused_update_e_ref``);
 - for CUDA tensors launches the kernel on the current stream, or raises.
-  Nothing falls back to the plain version.
+  Nothing falls back to the plain version;
+- for fake tensors gives the results' shapes, so a BP round runs under
+  ``FakeTensorMode`` and ``roofline.op_cost`` charges the kernel by its
+  cost model.
 
 Unlike the reference it pads nothing: no power-of-two state padding and no
 edge padding to a block multiple, so no padded copies are made per call.
@@ -33,7 +37,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dispatch
 from repro_torch.kernels.ref import fused_update_e_ref
 
 __all__ = ["fused_update_e", "LAUNCHES", "reset_launch_counts", "MAX_STATES",
@@ -224,16 +228,24 @@ def fused_update_e(logpsi: torch.Tensor,   # (E, S, S) f32 [e, x_src, x_dst]
     Returns ``(new_logm (E, S) f32, residual (E,) f32)``: ``"sum"`` is
     sum-product (LSE propagate, LSE-normalize), ``"max"`` is max-product
     (max propagate, peak-normalize). Rows with no valid destination state
-    give NEG_INF messages and a 0 residual. CPU tensors run the plain torch
-    version; CUDA tensors launch the hand-written kernel on
-    ``torch.cuda.current_stream()`` and raise if it cannot build or launch.
+    give NEG_INF messages and a 0 residual. It calls the dispatcher op
+    ``torch.ops.repro_torch.fused_update_e``: CPU tensors run the plain
+    torch version; CUDA tensors launch the hand-written kernel on
+    ``torch.cuda.current_stream()`` and raise if it cannot build or launch;
+    fake tensors (``FakeTensorMode``) get the shapes only.
     """
     _check(logpsi, pre, logm, dmask, semiring)
     dev = pre.device
-    if dev.type == "cpu":
-        return fused_update_e_ref(logpsi, pre, logm, dmask, semiring)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_update_e runs on cpu or cuda, not {dev}")
+    return torch.ops.repro_torch.fused_update_e(logpsi, pre, logm, dmask,
+                                                semiring)
+
+
+def _launch(logpsi, pre, logm, dmask, semiring="sum"):
+    """The op's CUDA implementation: one launch of the kernel on the
+    current stream (operands checked by ``fused_update_e``)."""
+    dev = pre.device
     e, s = pre.shape
     if s > MAX_STATES:
         raise ValueError(f"fused_update_e takes at most {MAX_STATES} states, "
@@ -260,3 +272,17 @@ def fused_update_e(logpsi: torch.Tensor,   # (E, S, S) f32 [e, x_src, x_dst]
                            f"{err} (E={e}, S={s}, semiring={semiring!r})")
     LAUNCHES[semiring] += 1
     return new, resid
+
+
+def _shapes(logpsi, pre, logm, dmask, semiring="sum"):
+    """The op's fake implementation: the results' shapes, nothing run."""
+    e, s = pre.shape
+    return pre.new_empty((e, s)), pre.new_empty((e,))
+
+
+#: ``repro_torch::fused_update_e``: the plain version on the CPU, the
+#: kernel on CUDA, shapes on fake tensors
+_LIB = _dispatch.define(
+    "fused_update_e(Tensor logpsi, Tensor pre, Tensor logm, Tensor dmask, "
+    "str semiring='sum') -> (Tensor, Tensor)",
+    cpu=fused_update_e_ref, cuda=_launch, fake=_shapes)

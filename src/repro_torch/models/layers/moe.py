@@ -44,6 +44,7 @@ a mean of products).
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models.layers.basic import act_fn, dense
 
@@ -98,6 +99,17 @@ def _counts(flat_e, n_experts):
         0, flat_e, torch.ones_like(flat_e))
 
 
+def _group_sizes(flat_e, n_experts):
+    """Rows routed to each expert, read on the host. A fake tensor (the
+    dry run, ``launch.dryrun``) holds no values: it gets balanced groups,
+    ``len(flat_e) / n_experts`` rows each (the first ones one more when it
+    does not divide), as the reference's static shapes assume."""
+    if is_fake(flat_e):
+        q, r = divmod(flat_e.numel(), n_experts)
+        return [q + (e < r) for e in range(n_experts)]
+    return _counts(flat_e, n_experts).tolist()
+
+
 def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
                     act):
     """Sort-and-group dispatch: rows sorted by expert, one product per
@@ -108,7 +120,7 @@ def _ragged_experts(w_in, w_gate, w_out, xt, top_p, top_e, n_experts, top_k,
     # each token's K copies, then sorted: both steps' backward passes are
     # sums in a fixed order (no scatter-add of duplicate indices)
     rows = xt.repeat_interleave(top_k, dim=0)[order]                # (T*K, d)
-    sizes = _counts(flat_e, n_experts).tolist()                     # host read
+    sizes = _group_sizes(flat_e, n_experts)                          # host read
     groups = []
     for e, r in zip(range(n_experts), torch.split(rows, sizes)):
         if r.shape[0]:

@@ -19,15 +19,18 @@ The port's kernels pad nothing (no power-of-two states, no block-multiple
 edges), so the reference's ``padded=True`` and ``gpu_padded_shape`` have no
 counterpart: these are the logical costs, which are the launched ones.
 ``bound_ms`` turns a cost into the least time a card could take for it,
-from the card's published peaks (``CARD_PEAKS``).
+from the card's published peaks (``CARD_PEAKS``). ``round_cost`` counts
+one whole engine round with ``op_cost``, the kernel charged by this model.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import torch
+
+from repro_torch.roofline.op_cost import Cost, op_cost
 
 __all__ = ["Cost", "CARD_PEAKS", "card_peaks", "fused_update_cost",
-           "predicted_intensity", "bound_ms"]
+           "predicted_intensity", "bound_ms", "engine_round", "round_cost"]
 
 _FLOPS_PER_EDGE = {
     # semiring -> (S^2 coefficient, S coefficient, constant)
@@ -40,19 +43,6 @@ _FLOPS_PER_EDGE = {
 #: get_device_name()``; the first match wins.
 CARD_PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
               ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
-
-
-@dataclasses.dataclass(frozen=True)
-class Cost:
-    """Flops and bytes of one call (the reference's ``jaxpr_cost.Cost``
-    fields)."""
-    flops: float
-    bytes: float
-
-    @property
-    def intensity(self) -> float:
-        """Flops per byte."""
-        return self.flops / self.bytes if self.bytes else 0.0
 
 
 def card_peaks(name: str):
@@ -93,3 +83,43 @@ def bound_ms(cost: Cost, bw: float, f32: float):
     ``f32``, and which of the two it is."""
     t_bytes, t_ops = cost.bytes / bw * 1e3, cost.flops / f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def engine_round(pgm, scheduler, update_fn, *, eps: float = 1e-3,
+                 rng: torch.Generator | None = None):
+    """``(one_round, (logm, sstate))``: one engine round as the engine's
+    step runs it -- the update, the residual gate, ``scheduler.select``
+    and ``apply_frontier`` -- and its arguments at the uniform start. A
+    rank-resident graph (``dist.shard_pgm``) starts from its slice of the
+    messages and commits its slice of the frontier. Stochastic schedulers
+    draw from ``rng`` (one seeded 0 on the graph's device by default)."""
+    from repro_torch.core import messages as M
+
+    if getattr(pgm, "rank_resident", False):
+        logm = pgm.init_messages()
+    else:
+        logm = M.init_messages(pgm)
+    gen = rng if rng is not None else torch.Generator(
+        device=pgm.edge_mask.device).manual_seed(0)
+    lo, hi = getattr(pgm, "span", (0, None))
+
+    def one_round(logm, sstate):
+        cand, r = update_fn(pgm, logm)
+        unconverged = ((r >= eps) & pgm.edge_mask).sum().to(torch.int32)
+        frontier, sstate = scheduler.select(pgm, r, eps, gen, sstate,
+                                            unconverged)
+        return M.apply_frontier(logm, cand, frontier[lo:hi]), sstate
+
+    return one_round, (logm, scheduler.init(pgm))
+
+
+def round_cost(pgm, scheduler, update_fn, *, eps: float = 1e-3,
+               rng: torch.Generator | None = None) -> Cost:
+    """``op_cost`` of ONE engine round (``engine_round``) for a scheduler
+    instance and an update backend (``update_fn(pgm, logm)``). The fused
+    kernel is charged by ``fused_update_cost``; the rest is what the
+    scheduler adds (top-k, bisection, draws). ``pgm`` may hold fake
+    tensors: then nothing runs."""
+    one_round, args = engine_round(pgm, scheduler, update_fn, eps=eps,
+                                   rng=rng)
+    return op_cost(one_round, *args)

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro.core import batch as JB
 from repro.core import BPConfig as JConfig

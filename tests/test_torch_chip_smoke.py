@@ -14,6 +14,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import ops
@@ -235,7 +236,12 @@ def test_serving_phase_on_cpu(counted):
                       "fused_update_t/sum": 19}},
         {"launches": {"fused_update_e/sum": 20, "fused_update_e/max": 21,
                       "fused_update_t/sum": 22}},
-        {"launches": {"fused_update_e/sum": 23}})
+        {"launches": {"fused_update_e/sum": 23}},
+        {"launches": {"fused_update_e/sum": 24, "fused_update_e/max": 25,
+                      "fused_update_t/sum": 26}})
+    assert [by_path[k]["round_cost"] for k in (
+        "fused_update_e/sum", "fused_update_e/max",
+        "fused_update_t/sum")] == [24, 25, 26]
     assert [by_path[k]["sub_meshes"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [23, 0, 0]
@@ -249,7 +255,7 @@ def test_serving_phase_on_cpu(counted):
     assert [by_path[k]["lm_sharded_train"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [17, 18, 19]
-    assert all(len(by_path[k]) == 13 for k in by_path)
+    assert all(len(by_path[k]) == 14 for k in by_path)
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -432,7 +438,9 @@ def test_dist_phase_on_cpu(counted_slices, tmp_path):
                       "fused_update_t/sum": 0}},
         {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
                       "fused_update_t/sum": 0}},
-        {"launches": {"fused_update_e/sum": 0}})
+        {"launches": {"fused_update_e/sum": 0}},
+        {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                      "fused_update_t/sum": 0}})
     assert by_path["fused_update_e/sum"]["sharded"] == s["launches"]
     assert by_path["fused_update_e/sum"]["banded"] == b["launches"]
 
@@ -888,3 +896,40 @@ def test_lm_blocks_phase_on_cpu(tmp_path):
                                "fused_update_e/max": 0}
     assert not (tmp_path / "blocks").exists()
     cs.log_lm_blocks(out)
+
+
+def test_round_cost_phase_on_cpu(counted, tmp_path):
+    """Phase 24 at a tiny size: the three counted rounds of a stereo
+    bucket through the dispatcher ops, the train step's count on fake
+    tensors (Qwen3-4B's reduced config) against a given peak, and the dry
+    run on Mamba2-130M alone, both in subprocesses started first."""
+    from repro_torch.core import BatchedPGM
+    from repro_torch.pgm import stereo_mrf
+    batch = BatchedPGM.from_pgms([stereo_mrf(6, 8, 4, seed=i,
+                                             device="cpu").pgm
+                                  for i in range(2)])
+    counts = cs.start_counts(tmp_path / "dry", archs=("mamba2_130m",),
+                             train=dict(b=2, s=16), reduced=True)
+    first = cs.phase_round_cost(CPU, batch, 2.0, None, counts)
+    assert first["launches"] == {"fused_update_e/sum": 1,
+                                 "fused_update_e/max": 1,
+                                 "fused_update_t/sum": 1}
+    for label, r in first["rounds"].items():
+        assert r["max_abs_err"] == 0.0, label
+        assert 0 < r["kernel_bytes"] < r["bytes"] and r["memory_share"] > 0
+    assert first["rounds"]["pallas"]["kernel"] == "fused_update_t"
+    t = first["train"]
+    assert 0 < t["useful_ratio"] < 1 and t["peak_ratio"] is None
+    assert t["predicted_peak_bytes"] >= t["argument_bytes"] > 0
+    assert first["dryrun"]["cells"]["mamba2_130m"]["bottleneck"]
+    assert first["call_us"]["op"] > 0 and first["call_us"]["direct"] > 0
+    cs.log_round_cost(first)
+    # the peak check: within 2x either way passes, beyond fails
+    peak = t["predicted_peak_bytes"]
+    assert cs.check_peak(peak, 1.5 * peak) == pytest.approx(1 / 1.5)
+    assert cs.check_peak(peak, peak / 1.9) == pytest.approx(1.9)
+    for measured in (2.5 * peak, peak / 2.5):
+        with pytest.raises(AssertionError, match="predicted peak"):
+            cs.check_peak(peak, measured)
+    assert cs.round_parts_ms({"edge_prelude": 1.0, "  gather": 0.5,
+                              "fused_update_t": 2.0}) == 3.0

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro import configs as RC
 from repro.configs.base import TRAIN_4K as REF_TRAIN_4K

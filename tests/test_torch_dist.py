@@ -34,6 +34,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 import torch.multiprocessing as mp
 
 from repro.core import BPConfig as JConfig
@@ -825,6 +826,11 @@ def test_rank_resident_graph_needs_the_sharded_backend():
         D.shard_pgm(D.shard_pgm(g, _fake_mesh(2, 1)), _fake_mesh(2, 0))
 
 
+def kind_bytes(nonzero):
+    """``comm.STATS``'s ``"bytes/<kind>"`` entries: ``nonzero`` and 0."""
+    return {f"bytes/{k}": nonzero.get(k, 0) for k in D.comm.KINDS}
+
+
 def test_host_staging_round_trips_through_the_host(tmp_path, monkeypatch):
     """The staging helper (taken for CUDA tensors on a gloo group) rehearsed
     on CPU tensors in a world of one: every collective's outputs come back
@@ -847,10 +853,14 @@ def test_host_staging_round_trips_through_the_host(tmp_path, monkeypatch):
         assert torch.equal(out, x)
         c = torch.tensor(5)
         assert int(D.comm.all_reduce_count(c, group)) == 5
+        # the collectives' result bytes: two gathers of 24 B, and an
+        # all-reduce of 8 B at twice its result
         assert D.comm.STATS == {"collectives": 3,
                                 "staged_bytes": 4 * 24 + 2 * 8,
                                 "decisions": 0, "decision_bytes": 0,
-                                "decision_ms": 0.0}
+                                "decision_ms": 0.0, **kind_bytes(
+                                    {"all-gather": 48, "all-reduce": 16})}
+        assert D.comm.GROUP_BYTES == {(0,): 64}
     finally:
         dist.destroy_process_group()
 
@@ -877,6 +887,7 @@ def test_chain_pass_and_broadcast_in_a_world_of_one(tmp_path, monkeypatch):
         assert torch.equal(x, torch.arange(6.0).reshape(3, 2))
         assert D.comm.STATS == {"collectives": 1, "staged_bytes": 24,
                                 "decisions": 0, "decision_bytes": 0,
-                                "decision_ms": 0.0}
+                                "decision_ms": 0.0, **kind_bytes(
+                                    {"collective-broadcast": 24})}
     finally:
         dist.destroy_process_group()

@@ -35,6 +35,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 import torch.multiprocessing as mp
 
 from repro.core import BPConfig as JConfig
@@ -249,20 +250,14 @@ def bridge(jpgm):
 @pytest.fixture(scope="module")
 def one():
     """rid -> the port's one-device ``serve_async`` result, for the stream
-    and for the skewed stream, on one thread as the ranks run (tiny
-    graphs, which a busy host's thread pool only slows)."""
+    and for the skewed stream, on the module's one thread as the ranks
+    run."""
     out = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for name, pgms, cfg in (("stream", graphs(TD, device=CPU), CFG),
-                                ("skewed", skewed(TD, device=CPU),
-                                 SKEW_CFG)):
-            rep = serve_async(BPEngine(BPConfig(**cfg), device=CPU),
-                              iter(enumerate(pgms)), 0, **KW)
-            out[name] = {r.rid: r.result for r in rep.records}
-    finally:
-        torch.set_num_threads(threads)
+    for name, pgms, cfg in (("stream", graphs(TD, device=CPU), CFG),
+                            ("skewed", skewed(TD, device=CPU), SKEW_CFG)):
+        rep = serve_async(BPEngine(BPConfig(**cfg), device=CPU),
+                          iter(enumerate(pgms)), 0, **KW)
+        out[name] = {r.rid: r.result for r in rep.records}
     return out
 
 

@@ -8,6 +8,7 @@ build on the host in numpy from the same seeded draws.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro.core import graph as JG
 from repro.core.registry import Registry as JRegistry

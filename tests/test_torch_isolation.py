@@ -21,6 +21,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro_torch import configs as TC
 from repro_torch.configs.base import TRAIN_4K
@@ -95,7 +96,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.data.pipeline",
                 "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
                 "repro_torch.launch.sharding",
-                "repro_torch.models.layers.parallel"):
+                "repro_torch.models.layers.parallel",
+                "repro_torch.roofline.op_cost", "repro_torch.launch.dryrun",
+                "repro_torch.kernels._dispatch"):
         assert mod in report["modules"]
 
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro.kernels import ref as JR
 from repro.kernels import triton_update as JT
@@ -101,8 +102,10 @@ def test_wrapper_validates_inputs():
 
 
 def test_cuda_tensor_without_gpu_raises(monkeypatch):
-    """CUDA tensors take the kernel path: with no CUDA toolkit the build
-    raises; nothing falls back to the plain version."""
+    """CUDA tensors take the kernel path: the dispatcher op's CUDA
+    implementation builds the kernel, and with no CUDA toolkit the build
+    raises; nothing falls back to the plain version. Fake CUDA tensors go
+    to the op's fake implementation: shapes, no build, no launch."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; test_torch_cuda.py covers it")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -119,13 +122,16 @@ def test_cuda_tensor_without_gpu_raises(monkeypatch):
                torch.empty(4, 2, device="cuda"),
                torch.empty(4, 2, dtype=torch.int8, device="cuda"))
         with pytest.raises(RuntimeError, match="nvcc"):
-            TT.fused_update_e(*ops)
-    assert TT.LAUNCHES == before
+            TT._launch(*ops)
+        new, resid = TT.fused_update_e(*ops)
+    assert (new.shape, resid.shape, new.device.type) == ((4, 2), (4,), "cuda")
+    assert TT._lib is None and TT.LAUNCHES == before
 
 
 def test_transposed_kernel_cuda_tensor_without_gpu_raises(monkeypatch):
-    """``fused_update_t`` on CUDA tensors builds its kernel or raises; with
-    no CUDA toolkit it raises and counts no launch."""
+    """``fused_update_t`` on CUDA tensors builds its kernel or raises (the
+    dispatcher op's CUDA implementation); with no CUDA toolkit it raises
+    and counts no launch. Fake CUDA tensors get shapes only."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; test_torch_cuda.py covers it")
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -142,8 +148,10 @@ def test_transposed_kernel_cuda_tensor_without_gpu_raises(monkeypatch):
                torch.empty(3, 5, device="cuda"),
                torch.empty(3, 5, dtype=torch.int8, device="cuda"))
         with pytest.raises(RuntimeError, match="nvcc"):
-            MU.fused_update_t(*ops)
-    assert MU.LAUNCHES == before
+            MU._launch(*ops)
+        new_t, resid = MU.fused_update_t(*ops)
+    assert (new_t.shape, resid.shape) == ((3, 5), (5,))
+    assert MU._lib is None and MU.LAUNCHES == before
 
 
 def test_build_flags_target_hopper_without_fast_math():

@@ -45,6 +45,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 import torch.multiprocessing as mp
 
 from repro_torch import configs as TC

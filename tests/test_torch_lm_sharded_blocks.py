@@ -52,6 +52,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 import torch.multiprocessing as mp
 
 from repro_torch import configs as TC
@@ -405,28 +406,23 @@ def worlds(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_device():
-    """The port's one-device runs, on one thread (the worlds' ranks and
-    the reference run beside)."""
+    """The port's one-device runs, on the module's one thread, as the
+    worlds' ranks run."""
     from repro_torch.launch import train as launch_train
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = {"serve": {}, "train": {}}
-        for case in IDS:
-            cfg = case_cfg(case)
-            out["serve"][case] = serve_run(_loaded(cfg), cfg)
-            out["train"][case] = train_run(cfg)
-        cfg = case_cfg("hymba")
-        out["ring"] = ring_run(_loaded(cfg), cfg)
-        cfg = case_cfg("whisper")
-        out["prefilled"] = prefilled_run(_loaded(cfg), cfg)
-        cfg = drift_cfg("ragged")
-        out["drift"] = _loaded(cfg).prefill(_t(serve_inputs(cfg)[0]))[0]
-        state = launch_train.main(LAUNCH)
-        out["launch"] = {n: t.detach() for n, t in state.params.items()}
-        return out
-    finally:
-        torch.set_num_threads(threads)
+    out = {"serve": {}, "train": {}}
+    for case in IDS:
+        cfg = case_cfg(case)
+        out["serve"][case] = serve_run(_loaded(cfg), cfg)
+        out["train"][case] = train_run(cfg)
+    cfg = case_cfg("hymba")
+    out["ring"] = ring_run(_loaded(cfg), cfg)
+    cfg = case_cfg("whisper")
+    out["prefilled"] = prefilled_run(_loaded(cfg), cfg)
+    cfg = drift_cfg("ragged")
+    out["drift"] = _loaded(cfg).prefill(_t(serve_inputs(cfg)[0]))[0]
+    state = launch_train.main(LAUNCH)
+    out["launch"] = {n: t.detach() for n, t in state.params.items()}
+    return out
 
 
 def ranks_of(worlds, shape):

@@ -49,6 +49,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 import torch.multiprocessing as mp
 
 from repro_torch import configs as TC
@@ -391,14 +392,9 @@ def worlds(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_device():
-    """The port's one-device runs: {(mode, case, rows): whole run}, on one
-    thread (the worlds' ranks and the reference run beside)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _one_device_runs()
-    finally:
-        torch.set_num_threads(threads)
+    """The port's one-device runs: {(mode, case, rows): whole run}, on the
+    module's one thread, as the worlds' ranks run."""
+    return _one_device_runs()
 
 
 def _one_device_runs():

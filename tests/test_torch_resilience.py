@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro import checkpoint as JC
 from repro.ft import StragglerMonitor as JMonitor

@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro.core import BPConfig as JConfig
 from repro.core import BPEngine as JEngine

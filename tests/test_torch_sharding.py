@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 from jax.sharding import AbstractMesh as JMesh
 
 from repro import configs as RC
