@@ -135,7 +135,18 @@ main paths and its serving path at full size and measures them:
   19's measured one; ``launch.dryrun`` of Qwen3-4B and Mamba2-130M at
   ``decode_32k`` on the (16, 16) mesh of a fake world (both counts in
   subprocesses started after the build, beside phases 3-23: they take no
-  card); the host's cost of a call through a dispatcher op (phase 24).
+  card); the host's cost of a call through a dispatcher op (phase 24);
+- the entry points (``repro_torch.examples``): each driver's ``main`` as
+  a user calls it, on the card, with the reference's acceptances --
+  ``quickstart`` as published (LBP stalls, RBP and RnBP converge),
+  ``stereo_bp`` at the Tsukuba size (accuracy over the observation's,
+  energy under the truth's, labels bitwise the plain max-product path's),
+  ``ldpc_decode`` at its defaults (coded BER under uncoded),
+  ``bp_serving``'s async pipeline and its router with stealing over
+  ``zoo_stream(36)`` (every request converged; requests/s, latency),
+  ``train_lm`` (resume drift exactly 0), and ``distributed_bp`` inside
+  phase 17's two gloo ranks (sharded bitwise one device, banded round
+  parity); each kernel's launches per driver (phase 25).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -149,7 +160,7 @@ Every phase raises on failure; nothing is caught. Output:
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the fourteen paths (``launches_by_path``), its largest
+  and on each of the fifteen paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -352,6 +363,25 @@ SUB_TIMEOUT_S = 240                  # process groups and the spawned world
 # evenly, so the replica pinned by the straggler keeps a backlog in its
 # inbox after the other drains its share -- and a steal.
 SUB_SKEW_FAST = 62
+# The entry points (phase 25): each driver of repro_torch.examples called as
+# a user calls it, in this process, on the card by default: quickstart as
+# published; stereo_bp at phase 10's Tsukuba frame; ldpc_decode at its
+# defaults; bp_serving's async pipeline and its router over zoo_stream(36);
+# train_lm with its resume drill. distributed_bp runs inside phase 17's
+# gloo world (ENTRY_DIST_SIZE).
+ENTRY_ARGV = {
+    "quickstart": [],
+    "stereo_bp": ["--height", str(STEREO["height"]), "--width",
+                  str(STEREO["width"]), "--disp", str(STEREO["n_disp"])],
+    "ldpc_decode": [],
+    "bp_serving/async": ["--async", "--workload", "mixed",
+                         "--requests", "36"],
+    "bp_serving/routed": ["--workload", "mixed", "--requests", "36",
+                          "--replicas", "2", "--routing", "least_loaded",
+                          "--steal"],
+    "train_lm": ["--steps", "20"],
+}
+ENTRY_DIST_SIZE = 32
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -2373,12 +2403,47 @@ def _gloo_bucket(mesh, device, rank, frames, scene, max_rounds):
     return out
 
 
-def _gloo_rank(rank, size, out_dir, device_type, n, bucket):
+def _gloo_entry(device, size):
+    """Phase 25's ``distributed_bp --size size`` on this rank of phase
+    17's world, as a user runs it (rank 0 prints; stdout captured): its
+    sharded runs against its one-device runs (rounds, messages, beliefs
+    bitwise), banded LBP's round parity, ``fused_update_e`` launches and
+    wall seconds."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.examples import distributed_bp
+    from repro_torch.kernels import triton_update as TT
+    argv = ["--size", str(size)]
+    if device.type != "cuda":
+        argv += ["--device", device.type]
+    TT.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = distributed_bp.main(argv)
+    wall = time.perf_counter() - t0
+    launches = TT.LAUNCHES["sum"]
+    bitwise, rounds = {}, {}
+    for name, row in res["sharded"].items():
+        got, one = row["result"], res["one"][name]
+        bitwise[name] = int(got.rounds) == int(one.rounds) and all(
+            torch.equal(getattr(got, f), getattr(one, f))
+            for f in ("logm", "beliefs"))
+        rounds[name] = int(got.rounds)
+    return dict(stdout=buf.getvalue(), bitwise=bitwise, rounds=rounds,
+                parity=res["banded"]["parity"],
+                banded_rounds=res["banded"]["rounds"], launches=launches,
+                wall_s=wall)
+
+
+def _gloo_rank(rank, size, out_dir, device_type, n, bucket, entry_size):
     """One rank of phase 17 (b) and (c), in its own process: sharded LBP
     and RnBP and banded LBP at ``DIST_EPS`` on Ising ``n`` x ``n`` (C =
     2.5) over a gloo world of ``size`` ranks, every tensor on
-    ``device_type``; then (c), ``_gloo_bucket(**bucket)``. Writes its
-    results to ``out_dir/rank<r>.pt``."""
+    ``device_type``; then (c), ``_gloo_bucket(**bucket)``; then phase 25's
+    ``distributed_bp`` (``_gloo_entry``). Writes its results to
+    ``out_dir/rank<r>.pt``."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch import dist as D
@@ -2436,11 +2501,13 @@ def _gloo_rank(rank, size, out_dir, device_type, n, bucket):
         t0 = time.perf_counter()
         out["bucket"] = _gloo_bucket(mesh, device, rank, **bucket)
         out["bucket"]["phase_s"] = time.perf_counter() - t0
+        out["entry"] = _gloo_entry(device, entry_size)
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
 
 
 def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
-                    timeout_s=DIST_TIMEOUT_S, bucket=None):
+                    timeout_s=DIST_TIMEOUT_S, bucket=None,
+                    entry_size=ENTRY_DIST_SIZE):
     """Phase 17 (b) and (c): ``size`` gloo ranks in spawned processes
     sharing ``device``. (b): sharded LBP (capped; it does not converge on
     Ising 200 x 200 at C = 2.5) and RnBP bitwise one-device runs of the same
@@ -2449,7 +2516,9 @@ def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
     (``bucket``: frames, scene, max_rounds) through ``run_many``, bitwise
     the one-device ``run_many`` rank 0 runs beside, each rank's bytes of
     graph and messages at most ``DIST_SHARE`` of one device's. Every rank's
-    messages are bitwise equal."""
+    messages are bitwise equal. Then phase 25's ``distributed_bp --size
+    entry_size`` on the same ranks (``entry``): sharded runs bitwise its
+    one-device runs, banded round parity, only rank 0 printing."""
     import shutil
     import torch
     import torch.multiprocessing as mp
@@ -2462,7 +2531,8 @@ def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
     ctx = mp.start_processes(_gloo_rank, args=(size, str(out_dir),
-                                               device.type, n, bucket),
+                                               device.type, n, bucket,
+                                               entry_size),
                              nprocs=size, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=0.5):
@@ -2510,10 +2580,34 @@ def phase_dist_gloo(device, out_dir, n=PAPER_N, size=DIST_RANKS,
                 raise AssertionError(f"gloo {name}: ranks' messages differ")
     out["ranks_bitwise_equal"] = True
     out["bucket"] = check_gloo_bucket([r["bucket"] for r in ranks], cuda)
+    out["entry"] = check_gloo_entry([r["entry"] for r in ranks], cuda)
     if cuda and min(r[k]["launches"] for r in ranks
                     for k in ("lbp", "rnbp", "banded")) < 1:
         raise AssertionError("a gloo rank bypassed fused_update_e")
     return out
+
+
+def check_gloo_entry(ranks, cuda):
+    """Phase 25's checks on ``distributed_bp``'s ranks: every sharded run
+    bitwise its one-device run, banded LBP's rounds those of one device,
+    the same rounds on every rank, only rank 0 printing, and on the card
+    ``fused_update_e`` launched on every rank."""
+    for i, r in enumerate(ranks):
+        if not (all(r["bitwise"].values()) and r["parity"]):
+            raise AssertionError(f"distributed_bp rank {i}: sharded bitwise "
+                                 f"{r['bitwise']}, banded parity "
+                                 f"{r['parity']}")
+        if r["rounds"] != ranks[0]["rounds"] or (i > 0 and r["stdout"]):
+            raise AssertionError(f"distributed_bp rank {i} differs from "
+                                 "rank 0 or printed")
+        if cuda and r["launches"] < max(r["rounds"].values()):
+            raise AssertionError(f"distributed_bp rank {i}: {r['launches']} "
+                                 "fused_update_e launches")
+    return dict(stdout=ranks[0]["stdout"], rounds=ranks[0]["rounds"],
+                banded_rounds=ranks[0]["banded_rounds"],
+                launches=[r["launches"] for r in ranks],
+                wall_s=max(r["wall_s"] for r in ranks), bitwise=True,
+                parity=True)
 
 
 def check_gloo_bucket(ranks, cuda):
@@ -5627,9 +5721,170 @@ def log_round_cost(out) -> None:
     log(f"  kernel launches on the round_cost path: {out['launches']}")
 
 
+# ------------------------------------------------------------- phase 25 --
+
+def _drive(module, argv, device):
+    """``module.main(argv)`` as a user calls it (on the card by default;
+    ``--device cpu`` added off the card), stdout captured: (its return,
+    its stdout, the kernels' launches during the call, wall seconds)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    if device.type != "cuda":
+        argv = argv + ["--device", device.type]
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(argv)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"fused_update_e/sum": TT.LAUNCHES["sum"],
+                "fused_update_e/max": TT.LAUNCHES["max"],
+                "fused_update_t/sum": MU.LAUNCHES["sum"]}
+    return out, buf.getvalue(), launches, wall
+
+
+def phase_entry_points(device, argv=None):
+    """Phase 25: the drivers of ``repro_torch.examples`` through their
+    ``main`` (``argv``: driver -> arguments, ``ENTRY_ARGV``), each counted
+    from 0 just before its call, with the reference's acceptances: (a)
+    quickstart: LBP stalls at its cap, RBP and both RnBP runs converge,
+    ``fused_update_e`` sum launched at least once a round; (b) stereo_bp:
+    accuracy at least the observation's, energy at most the truth's, the
+    labels and rounds bitwise the plain ``"maxprod"`` path's on the same
+    device (a comparison run, not counted), max launched once a round;
+    (c) ldpc_decode: coded BER below uncoded at two SNR points or more,
+    max launched once a round; (d) bp_serving, async and routed: every
+    request converged, requests/s and latency percentiles; (e) train_lm:
+    resume drift exactly 0. ``distributed_bp`` runs in phase 17's world
+    (``_gloo_entry``)."""
+    from repro_torch.examples import (bp_serving, ldpc_decode, quickstart,
+                                      stereo_bp, train_lm)
+    argv = argv or ENTRY_ARGV
+    cuda = device.type == "cuda"
+    out = {}
+
+    def launched(name, kernel, rounds, launches):
+        if cuda and launches[kernel] < rounds:
+            raise AssertionError(f"{name}: {launches[kernel]} {kernel} "
+                                 f"launches < {rounds} rounds")
+
+    q, text, launches, wall = _drive(quickstart, argv["quickstart"], device)
+    rows = q["rows"]
+    if rows[0]["converged"] or not all(r["converged"] for r in rows[1:]) \
+            or not q["rnbp"]["converged"]:
+        raise AssertionError("quickstart: LBP must stall and the others "
+                             f"converge: {rows}")
+    rounds = sum(r["rounds"] for r in rows) + q["rnbp"]["rounds"]
+    launched("quickstart", "fused_update_e/sum", rounds, launches)
+    out["quickstart"] = dict(rows=rows, rounds=rounds, launches=launches,
+                             wall_s=wall, stdout=text,
+                             marginals=q["marginals"][:5].tolist())
+
+    st, text, launches, wall = _drive(stereo_bp, argv["stereo_bp"], device)
+    args = stereo_bp.parser().parse_args(
+        argv["stereo_bp"] + ([] if cuda else ["--device", device.type]))
+    plain = stereo_bp.run(args, backend="maxprod")
+    bitwise = bool((plain["labels"] == st["labels"]).all()) and \
+        plain["rounds"] == st["rounds"]
+    acc, en = st["accuracy"], st["energy"]
+    if not (bitwise and acc["bp"] >= acc["observation"]
+            and en["bp"] <= en["truth"]):
+        raise AssertionError(f"stereo_bp: bitwise plain {bitwise}, "
+                             f"accuracy {acc}, energy {en}")
+    launched("stereo_bp", "fused_update_e/max", st["rounds"], launches)
+    out["stereo_bp"] = dict(converged=st["converged"], rounds=st["rounds"],
+                            accuracy=acc, energy=en, bitwise_plain=bitwise,
+                            plain_wall_s=plain["wall_s"], launches=launches,
+                            wall_s=wall, run_s=st["wall_s"])
+
+    ld, text, launches, wall = _drive(ldpc_decode, argv["ldpc_decode"],
+                                      device)
+    better = sum(r["coded_ber"] < r["uncoded_ber"] for r in ld["rows"])
+    if better < 2:
+        raise AssertionError(f"ldpc_decode: coded BER below uncoded at "
+                             f"{better} SNR points: {ld['rows']}")
+    launched("ldpc_decode", "fused_update_e/max",
+             sum(sum(r["rounds"]) for r in ld["rows"]), launches)
+    out["ldpc_decode"] = dict(rows=ld["rows"], launches=launches,
+                              wall_s=wall, stdout=text)
+
+    for key in ("bp_serving/async", "bp_serving/routed"):
+        sv, text, launches, wall = _drive(bp_serving, argv[key], device)
+        n = len(sv["requests"])
+        if sv["converged"] != n or n == 0:
+            raise AssertionError(f"{key}: {sv['converged']}/{n} converged")
+        launched(key, "fused_update_e/sum", 1, launches)
+        out[key] = dict({k: v for k, v in sv.items() if k != "requests"},
+                        requests=n, launches=launches, wall_s=wall,
+                        summary=text.split("\nserved ", 1)[1].strip())
+
+    tr, text, launches, wall = _drive(train_lm, argv["train_lm"], device)
+    if tr["drift"] != 0.0:
+        raise AssertionError(f"train_lm: resume drift {tr['drift']}")
+    out["train_lm"] = dict(n_params=tr["n_params"], drift=tr["drift"],
+                           first_loss=tr["losses"][0],
+                           last_loss=tr["losses"][-1], launches=launches,
+                           wall_s=wall, stdout=text)
+    out["launches"] = {k: sum(v["launches"][k] for v in out.values())
+                       for k in ("fused_update_e/sum", "fused_update_e/max",
+                                 "fused_update_t/sum")}
+    return out
+
+
+def log_entry_points(out) -> None:
+    """Phase 25's progress lines (``out["distributed_bp"]``: phase 17's
+    ``entry``)."""
+    q = out["quickstart"]
+    for r in q["rows"]:
+        log(f"  quickstart {r['name'].strip()}: converged={r['converged']} "
+            f"rounds={r['rounds']} updates={r['updates']} "
+            f"wall={r['wall_s']:.3f} s")
+    log(f"  quickstart: fused_update_e/sum launches "
+        f"{q['launches']['fused_update_e/sum']} over {q['rounds']} rounds; "
+        f"first marginals {q['marginals']}")
+    st = out["stereo_bp"]
+    log(f"  stereo_bp {ENTRY_ARGV['stereo_bp']}: converged={st['converged']}"
+        f" rounds={st['rounds']} accuracy {st['accuracy']} energy "
+        f"{st['energy']}; labels bitwise the plain maxprod path "
+        f"({st['plain_wall_s']:.2f} s); fused_update_e/max launches "
+        f"{st['launches']['fused_update_e/max']}")
+    ld = out["ldpc_decode"]
+    for r in ld["rows"]:
+        log(f"  ldpc_decode snr {r['snr_db']}: uncoded {r['uncoded_ber']:.4f}"
+            f" coded {r['coded_ber']:.4f} converged {r['converged']} mean "
+            f"rounds {sum(r['rounds']) / len(r['rounds']):.1f}")
+    log(f"  ldpc_decode: fused_update_e/max launches "
+        f"{ld['launches']['fused_update_e/max']}")
+    for key in ("bp_serving/async", "bp_serving/routed"):
+        sv = out[key]
+        log(f"  {key} ({sv['backend']}): {sv['converged']}/{sv['requests']}"
+            f" converged, {sv['requests_per_s']:.2f} requests/s, latency ms "
+            f"p50={sv['latency_ms']['p50']:.1f} "
+            f"p99={sv['latency_ms']['p99']:.1f}; stats {sv['stats']}; "
+            f"launches {sv['launches']}")
+    tr = out["train_lm"]
+    log(f"  train_lm {ENTRY_ARGV['train_lm']}: {tr['n_params']} params, "
+        f"loss {tr['first_loss']:.4f} -> {tr['last_loss']:.4f}, resume "
+        f"drift {tr['drift']:.2e}")
+    d = out["distributed_bp"]
+    log(f"  distributed_bp --size {ENTRY_DIST_SIZE} (phase 17's gloo "
+        f"ranks): sharded rounds {d['rounds']} bitwise the one-device runs,"
+        f" banded LBP {d['banded_rounds']} rounds, parity True; "
+        f"fused_update_e/sum launches per rank {d['launches']}")
+    for line in d["stdout"].splitlines():
+        log(f"    {line}")
+    for key in ("quickstart", "stereo_bp", "ldpc_decode", "bp_serving/async",
+                "bp_serving/routed", "train_lm", "distributed_bp"):
+        log(f"  {key} wall {out[key]['wall_s']:.2f} s")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                      dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks,
-                     submesh, round_cost):
+                     submesh, round_cost, entry=None):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -5643,8 +5898,13 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     its tensor-parallel block families (phase 22, ``lm_blocks``, the
     same), serving over sub-meshes (phase 23, ``sub_meshes``: the four
     ranks' launches in all of its runs, summed), and the counted rounds of
-    phase 24 (a) (``round_cost``)."""
+    phase 24 (a) (``round_cost``), and the entry points of phase 25
+    (``entry_points``: its drivers' launches in this process plus
+    ``distributed_bp``'s on every rank of phase 17's world)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
+    ep = dict((entry or {}).get("launches", {}))
+    ep["fused_update_e/sum"] = ep.get("fused_update_e/sum", 0) + sum(
+        (entry or {}).get("distributed_bp", {}).get("launches", ()))
     lmt, lms = lm_train["launches"], lm_shard["launches"]
     lmst, lmb = lm_strain["launches"], lm_blocks["launches"]
     sub, rc = submesh["launches"], round_cost["launches"]
@@ -5662,7 +5922,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded_train=lmst["fused_update_e/sum"],
                                    lm_blocks=lmb["fused_update_e/sum"],
                                    sub_meshes=sub["fused_update_e/sum"],
-                                   round_cost=rc["fused_update_e/sum"]),
+                                   round_cost=rc["fused_update_e/sum"],
+                                   entry_points=ep["fused_update_e/sum"]),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -5675,7 +5936,9 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded_train=lmst["fused_update_e/max"],
                                    lm_blocks=lmb["fused_update_e/max"],
                                    sub_meshes=0,
-                                   round_cost=rc["fused_update_e/max"]),
+                                   round_cost=rc["fused_update_e/max"],
+                                   entry_points=ep.get("fused_update_e/max",
+                                                       0)),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -5687,7 +5950,9 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_sharded_train=lmst["fused_update_t/sum"],
                                    lm_blocks=lmb["fused_update_t/sum"],
                                    sub_meshes=0,
-                                   round_cost=rc["fused_update_t/sum"])}
+                                   round_cost=rc["fused_update_t/sum"],
+                                   entry_points=ep.get("fused_update_t/sum",
+                                                       0))}
 
 
 def log_serving(out) -> None:
@@ -6013,6 +6278,16 @@ def main() -> int:
     log_round_cost(costs)
     log(f"  phase 24 in {costs['phase_s']:.1f} s")
 
+    log("== 25. the entry points (repro_torch.examples: quickstart, "
+        "stereo_bp, ldpc_decode, bp_serving, train_lm in this process; "
+        "distributed_bp in phase 17's gloo world)")
+    t0 = time.perf_counter()
+    entry = phase_entry_points(device)
+    entry["phase_s"] = time.perf_counter() - t0
+    entry["distributed_bp"] = dist_out["gloo"]["entry"]
+    log_entry_points(entry)
+    log(f"  phase 25 in {entry['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -6029,7 +6304,7 @@ def main() -> int:
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
                                             lm_shard, lm_strain, lm_blocks,
-                                            submesh, costs),
+                                            submesh, costs, entry),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -6041,6 +6316,7 @@ def main() -> int:
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
                   lm_blocks=lm_blocks, submesh=submesh, round_cost=costs,
+                  entry_points=entry,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"

@@ -23,7 +23,8 @@ from repro_torch.core.graph import NEG_INF, PGM
 
 __all__ = ["masked_logsumexp", "init_messages", "fold_in_edges",
            "fold_in_edges_from", "vertex_logprod", "normalize_beliefs",
-           "edge_prelude", "propagate_ref", "normalize_and_residual",
+           "edge_prelude", "propagate_ref", "normalize_messages",
+           "compute_candidates", "normalize_and_residual",
            "residuals", "beliefs", "ref_update", "propagate_max",
            "max_product_update", "map_assignment", "apply_frontier"]
 
@@ -112,6 +113,20 @@ def propagate_ref(log_psi_e: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
     m = torch.clamp(scores.amax(dim=1, keepdim=True), min=NEG_INF)
     s = torch.exp(scores - m).sum(dim=1)
     return m.squeeze(1) + torch.log(torch.clamp(s, min=1e-38))
+
+
+def normalize_messages(pgm: PGM, cand: torch.Tensor) -> torch.Tensor:
+    """Normalize (LSE over valid dst states -> 0) and mask invalid states."""
+    dst_mask = pgm.state_mask[pgm.edge_dst]
+    z = masked_logsumexp(cand, dst_mask, dim=1)
+    return torch.where(dst_mask, cand - z[:, None], NEG_INF)
+
+
+def compute_candidates(pgm: PGM, logm: torch.Tensor,
+                       propagate=propagate_ref) -> torch.Tensor:
+    """One full candidate-message pass f_BP(m) for every directed edge."""
+    pre = edge_prelude(pgm, logm)
+    return normalize_messages(pgm, propagate(pgm.log_psi_e, pre))
 
 
 def normalize_and_residual(cand: torch.Tensor, logm: torch.Tensor,

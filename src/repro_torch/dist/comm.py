@@ -154,13 +154,16 @@ def group_of(ranks: Sequence[int], backend: str | None = None,
     ``new_group`` makes needs every rank of the world, members or not, so
     every rank asks for the same groups in the same order. ``tag`` keeps a
     group apart from any other on the same ranks (a channel that another
-    thread drives)."""
+    thread drives). In a fake world (``launch.dryrun``) every group is a
+    fake one: a gloo group there would wait for ranks that never come."""
     world = dist.group.WORLD
     if _GROUPS_OF[0] is not world:      # a new world: the old groups died
         _GROUPS.clear()
         _GROUPS_OF[0] = world
     ranks = tuple(int(r) for r in ranks)
     backend = backend or dist.get_backend()
+    if dist.get_backend() == "fake":
+        backend = "fake"
     if tag is None and backend == dist.get_backend() and \
             ranks == tuple(range(dist.get_world_size())):
         return world

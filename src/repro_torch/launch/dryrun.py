@@ -31,10 +31,12 @@ the same step counted on one fake device (``global_over_devices``).
 BP cells (``BP_CELLS``, as the reference's): ``ising_grid_fast(512, 2.5)``
 and ``chain_graph(1_000_000)`` under RnBP(low_p=0.7) at eps 1e-3, on the
 port's rank-resident ``"sharded"`` backend and on ``bp_banded``, each rank
-one band. The graph is built on the host and its rank-0 share (the
-rank-resident slice, or the band) made fake; the cell is one round's cost
-times ``BP_ROUNDS`` (the reference's ``while_trips=100``), so no host read
-of ``done`` is needed. The fused kernel is charged by its cost model
+one band; a banded cell takes the largest rank count, halving from the
+mesh's, at which the graph holds the banded contract, and records it as
+``bp_ranks`` (``banded_ranks``). The graph is built on the host and its
+rank-0 share (the rank-resident slice, or the band) made fake; the cell
+is one round's cost times ``BP_ROUNDS`` (the reference's
+``while_trips=100``), so no host read of ``done`` is needed. The fused kernel is charged by its cost model
 (``kernels._dispatch``).
 
 Data-dependent shapes: the ragged MoE dispatch reads its per-expert group
@@ -70,8 +72,8 @@ from repro_torch.configs import ARCH_IDS, get
 from repro_torch.roofline import analysis as RA
 from repro_torch.roofline.op_cost import OpCounter, tensors_of
 
-__all__ = ["BP_CELLS", "BP_ROUNDS", "fake_world", "lm_cell", "bp_cell",
-           "run_cell", "main"]
+__all__ = ["BP_CELLS", "BP_ROUNDS", "fake_world", "lm_cell", "banded_ranks",
+           "bp_cell", "run_cell", "main"]
 
 BP_CELLS = ("bp_ising_512", "bp_chain_1m", "bp_ising_512_banded",
             "bp_chain_1m_banded")
@@ -295,10 +297,34 @@ def _scaled(stats, k: float, minus=None):
                  for part, m in zip(stats, minus))
 
 
-def bp_cell(name: str, mesh) -> dict:
+def banded_ranks(pgm, n_dev: int):
+    """``(n, partition)``: the largest rank count ``n <= n_dev`` reached by
+    halving from ``n_dev`` at which ``partition_banded(pgm, n)`` holds the
+    banded contract, and that partition. Bands balanced by in-degree over
+    as many ranks as a grid has rows can come out thinner than a row, so
+    an edge skips a band; fewer ranks take whole rows. Any other failure
+    of the partition is raised."""
+    from repro_torch.dist import partition_banded
+    n = n_dev
+    while True:
+        try:
+            return n, partition_banded(pgm, n)
+        except AssertionError as e:
+            if "is not banded" not in str(e) or n == 1:
+                raise
+            n //= 2
+
+
+def bp_cell(name: str, mesh, pgm=None) -> dict:
     """Count one BP cell (``BP_CELLS``) over the fake world's ranks as one
     "bp" axis: one round of rank 0 times ``BP_ROUNDS``; returns the
-    record's fields."""
+    record's fields. ``pgm`` replaces the cell's graph (a host ``PGM``).
+
+    A banded cell runs on the largest rank count ``bp_ranks`` at which the
+    graph holds the banded contract (``banded_ranks``), on the sub-mesh of
+    the world's first ``bp_ranks`` ranks; the others idle, and the record
+    says so. Its useful ratio is over the ranks that work; the global
+    count is over the whole mesh."""
     from repro_torch import dist as D
     from repro_torch.core import RnBP
     from repro_torch.core.graph import pad_pgm
@@ -307,10 +333,11 @@ def bp_cell(name: str, mesh) -> dict:
     from repro_torch.pgm import chain_graph, ising_grid_fast
     from repro_torch.roofline.kernel_model import engine_round, round_cost
     n_dev = mesh.size()
-    pgm = ising_grid_fast(512, 2.5, seed=0, device="cpu") if "ising" in name \
-        else chain_graph(1_000_000, C=10.0, seed=0, device="cpu")
+    if pgm is None:
+        pgm = ising_grid_fast(512, 2.5, seed=0, device="cpu") \
+            if "ising" in name else chain_graph(1_000_000, C=10.0, seed=0,
+                                                device="cpu")
     sched = RnBP(low_p=0.7)
-    bp_mesh = D.make_bp_mesh(device=_mesh_device())
     mode = _fake_mode()
     gen = torch.Generator().manual_seed(0)
     device = _fake_device()
@@ -318,8 +345,12 @@ def bp_cell(name: str, mesh) -> dict:
     with mode:          # the one-device round: the global count
         glob = round_cost(one, sched, make_triton_update(), eps=1e-3,
                           rng=gen) * BP_ROUNDS
+    n_ranks = n_dev
     if name.endswith("_banded"):
-        part = dataclasses.replace(D.partition_banded(pgm, n_dev), pgm=one)
+        n_ranks, part = banded_ranks(pgm, n_dev)
+        part = dataclasses.replace(part, pgm=one)
+        bp_mesh = D.make_bp_mesh(ranks=range(n_ranks),
+                                 device=_mesh_device())
 
         def run(rounds):
             comm.reset_stats()
@@ -334,6 +365,7 @@ def bp_cell(name: str, mesh) -> dict:
         rnd = count.counter.cost - first.counter.cost
         stats = _scaled(stats, BP_ROUNDS, first_stats)
     else:
+        bp_mesh = D.make_bp_mesh(device=_mesh_device())
         # re-padded to even slices, as run_bp_sharded does
         need = -(-pgm.n_edges // (2 * n_dev)) * (2 * n_dev)
         padded = pgm if need == pgm.n_edges else pad_pgm(
@@ -353,7 +385,7 @@ def bp_cell(name: str, mesh) -> dict:
     mf = float(BP_ROUNDS * e * (4 * s * s + 6 * s))
     total = rnd * BP_ROUNDS
     report = RA.analyze(
-        flops=total.flops, hbm_bytes=total.bytes, n_devices=n_dev,
+        flops=total.flops, hbm_bytes=total.bytes, n_devices=n_ranks,
         coll=RA.collective_bytes(*stats), model_flops_global=mf,
         argument_bytes=count.argument_bytes,
         output_bytes=count.output_bytes, peak_bytes=count.counter.live.peak)
@@ -361,7 +393,7 @@ def bp_cell(name: str, mesh) -> dict:
                 round={"flops": rnd.flops, "hbm_bytes": rnd.bytes},
                 global_over_devices={"flops": glob.flops / n_dev,
                                      "hbm_bytes": glob.bytes / n_dev},
-                fake_device=device, rounds=BP_ROUNDS)
+                fake_device=device, rounds=BP_ROUNDS, bp_ranks=n_ranks)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, *,
@@ -410,7 +442,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, *,
                   f"bn={rec['bottleneck']:10s} "
                   f"useful={rec['useful_ratio']:.2f} "
                   f"peak={mem['peak_bytes']:.2e} "
-                  f"fits80GB={mem['peak_ok_80GB']} t={rec['count_s']}s",
+                  f"fits80GB={mem['peak_ok_80GB']} t={rec['count_s']}s"
+                  + (f" bp_ranks={rec['bp_ranks']}" if "bp_ranks" in rec
+                     else ""),
                   flush=True)
         else:
             print(f"[FAIL] {arch} {shape_name} {mesh_name}: {rec['error']}",

@@ -255,7 +255,8 @@ def test_serving_phase_on_cpu(counted):
     assert [by_path[k]["lm_sharded_train"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [17, 18, 19]
-    assert all(len(by_path[k]) == 14 for k in by_path)
+    assert all(len(by_path[k]) == 15 for k in by_path)
+    assert [by_path[k]["entry_points"] for k in by_path] == [0, 0, 0]
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -933,3 +934,61 @@ def test_round_cost_phase_on_cpu(counted, tmp_path):
             cs.check_peak(peak, measured)
     assert cs.round_parts_ms({"edge_prelude": 1.0, "  gather": 0.5,
                               "fused_update_t": 2.0}) == 3.0
+
+
+def test_entry_points_phase_on_cpu():
+    """Phase 25 on the CPU: every in-process driver of
+    ``repro_torch.examples`` through its ``main``, at small sizes where
+    the driver takes them (quickstart as published), with the phase's
+    acceptances; the report serializes and its lines print."""
+    argv = dict(cs.ENTRY_ARGV)
+    argv.update({
+        "stereo_bp": ["--height", "12", "--width", "16", "--disp", "8"],
+        "ldpc_decode": ["--words", "3"],
+        "bp_serving/async": ["--async", "--workload", "mixed",
+                             "--requests", "6"],
+        "bp_serving/routed": ["--workload", "mixed", "--requests", "6",
+                              "--replicas", "2", "--routing",
+                              "least_loaded", "--steal"],
+        "train_lm": ["--steps", "4", "--batch", "4", "--seq", "16"]})
+    out = cs.phase_entry_points(CPU, argv)
+    q = out["quickstart"]["rows"]
+    assert [r["converged"] for r in q] == [False, True, True, True]
+    assert q[0]["rounds"] == 8000
+    st = out["stereo_bp"]
+    assert st["bitwise_plain"] and st["converged"]
+    assert st["accuracy"]["bp"] >= st["accuracy"]["observation"]
+    assert st["energy"]["bp"] <= st["energy"]["truth"]
+    assert len(out["ldpc_decode"]["rows"]) == 3
+    for key in ("bp_serving/async", "bp_serving/routed"):
+        assert out[key]["converged"] == out[key]["requests"] == 6
+        assert out[key]["backend"] == "ref"
+    assert out["bp_serving/routed"]["stats"]["replicas"] == 2
+    assert out["train_lm"]["drift"] == 0.0
+    assert set(out["launches"]) == {"fused_update_e/sum",
+                                    "fused_update_e/max",
+                                    "fused_update_t/sum"}
+    out["distributed_bp"] = dict(
+        stdout="devices: 2\n", rounds={"LBP": 80, "RnBP": 77},
+        banded_rounds=80, launches=[0, 0], wall_s=0.5, bitwise=True,
+        parity=True)
+    out["phase_s"] = 1.0
+    cs.log_entry_points(out)
+    json.dumps(out)
+    by_path = cs.launches_by_path(*_zero_paths(), entry=out)
+    assert by_path["fused_update_e/sum"]["entry_points"] == \
+        out["launches"]["fused_update_e/sum"]
+    assert set(by_path["fused_update_t/sum"]) == set(
+        by_path["fused_update_e/sum"])
+
+
+def _zero_paths():
+    """``launches_by_path``'s fourteen positional reports, all zero."""
+    three = {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                          "fused_update_t/sum": 0}}
+    one = {"sharded": {"launches": 0}, "banded": {"launches": 0}}
+    return ({"launches": {"sum": 0, "t": 0}}, {"launches": 0},
+            {"other_launches": {"sum": 0, "max": 0}, "launches": 0},
+            three, {"launches": {}}, {"launches": {"sum": 0, "max": 0}}, one,
+            three, three, three, three, three,
+            {"launches": {"fused_update_e/sum": 0}}, three)

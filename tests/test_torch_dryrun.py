@@ -128,3 +128,60 @@ def test_collective_links_and_report():
     assert r.memory_per_device == {"argument_bytes": 10, "output_bytes": 2,
                                    "peak_bytes": 81_000_000_000,
                                    "peak_ok_80GB": False}
+
+
+_BANDED = r"""
+import json
+from repro_torch.dist import partition_banded
+from repro_torch.launch import dryrun as DR
+from repro_torch.pgm import ising_grid_fast
+
+
+class Mesh:                      # bp_cell asks a mesh only for its size
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, dim=None):
+        return self.n
+
+
+g = ising_grid_fast(16, 2.5, seed=0, device="cpu")
+DR.fake_world(32)
+wide = DR.bp_cell("bp_ising_512_banded", Mesh(32), pgm=g)
+n = wide["bp_ranks"]
+holds = {}
+for m in (n, 2 * n):
+    try:
+        partition_banded(g, m)
+        holds[m] = True
+    except AssertionError:
+        holds[m] = False
+DR.fake_world(n)
+direct = DR.bp_cell("bp_ising_512_banded", Mesh(n), pgm=g)
+print(json.dumps({"wide": wide, "direct": direct, "holds": holds}))
+"""
+
+
+def test_banded_cell_falls_back_to_the_ranks_its_partition_holds():
+    """``ising_grid_fast(16)`` over a fake world of 32 ranks: bands
+    balanced by in-degree over 32 ranks are thinner than a row, so an edge
+    skips a band. The cell halves the rank count until the partition
+    holds, runs on that sub-mesh (the other ranks idle) and records
+    ``bp_ranks``; its counts are the cell's counted directly on a world of
+    that many ranks."""
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
+    run = subprocess.run([sys.executable, "-c", _BANDED], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    wide, direct, holds = out["wide"], out["direct"], out["holds"]
+    n = wide["bp_ranks"]
+    assert 1 <= n < 32 and 32 % n == 0
+    assert holds == {str(n): True, str(2 * n): False}
+    assert direct["bp_ranks"] == n
+    for key in ("round", "flops", "hbm_bytes", "coll_bytes",
+                "coll_breakdown", "memory_per_device", "t_compute",
+                "t_memory", "t_collective", "bottleneck", "useful_ratio"):
+        assert wide[key] == direct[key], key
+    assert wide["flops"] > 0 and wide["coll_bytes"] > 0

@@ -9,8 +9,10 @@ A fresh interpreter imports every module of ``repro_torch`` and imports
 ``init_train_state``, ``SyntheticLM``), the training launcher (on one
 device, and with ``--model-parallel 2 --sharding fsdp``),
 ``make_production_mesh`` and ``build_model`` on a mesh (either mode),
-called without ``device=`` / ``--device cpu`` must raise when there is no
-GPU rather than carry on on the CPU; sharded training asked for on the CPU
+and the example drivers (``repro_torch.examples.*``: quickstart,
+stereo_bp, ldpc_decode, bp_serving, distributed_bp, train_lm) called
+without ``device=`` / ``--device cpu`` must raise when there is no GPU
+rather than carry on on the CPU; sharded training asked for on the CPU
 stays there.
 """
 
@@ -28,6 +30,8 @@ from repro_torch.configs.base import TRAIN_4K
 from repro_torch.core import BPConfig, BPEngine, build_pgm, build_pgm_uniform
 from repro_torch.data import SyntheticLM
 from repro_torch.dist import make_bp_mesh, run_bp_sharded
+from repro_torch.examples import (bp_serving, distributed_bp, ldpc_decode,
+                                  quickstart, stereo_bp, train_lm)
 from repro_torch.ft import ElasticMesh, run_bp_resilient
 from repro_torch.models import Model, build_model
 from repro_torch.pgm import datasets as TD
@@ -98,7 +102,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                 "repro_torch.launch.sharding",
                 "repro_torch.models.layers.parallel",
                 "repro_torch.roofline.op_cost", "repro_torch.launch.dryrun",
-                "repro_torch.kernels._dispatch"):
+                "repro_torch.kernels._dispatch", "repro_torch.examples",
+                "repro_torch.examples.quickstart",
+                "repro_torch.examples.stereo_bp",
+                "repro_torch.examples.ldpc_decode",
+                "repro_torch.examples.bp_serving",
+                "repro_torch.examples.distributed_bp",
+                "repro_torch.examples.train_lm", "repro_torch.experiments",
+                "repro_torch.experiments.render_roofline"):
         assert mod in report["modules"]
 
 
@@ -161,6 +172,12 @@ def no_gpu(monkeypatch):
     lambda: launch_train.main(["--arch", "qwen3_4b", "--reduced",
                                "--steps", "1", "--model-parallel", "2",
                                "--sharding", "fsdp"]),
+    lambda: quickstart.main([]),
+    lambda: stereo_bp.main([]),
+    lambda: ldpc_decode.main(["--words", "1"]),
+    lambda: bp_serving.main(["--requests", "1"]),
+    lambda: distributed_bp.main(["--size", "4"]),
+    lambda: train_lm.main(["--steps", "1"]),
 ], ids=["ising_grid", "ising_grid_fast", "small_ising", "chain_graph",
         "protein_like_graph", "build_pgm", "build_pgm_uniform", "engine",
         "engine_default_config", "loop_graph", "ldpc_graph", "stereo_mrf",
@@ -169,7 +186,9 @@ def no_gpu(monkeypatch):
         "elastic_mesh", "build_model", "model", "make_train_step",
         "init_train_state", "synthetic_lm", "launch_train",
         "make_production_mesh", "build_model_on_a_mesh",
-        "build_model_fsdp_on_a_mesh", "launch_train_sharded"])
+        "build_model_fsdp_on_a_mesh", "launch_train_sharded",
+        "example_quickstart", "example_stereo_bp", "example_ldpc_decode",
+        "example_bp_serving", "example_distributed_bp", "example_train_lm"])
 def test_entry_points_default_to_cuda_and_refuse_without_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -152,3 +152,59 @@ def test_apply_frontier(case, damping):
     close(JM.apply_frontier(jnp.asarray(logm), jc, jnp.asarray(frontier),
                             damping),
           TM.apply_frontier(T(logm), T(cand), T(frontier), damping))
+
+
+#: the zoo's generators (``repro.pgm.WORKLOADS``) at their defaults, and
+#: one graph padded past its real edges (rows whose destination has no
+#: valid state: the all-masked rows of ``test_masked_logsumexp``)
+ZOO = ("ising", "chain", "protein", "ldpc", "stereo", "padded")
+
+
+@pytest.fixture(scope="module", params=ZOO)
+def zoo_case(request):
+    """(reference PGM, port PGM, numpy candidates, numpy messages)."""
+    from repro.core.graph import pad_pgm
+    from repro.pgm import get_workload
+    if request.param == "padded":
+        g = JD.ising_grid(5, 2.0, seed=3)
+        jpgm = pad_pgm(g, n_edges=g.n_edges + 16, n_vertices=g.n_vertices + 4,
+                       n_states=3)
+    else:
+        jpgm = get_workload(request.param)(seed=2)
+    rng = np.random.default_rng(5)
+    dmask = np.asarray(jpgm.state_mask)[np.asarray(jpgm.edge_dst)]
+    cand = rng.normal(0.0, 2.0, dmask.shape).astype(np.float32)
+    x = np.where(dmask, rng.normal(0.0, 1.5, dmask.shape), -np.inf)
+    with np.errstate(invalid="ignore"):
+        x = x - np.logaddexp.reduce(x, axis=1, keepdims=True)
+    logm = np.where(dmask, x, JM.NEG_INF).astype(np.float32)
+    return jpgm, bridge(jpgm), cand, logm
+
+
+def test_normalize_messages(zoo_case):
+    """The masked LSE over valid destination states, then NEG_INF on the
+    invalid ones; a row with no valid state is NEG_INF throughout in both
+    packages (the reference's -inf LSE there is masked away)."""
+    jpgm, tpgm, cand, _ = zoo_case
+    j = JM.normalize_messages(jpgm, jnp.asarray(cand))
+    t = TM.normalize_messages(tpgm, T(cand))
+    close(j, t)
+    dmask = np.asarray(jpgm.state_mask)[np.asarray(jpgm.edge_dst)]
+    assert np.all(t.numpy()[~dmask] == np.float32(JM.NEG_INF))
+    some = dmask.any(axis=1)
+    lse = np.logaddexp.reduce(np.where(dmask, t.numpy(), -np.inf)[some],
+                              axis=1)
+    assert np.abs(lse).max() <= TOL
+
+
+@pytest.mark.parametrize("semiring", ["sum", "max"])
+def test_compute_candidates(zoo_case, semiring):
+    jpgm, tpgm, _, logm = zoo_case
+    jprop = JM.propagate_ref if semiring == "sum" else JM.propagate_max
+    tprop = TM.propagate_ref if semiring == "sum" else TM.propagate_max
+    j = JM.compute_candidates(jpgm, jnp.asarray(logm), jprop)
+    t = TM.compute_candidates(tpgm, T(logm), tprop)
+    close(j, t)
+    if semiring == "sum":
+        close(JM.compute_candidates(jpgm, jnp.asarray(logm)),
+              TM.compute_candidates(tpgm, T(logm)))
