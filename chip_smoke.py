@@ -146,7 +146,13 @@ main paths and its serving path at full size and measures them:
   ``zoo_stream(36)`` (every request converged; requests/s, latency),
   ``train_lm`` (resume drift exactly 0), and ``distributed_bp`` inside
   phase 17's two gloo ranks (sharded bitwise one device, banded round
-  parity); each kernel's launches per driver (phase 25).
+  parity); each kernel's launches per driver (phase 25);
+- the docs' executable spec: every page of ``docs/torch/`` as a reader
+  runs it with ``DEVICE = "cuda"`` (``sharding.md`` on an NCCL world of
+  one), each page's own asserts holding -- ``kernels.md``'s holds
+  ``fused_update_e`` against its plain version, sum within 1e-4 and max
+  bitwise -- and README's first port block at its full size; seconds and
+  launches per page (phase 26).
 
 Both kernels are held against their plain versions at every state count
 on a boundary of their launch plans (phases 3 and 9, with the first edges
@@ -159,8 +165,10 @@ Every phase raises on failure; nothing is caught. Output:
 
 - progress lines per phase, the kernels' ``-Xptxas -v`` lines first;
 - the card's name and power limit (``nvidia-smi``);
+- one JSON line ``{"docs": ...}``: phase 26's blocks, seconds per page
+  and launches per kernel;
 - one JSON line ``{"kernels": [...]}``: per kernel its launches on its path
-  and on each of the fifteen paths (``launches_by_path``), its largest
+  and on each of the sixteen paths (``launches_by_path``), its largest
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
@@ -382,6 +390,10 @@ ENTRY_ARGV = {
     "train_lm": ["--steps", "20"],
 }
 ENTRY_DIST_SIZE = 32
+# The port's pages of the docs' executable spec (phase 26), run on the card
+# in this order; then README's first port block at its full size.
+DOCS_PAGES = ("engine.md", "schedulers.md", "serving.md", "admission.md",
+              "router.md", "workloads.md", "kernels.md", "sharding.md")
 #: dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
 #: substring of the device name; the first match wins
 BF16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
@@ -5882,9 +5894,162 @@ def log_entry_points(out) -> None:
         log(f"  {key} wall {out[key]['wall_s']:.2f} s")
 
 
+# ------------------------------------------------------------- phase 26 --
+
+def doc_blocks(path):
+    """The ``python`` code blocks of a markdown file, in order."""
+    import re
+    return re.findall(r"```python\n(.*?)```", Path(path).read_text(),
+                      flags=re.DOTALL)
+
+
+def readme_port_block():
+    """README's first ``repro_torch`` code block: the one-graph main path,
+    the batched one, ``serve_async`` and ``serve_routed`` at full size."""
+    return next(b for b in doc_blocks(REPO / "README.md")
+                if "repro_torch" in b)
+
+
+@contextlib.contextmanager
+def registries_restored():
+    """The port's registries as they were before, after the block: a page
+    registers its demo entries (schedulers, backends, batched backends,
+    admission and routing policies, workloads) into them."""
+    from repro_torch.core.schedulers import SCHEDULERS
+    from repro_torch.core.serving import ADMISSION_POLICIES
+    from repro_torch.kernels.ops import BATCH_UPDATE_BACKENDS, UPDATE_BACKENDS
+    from repro_torch.pgm.datasets import WORKLOADS
+    from repro_torch.serve.routing import ROUTING_POLICIES
+    registries = (SCHEDULERS, UPDATE_BACKENDS, BATCH_UPDATE_BACKENDS,
+                  ADMISSION_POLICIES, ROUTING_POLICIES, WORKLOADS)
+    snapshots = [dict(r) for r in registries]
+    try:
+        yield
+    finally:
+        for reg, snap in zip(registries, snapshots):
+            reg.clear()
+            reg.update(snap)
+
+
+def run_blocks(name, blocks, ns, device):
+    """Each block of ``blocks`` in ``ns``, in order, its stdout captured,
+    counted from 0 just before: (stdout, the kernels' launches, seconds
+    per block to the card's last kernel). A failing block raises."""
+    import io
+    from repro_torch.kernels import message_update as MU
+    from repro_torch.kernels import triton_update as TT
+    TT.reset_launch_counts()
+    MU.reset_launch_counts()
+    buf = io.StringIO()
+    seconds = []
+    with registries_restored(), contextlib.redirect_stdout(buf):
+        for i, block in enumerate(blocks):
+            t0 = time.perf_counter()
+            exec(compile(block, f"{name}[block {i}]", "exec"), ns)
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+    return buf.getvalue(), {"fused_update_e/sum": TT.LAUNCHES["sum"],
+                            "fused_update_e/max": TT.LAUNCHES["max"],
+                            "fused_update_t/sum": MU.LAUNCHES["sum"]}, seconds
+
+
+def phase_docs(device, pages=DOCS_PAGES, readme=None):
+    """Phase 26: every page of ``docs/torch/`` run as a reader runs it,
+    its blocks in order in one namespace with ``DEVICE`` set to the card
+    (``sharding.md``'s first block makes an NCCL world of one, as phase 17
+    (a)'s, and its last destroys it), each page counted from 0; then
+    README's first port block (``readme``: its text, by default
+    ``readme_port_block()``) at its full size: RnBP on Ising 1000 x 1000
+    through ``"triton"``, four Tsukuba-size frames through ``"pallas"`` in
+    ``run_many``, ``serve_async`` and ``serve_routed``. Checks: every
+    block's own asserts; ``kernels.md``'s kernel against its plain version
+    (sum within ``SUM_TOL``, max bitwise); README's runs converged, every
+    request served and its beliefs finite; on the card, each kernel
+    launched at least once over the pages and README."""
+    import torch
+    out = {"pages": {}}
+    for page in pages:
+        blocks = doc_blocks(REPO / "docs" / "torch" / page)
+        ns = {"DEVICE": device.type}
+        text, launches, secs = run_blocks(f"docs/torch/{page}", blocks, ns,
+                                          device)
+        out["pages"][page] = dict(blocks=len(blocks), seconds=sum(secs),
+                                  block_s=secs, launches=launches,
+                                  stdout=text)
+        if page == "kernels.md":
+            err = ns["err"]
+            if err["sum"] > SUM_TOL or err["max"] != 0.0:
+                raise AssertionError(f"kernels.md: fused_update_e against "
+                                     f"its plain version: {err}")
+            out["kernel_check"] = {"fused_update_e/sum": err["sum"],
+                                   "fused_update_e/max": err["max"]}
+    ns = {}
+    text, launches, secs = run_blocks("README.md", [readme or
+                                                    readme_port_block()],
+                                      ns, device)
+    res, results, rep, routed = (ns["res"], ns["results"], ns["rep"],
+                                 ns["routed"])
+    frames = ns["frames"]
+    if not (bool(res.converged) and all(bool(r.converged) for r in results)
+            and len(rep.records) == len(routed.records) == len(frames)
+            and all(r.status == "completed" for r in routed.records)):
+        raise AssertionError("README: a run did not converge or a request "
+                             "was not served")
+    for pgm, r in [(ns["pgm"], res)] + list(zip(frames, results)) + [
+            (frames[rec.rid], rec.result)
+            for rec in list(rep.records) + list(routed.records)]:
+        b = r.beliefs
+        if not (bool(torch.isfinite(b).all()) and b.dim() == 2
+                and b.shape[0] >= pgm.n_real_vertices):
+            raise AssertionError(f"README: beliefs {tuple(b.shape)} not "
+                                 "finite or misshapen")
+    out["readme"] = dict(
+        seconds=secs[0], launches=launches, stdout=text,
+        rounds=int(res.rounds), run_many_rounds=[int(r.rounds)
+                                                 for r in results],
+        wasted_sweeps=rep.stats.wasted_sweeps,
+        routed=list(routed.stats.routed))
+    out["launches"] = {k: sum(p["launches"][k] for p in
+                              list(out["pages"].values()) + [out["readme"]])
+                       for k in launches}
+    if device.type == "cuda":
+        idle = [k for k, n in out["launches"].items() if n == 0]
+        if idle:
+            raise AssertionError(f"phase 26 launched no {idle}")
+    return out
+
+
+def docs_line(out) -> dict:
+    """The ``{"docs": ...}`` line: blocks run, seconds per page (README's
+    block as ``README.md``), launches per kernel."""
+    seconds = {p: v["seconds"] for p, v in out["pages"].items()}
+    seconds["README.md"] = out["readme"]["seconds"]
+    return dict(blocks=sum(v["blocks"] for v in out["pages"].values()) + 1,
+                seconds=seconds, launches=out["launches"],
+                phase_s=out.get("phase_s"))
+
+
+def log_docs(out) -> None:
+    """Phase 26's progress lines."""
+    for page, v in out["pages"].items():
+        log(f"  docs/torch/{page}: {v['blocks']} blocks in "
+            f"{v['seconds']:.2f} s (" + ", ".join(f"{t:.2f}"
+                                                 for t in v["block_s"])
+            + f"); launches {v['launches']}")
+    log(f"  kernels.md: fused_update_e vs plain {out['kernel_check']}")
+    r = out["readme"]
+    log(f"  README's first port block: RnBP 1000^2 {r['rounds']} rounds; "
+        f"run_many rounds {r['run_many_rounds']}; serve_async wasted "
+        f"sweeps {r['wasted_sweeps']}; serve_routed {r['routed']}; "
+        f"{r['seconds']:.2f} s; launches {r['launches']}")
+    for line in r["stdout"].splitlines():
+        log(f"    {line}")
+    log(f"  launches over the pages and README: {out['launches']}")
+
+
 def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                      dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks,
-                     submesh, round_cost, entry=None):
+                     submesh, round_cost, entry=None, docs=None):
     """Each kernel's launches on each path, as the phases counted them:
     the one-graph path (phase 4; max-product: the MAP path of phase 5),
     the batched path (phase 10), the serving path (phase 14), the routed
@@ -5900,7 +6065,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     ranks' launches in all of its runs, summed), and the counted rounds of
     phase 24 (a) (``round_cost``), and the entry points of phase 25
     (``entry_points``: its drivers' launches in this process plus
-    ``distributed_bp``'s on every rank of phase 17's world)."""
+    ``distributed_bp``'s on every rank of phase 17's world), and the docs'
+    pages and README's first port block of phase 26 (``docs``)."""
     srv, rt, lm = serving["launches"], routed["launches"], lm["launches"]
     ep = dict((entry or {}).get("launches", {}))
     ep["fused_update_e/sum"] = ep.get("fused_update_e/sum", 0) + sum(
@@ -5908,6 +6074,7 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
     lmt, lms = lm_train["launches"], lm_shard["launches"]
     lmst, lmb = lm_strain["launches"], lm_blocks["launches"]
     sub, rc = submesh["launches"], round_cost["launches"]
+    dl = (docs or {}).get("launches", {})
     return {
         "fused_update_e/sum": dict(one_graph=main["launches"]["sum"],
                                    batched=bmain["other_launches"]["sum"],
@@ -5923,7 +6090,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    lm_blocks=lmb["fused_update_e/sum"],
                                    sub_meshes=sub["fused_update_e/sum"],
                                    round_cost=rc["fused_update_e/sum"],
-                                   entry_points=ep["fused_update_e/sum"]),
+                                   entry_points=ep["fused_update_e/sum"],
+                                   docs=dl.get("fused_update_e/sum", 0)),
         "fused_update_e/max": dict(one_graph=mapd["launches"],
                                    batched=bmain["other_launches"]["max"],
                                    serving=srv["fused_update_e/max"],
@@ -5938,7 +6106,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    sub_meshes=0,
                                    round_cost=rc["fused_update_e/max"],
                                    entry_points=ep.get("fused_update_e/max",
-                                                       0)),
+                                                       0),
+                                   docs=dl.get("fused_update_e/max", 0)),
         "fused_update_t/sum": dict(one_graph=main["launches"]["t"],
                                    batched=bmain["launches"],
                                    serving=srv["fused_update_t/sum"],
@@ -5952,7 +6121,8 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    sub_meshes=0,
                                    round_cost=rc["fused_update_t/sum"],
                                    entry_points=ep.get("fused_update_t/sum",
-                                                       0))}
+                                                       0),
+                                   docs=dl.get("fused_update_t/sum", 0))}
 
 
 def log_serving(out) -> None:
@@ -6288,6 +6458,15 @@ def main() -> int:
     log_entry_points(entry)
     log(f"  phase 25 in {entry['phase_s']:.1f} s")
 
+    log("== 26. the docs' executable spec (docs/torch/*.md on the card, "
+        "sharding.md on an NCCL world of one) and README's first port "
+        "block at full size")
+    t0 = time.perf_counter()
+    docs = phase_docs(device)
+    docs["phase_s"] = time.perf_counter() - t0
+    log_docs(docs)
+    log(f"  phase 26 in {docs['phase_s']:.1f} s")
+
     checked = {name: list(serving["kernel_check"].get(name, []))
                + list(router["kernel_check"].get(name, []))
                for name in ("fused_update_e/sum", "fused_update_t/sum")}
@@ -6297,6 +6476,8 @@ def main() -> int:
                                       dist_out["one"]["banded"]
                                       ["kernel_check"]]
     checked["fused_update_e/sum"] += submesh["kernel_check"]
+    for name, err in docs["kernel_check"].items():
+        checked.setdefault(name, []).append({"max_abs_err": err})
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
         {"sum": main["launches"]["sum"], "max": mapd["launches"]},
@@ -6304,7 +6485,7 @@ def main() -> int:
                                             router, resil["resilient"],
                                             dist_out["one"], lm, lm_train,
                                             lm_shard, lm_strain, lm_blocks,
-                                            submesh, costs, entry),
+                                            submesh, costs, entry, docs),
         checked)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
@@ -6316,7 +6497,7 @@ def main() -> int:
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
                   lm_blocks=lm_blocks, submesh=submesh, round_cost=costs,
-                  entry_points=entry,
+                  entry_points=entry, docs=docs,
                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                   total_s=time.perf_counter() - t_start, kernels=kernels)
     out_dir = REPO / "chiprun_out"
@@ -6325,6 +6506,7 @@ def main() -> int:
         json.dumps(report, indent=1))
     log(f"== done in {report['total_s']:.1f} s (total_s)")
     print(smi)
+    print(json.dumps({"docs": docs_line(docs)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,6 +29,11 @@ Building blocks:
   LBP/RBP/RS/RnBP    message schedulings (Table IV)
   RLX/RLXTree        relaxed multi-queue priority family (2002.11505)
   messages           the plain torch message math
+  ve_marginals, brute_force_marginals, kl_divergence   exact oracles
+
+Deprecated compatibility wrappers (delegate to BPEngine, exact parity):
+  run_bp, run_bp_batch, run_bp_many, run_srbp; srbp_run and SRBPResult
+  are the host-serial baseline behind ``scheduler="srbp"``
 """
 
 from repro_torch.core.graph import (EDGE_PAD, NEG_INF, PGM, VERTEX_PAD,
@@ -55,6 +60,10 @@ from repro_torch.core.schedulers import (LBP, RBP, RLX, RLXTree, RS, RnBP,
                                          list_schedulers, register_scheduler,
                                          scheduler_spec)
 from repro_torch.kernels.ops import list_backends
+from repro_torch.core.runner import run_bp, run_bp_batch, run_bp_many
+from repro_torch.core.serial import SRBPResult, run_srbp, srbp_run
+from repro_torch.core.exact import (brute_force_marginals, kl_divergence,
+                                    ve_marginals)
 from repro_torch.core import messages
 
 __all__ = [
@@ -72,4 +81,6 @@ __all__ = [
     "LBP", "RBP", "RS", "RnBP", "RLX", "RLXTree", "SCHEDULERS",
     "get_scheduler", "list_schedulers", "register_scheduler",
     "scheduler_spec", "list_backends", "messages",
+    "run_bp", "run_bp_batch", "run_bp_many", "run_srbp", "srbp_run",
+    "SRBPResult", "brute_force_marginals", "kl_divergence", "ve_marginals",
 ]

@@ -48,7 +48,8 @@ from repro_torch.core.graph import (_ARRAY_FIELDS, _DTYPES, EDGE_PAD, PGM,
 
 __all__ = ["BatchedPGM", "Bucket", "RidgeEffort", "RoundsHistory",
            "batch_generators", "bucket_key", "bucket_pgms", "bucket_shape",
-           "group_ceilings", "slot_generator", "slot_seed"]
+           "group_ceilings", "slot_generator", "slot_seed", "run_bp_batch",
+           "run_bp_many"]
 
 #: every tensor field of a ``PGM``, stacked along the batch axis
 _TENSOR_FIELDS = _ARRAY_FIELDS + ("in_edges", "in_mask", "dst_mask")
@@ -678,3 +679,12 @@ class RoundsHistory:
     def __len__(self) -> int:
         with self._lock:
             return sum(len(dq) for dq in self._hist.values())
+
+
+def __getattr__(name: str):
+    # The deprecated wrappers live in ``runner``, which imports this module;
+    # the reference exports them from here, so they resolve here too.
+    if name in ("run_bp_batch", "run_bp_many"):
+        from repro_torch.core import runner
+        return getattr(runner, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

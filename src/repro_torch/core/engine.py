@@ -114,9 +114,11 @@ class BPConfig:
     ``repro_torch.kernels.ops.UPDATE_BACKENDS``)
     or is a ``(pgm, logm) -> (cand, resid)`` callable. A bucket folds into
     its disjoint union and runs ``backend`` there; ``batch_backend``
-    optionally names another backend for that fold ("pallas" | "triton",
-    the reference's batched names, through ``ops.get_batch_update_fn``) or
-    is a natively batched ``(batch, logm) -> (cand, resid)`` callable.
+    optionally names a batched backend instead ("pallas" | "triton", each
+    that fold through the backend of its name, or one registered with
+    ``register_update_backend(name, batched=True)``, through
+    ``repro_torch.kernels.ops.BATCH_UPDATE_BACKENDS``) or is a natively
+    batched ``(batch, logm) -> (cand, resid)`` callable.
     ``chunk_rounds`` bounds rounds per ``step`` (None = to ``max_rounds``
     in one chunk); ``history`` sizes the per-round unconverged-count
     buffer. ``admission`` names the serving path's admission policy
@@ -299,7 +301,7 @@ class BPEngine:
                           and config.scheduler.lower() == "srbp")
         self.scheduler: Scheduler | None = (
             None if self.is_serial else config.make_scheduler())
-        from repro_torch.kernels.ops import get_batch_update_fn, get_update_fn
+        from repro_torch.kernels.ops import get_update_fn
         backend, batch_backend = config.backend, config.batch_backend
         self.update_fn = (backend if callable(backend)
                           else get_update_fn(backend))
@@ -320,7 +322,7 @@ class BPEngine:
         elif callable(batch_backend):
             self.batch_update_fn = batch_backend
         else:
-            self.batch_update_fn = get_batch_update_fn(batch_backend)
+            self.batch_update_fn = get_update_fn(batch_backend, batched=True)
 
     def _check_graph(self, graph):
         if not isinstance(graph, (PGM, BatchedPGM)):

@@ -10,9 +10,8 @@ bucket.
 submodule's; the two ``LAUNCHES`` counters live in their modules.)
 """
 
-from repro_torch.kernels.ops import (BATCH_BACKEND_NAMES, UPDATE_BACKENDS,
-                                     get_batch_update_fn, get_update_fn,
-                                     kernel_operands_t,
+from repro_torch.kernels.ops import (BATCH_UPDATE_BACKENDS, UPDATE_BACKENDS,
+                                     get_update_fn, kernel_operands_t,
                                      list_backends, make_pallas_update,
                                      make_pallas_update_batch,
                                      make_triton_update,
@@ -25,8 +24,7 @@ from repro_torch.kernels.message_update import fused_update_t
 from repro_torch.kernels.triton_update import (LAUNCHES, fused_update_e,
                                                reset_launch_counts)
 
-__all__ = ["UPDATE_BACKENDS", "BATCH_BACKEND_NAMES", "get_update_fn",
-           "get_batch_update_fn",
+__all__ = ["UPDATE_BACKENDS", "BATCH_UPDATE_BACKENDS", "get_update_fn",
            "kernel_operands_t", "list_backends", "make_pallas_update",
            "make_pallas_update_batch", "make_triton_update",
            "make_triton_update_batch", "pallas_update", "pallas_update_batch",

@@ -55,7 +55,8 @@ _RESIDENT: Dict[Tuple, Tuple[int, int]] = {}
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count to 0."""
+    """Set ``LAUNCHES["sum"]`` to 0: a run counts its kernel launches
+    from here (one per launch on the card, none on the CPU)."""
     LAUNCHES["sum"] = 0
 
 

@@ -16,13 +16,15 @@ The port of ``repro.kernels.ops``. A single-graph backend is a
   and the result back to (E, S) -- three copies a call.
 
 A bucket (``BatchedPGM``) runs folded into its kept disjoint union through
-a single-graph backend -- one launch for the whole bucket. The reference's
-batched backends ``"pallas"`` and ``"triton"`` are exactly that fold, so
-here ``BPConfig.batch_backend=<name>`` resolves in one place
-(``get_batch_update_fn``) as the fold of ``UPDATE_BACKENDS[<name>]``; only
-the reference's two names are accepted, so configs interchange.
-``pallas_update_batch``/``triton_update_batch`` keep the reference's
-function names for the same fold.
+a single-graph backend -- one launch for the whole bucket. A batched
+backend is a ``(batch, logm (B, E, S)) -> (cand (B, E, S), resid (B, E))``
+callable, named by ``BPConfig.batch_backend`` through
+``BATCH_UPDATE_BACKENDS``, the reference's registry of the same name. Its
+two entries, ``"pallas"`` and ``"triton"``
+(``pallas_update_batch``/``triton_update_batch``), are that fold through
+the single-graph backend of the same name, so they are bitwise the
+engine's default fold; ``register_update_backend(name, batched=True)``
+adds more.
 
 - ``"sharded"``: the multi-device update of ``repro_torch.dist`` -- each
   rank of the ``torch.distributed`` world keeps and updates only its slice
@@ -45,12 +47,12 @@ from repro_torch.core.registry import Registry
 from repro_torch.kernels.message_update import fused_update_t
 from repro_torch.kernels.triton_update import fused_update_e
 
-__all__ = ["UPDATE_BACKENDS", "BATCH_BACKEND_NAMES", "kernel_operands_t",
+__all__ = ["UPDATE_BACKENDS", "BATCH_UPDATE_BACKENDS", "kernel_operands_t",
            "pallas_update", "make_pallas_update", "pallas_update_batch",
            "make_pallas_update_batch", "triton_update", "make_triton_update",
            "triton_update_batch", "make_triton_update_batch",
            "make_sharded_update", "register_update_backend",
-           "list_backends", "get_update_fn", "get_batch_update_fn"]
+           "list_backends", "get_update_fn"]
 
 
 def kernel_operands_t(pgm: PGM):
@@ -139,36 +141,34 @@ UPDATE_BACKENDS = Registry("update backend", {
     "sharded": make_sharded_update,
 })
 
-#: The ``BPConfig.batch_backend`` names (the reference's batched backends).
-BATCH_BACKEND_NAMES = ("pallas", "triton")
+#: name -> zero/kwarg factory returning a batched ``(batch, logm)`` update.
+BATCH_UPDATE_BACKENDS = Registry("batched update backend", {
+    "pallas": make_pallas_update_batch,
+    "triton": make_triton_update_batch,
+})
 
 
-def register_update_backend(name: str, *, overwrite: bool = False):
+def _registry(batched: bool) -> Registry:
+    return BATCH_UPDATE_BACKENDS if batched else UPDATE_BACKENDS
+
+
+def register_update_backend(name: str, *, batched: bool = False,
+                            overwrite: bool = False):
     """Decorator registering an update-backend factory under ``name``
-    (lowercased). Duplicates raise ``ValueError`` unless
+    (lowercased), in ``BATCH_UPDATE_BACKENDS`` when ``batched`` else in
+    ``UPDATE_BACKENDS``. Duplicates raise ``ValueError`` unless
     ``overwrite=True``."""
-    return UPDATE_BACKENDS.register(name, overwrite=overwrite)
+    return _registry(batched).register(name, overwrite=overwrite)
 
 
-def list_backends():
-    """Sorted registered backend names (valid ``BPConfig.backend``
-    specs)."""
-    return UPDATE_BACKENDS.names()
+def list_backends(*, batched: bool = False):
+    """Sorted registered backend names: valid ``BPConfig.backend`` specs,
+    or with ``batched=True`` valid ``BPConfig.batch_backend`` specs."""
+    return _registry(batched).names()
 
 
-def get_update_fn(name: str, **kwargs):
-    """Resolve a backend name to an update callable; ``kwargs`` (e.g.
-    ``semiring=``) pass through to the factory."""
-    return UPDATE_BACKENDS.lookup(name)(**kwargs)
-
-
-def get_batch_update_fn(name: str, **kwargs):
-    """Resolve ``BPConfig.batch_backend=name`` to a ``(batch, logm) ->
-    (cand, resid)`` callable: the single-graph backend ``name`` run once on
-    the bucket's folded union. Names outside ``BATCH_BACKEND_NAMES`` raise
-    the registry's uniform ``KeyError``, as the reference's do."""
-    if str(name).lower() not in BATCH_BACKEND_NAMES:
-        raise KeyError(f"unknown batched update backend {name!r}; "
-                       f"registered: {list(BATCH_BACKEND_NAMES)}")
-    update_fn = get_update_fn(name, **kwargs)
-    return lambda batch, logm: batch.folded_update(update_fn, logm)
+def get_update_fn(name: str, *, batched: bool = False, **kwargs):
+    """Resolve a backend name to an update callable (batched with
+    ``batched=True``); ``kwargs`` (e.g. ``semiring=``) pass through to the
+    factory. Unknown names raise the registry's uniform ``KeyError``."""
+    return _registry(batched).lookup(name)(**kwargs)

@@ -148,7 +148,9 @@ def plan_e(n_edges: int, n_states: int, n_sms: int = N_SMS_H100,
 
 
 def reset_launch_counts() -> None:
-    """Set every semiring's launch count to 0."""
+    """Set each semiring's count in ``LAUNCHES`` to 0: a run counts its
+    kernel launches from here (the wrapper adds one per launch on the
+    card, none for the plain version on the CPU)."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 

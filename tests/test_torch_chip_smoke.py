@@ -255,8 +255,9 @@ def test_serving_phase_on_cpu(counted):
     assert [by_path[k]["lm_sharded_train"] for k in (
         "fused_update_e/sum", "fused_update_e/max",
         "fused_update_t/sum")] == [17, 18, 19]
-    assert all(len(by_path[k]) == 15 for k in by_path)
+    assert all(len(by_path[k]) == 16 for k in by_path)
     assert [by_path[k]["entry_points"] for k in by_path] == [0, 0, 0]
+    assert [by_path[k]["docs"] for k in by_path] == [0, 0, 0]
     assert [by_path[k]["lm"] for k in ("fused_update_e/sum",
                                        "fused_update_e/max",
                                        "fused_update_t/sum")] == [8, 9, 10]
@@ -992,3 +993,45 @@ def _zero_paths():
             three, {"launches": {}}, {"launches": {"sum": 0, "max": 0}}, one,
             three, three, three, three, three,
             {"launches": {"fused_update_e/sum": 0}}, three)
+
+
+def test_docs_phase_on_cpu(counted):
+    """Phase 26 on the CPU: every page of ``docs/torch/`` through
+    ``phase_docs`` with ``DEVICE = "cpu"`` (``sharding.md`` on a gloo
+    world of one), and README's first port block at a tiny size on the
+    CPU; the phase's checks and report, the ``{"docs": ...}`` line and the
+    docs path in ``launches_by_path``."""
+    block = cs.readme_port_block()
+    for full, tiny in (('"cuda"', '"cpu"'), ("ising_grid_fast(1000",
+                                             "ising_grid_fast(12"),
+                       ("height=288, width=384, n_disp=16",
+                        "height=6, width=8, n_disp=4")):
+        assert full in block
+        block = block.replace(full, tiny)
+    out = cs.phase_docs(CPU, readme=block)
+    assert list(out["pages"]) == list(cs.DOCS_PAGES)
+    assert {p: v["blocks"] for p, v in out["pages"].items()} == {
+        "engine.md": 4, "schedulers.md": 2, "serving.md": 4,
+        "admission.md": 6, "router.md": 3, "workloads.md": 4,
+        "kernels.md": 4, "sharding.md": 3}
+    assert out["kernel_check"] == {"fused_update_e/sum": 0.0,
+                                   "fused_update_e/max": 0.0}
+    assert "launch plan for S=4" in out["pages"]["kernels.md"]["stdout"]
+    # the engine paths' updates, counted by the shim: triton's in
+    # kernels.md, the README's one graph and its "pallas" frames
+    assert out["pages"]["kernels.md"]["launches"]["fused_update_e/sum"] > 0
+    r = out["readme"]
+    assert r["launches"]["fused_update_e/sum"] >= r["rounds"] > 0
+    assert r["launches"]["fused_update_t/sum"] > 0
+    assert sorted(r["routed"]) and sum(r["routed"]) == 4
+    out["phase_s"] = 1.0
+    line = cs.docs_line(out)
+    assert line["blocks"] == 31 and set(line["seconds"]) == set(
+        cs.DOCS_PAGES) | {"README.md"}
+    cs.log_docs(out)
+    json.dumps(out)
+    by_path = cs.launches_by_path(*_zero_paths(), docs=out)
+    assert by_path["fused_update_t/sum"]["docs"] == \
+        out["launches"]["fused_update_t/sum"] > 0
+    assert set(by_path["fused_update_e/max"]) == set(
+        by_path["fused_update_e/sum"])

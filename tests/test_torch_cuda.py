@@ -522,8 +522,9 @@ def test_lm_sharded_world_of_one_is_bitwise_on_card(cuda, tmp_path):
 def test_lm_sharded_two_gloo_ranks_share_the_card(cuda, tmp_path):
     """Phase 20 at small sizes on the card: two gloo ranks sharing it on
     meshes (1, 2) and (2, 1) within 1e-4 of one device, ranks bitwise
-    equal; a two-layer reduced Granite in bf16 served whole and over the
-    ranks with the "sharded" dispatch."""
+    equal, DeepSeek-V3's MLA blocks among them (tensor-parallel since
+    they stopped raising over "model"); a two-layer reduced Granite in
+    bf16 served whole and over the ranks with the "sharded" dispatch."""
     import dataclasses
     from repro_torch import configs as TC
     cs = _chip_smoke()
@@ -531,13 +532,15 @@ def test_lm_sharded_two_gloo_ranks_share_the_card(cuda, tmp_path):
     out = cs.phase_lm_shard(
         cuda, tmp_path / "shard",
         families=cs.shard_families((("qwen3_4b", None),
-                                    ("granite_moe_3b_a800m", "sharded"))),
-        raise_cfgs=[TC.get("deepseek_v3_671b").reduced()],
+                                    ("granite_moe_3b_a800m", "sharded"),
+                                    ("deepseek_v3_671b", None))),
         moe_cfg=dataclasses.replace(granite, dtype="bfloat16"),
         family=cs.LM_SHARD_FAMILY,
         serve=dict(b=2, prefill_len=64, prompt_len=8, gen=4, trace_steps=2),
         sharded=dict(s=16, steps=4), size=2)
     assert all(f["err"] <= cs.LM_TOL for f in out["families"].values())
+    assert any(k.startswith("deepseek-v3-671b-reduced")
+               for k in out["families"])
     assert out["served"]["world_of_one_bitwise"]
     assert out["served"]["syncs_per_step"] == 2       # one per MoE layer
     assert out["served"]["decode_vs_prefill"]["float32"]["rel"] <= cs.LM_TOL
@@ -545,7 +548,6 @@ def test_lm_sharded_two_gloo_ranks_share_the_card(cuda, tmp_path):
     assert c["float32/pinned"]["step_rel"] <= cs.LM_TOL
     assert c["bfloat16/own"]["transport"] == "gloo, host-staged"
     assert c["bfloat16/own"]["staged_bytes_per_step"] > 0
-    assert out["raised"] == ["deepseek-v3-671b-reduced"]
 
 
 def test_lm_sharded_train_world_of_one_is_bitwise_on_card(cuda, tmp_path):
@@ -595,3 +597,24 @@ def test_lm_sharded_train_two_gloo_ranks_share_the_card(cuda, tmp_path):
     c = out["full"]
     assert c["transport"] == "gloo, host-staged"
     assert c["staged_bytes_per_step"] > 0 and c["eval_drop"] > 0
+
+
+def test_docs_pages_run_on_the_card(cuda):
+    """The port's pages of the docs' executable spec on the card
+    (``chip_smoke.py`` phase 26, README's block cut to small graphs):
+    every block's own asserts, ``sharding.md`` on an NCCL world of one,
+    ``kernels.md``'s ``fused_update_e`` against its plain version (sum
+    within 1e-4, max bitwise), and each kernel launched."""
+    cs = _chip_smoke()
+    block = cs.readme_port_block()
+    for full, small in (("ising_grid_fast(1000", "ising_grid_fast(64"),
+                        ("height=288, width=384, n_disp=16",
+                         "height=24, width=32, n_disp=8")):
+        assert full in block
+        block = block.replace(full, small)
+    out = cs.phase_docs(cuda, readme=block)
+    assert sum(v["blocks"] for v in out["pages"].values()) == 30
+    assert out["kernel_check"]["fused_update_e/sum"] <= cs.SUM_TOL
+    assert out["kernel_check"]["fused_update_e/max"] == 0.0
+    assert all(n > 0 for n in out["launches"].values())
+    assert out["pages"]["kernels.md"]["launches"]["fused_update_e/max"] == 1

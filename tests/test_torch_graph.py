@@ -19,8 +19,8 @@ from repro.pgm import datasets as JD
 from repro_torch.core import graph as TG
 from repro_torch.core.registry import Registry as TRegistry
 from repro_torch.core.schedulers import SCHEDULERS as T_SCHEDULERS
-from repro_torch.kernels.ops import BATCH_BACKEND_NAMES as T_BATCH_NAMES
-from repro_torch.kernels.ops import get_batch_update_fn as t_batch_update_fn
+from repro_torch.kernels.ops import BATCH_UPDATE_BACKENDS as T_BATCH_BACKENDS
+from repro_torch.kernels.ops import get_update_fn as t_update_fn
 from repro_torch.kernels.ops import UPDATE_BACKENDS as T_BACKENDS
 from repro_torch.pgm import datasets as TD
 
@@ -184,9 +184,9 @@ def test_family_errors_match_reference():
     kind, msg = _error_text(lambda: T_BACKENDS.lookup("nope"))
     assert kind is KeyError     # every backend is ported: the same text
     assert (kind, msg) == _error_text(lambda: J_BACKENDS.lookup("nope"))
-    assert list(T_BATCH_NAMES) == J_BATCH_BACKENDS.names() == \
+    assert T_BATCH_BACKENDS.names() == J_BATCH_BACKENDS.names() == \
         ["pallas", "triton"]
-    assert _error_text(lambda: t_batch_update_fn("ref")) == \
+    assert _error_text(lambda: t_update_fn("ref", batched=True)) == \
         _error_text(lambda: J_BATCH_BACKENDS.lookup("ref"))
 
 

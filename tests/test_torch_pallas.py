@@ -159,8 +159,8 @@ def test_batched_backends_match_reference():
         assert tc.shape == (b, e, s) and tr.shape == (b, e)
         assert np.array_equal(np.asarray(jc), tc.numpy())
         assert np.array_equal(np.asarray(jr), tr.numpy())
-        for name in TO.BATCH_BACKEND_NAMES:
-            bc, br = TO.get_batch_update_fn(name)(tbatch, tl)
+        for name in TO.BATCH_UPDATE_BACKENDS.names():
+            bc, br = TO.get_update_fn(name, batched=True)(tbatch, tl)
             fc, fr = TO.get_update_fn(name)(tbatch.folded(),
                                             tl.reshape(b * e, s))
             assert torch.equal(bc, fc.reshape(b, e, s))
