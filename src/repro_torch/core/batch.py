@@ -42,6 +42,7 @@ from typing import (Any, Callable, Deque, Dict, List, Mapping, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.graph import (_ARRAY_FIELDS, _DTYPES, EDGE_PAD, PGM,
                                     VERTEX_PAD, host_operands,
                                     pad_pgm_arrays)
@@ -186,6 +187,7 @@ class BatchedPGM:
         return self.memo(("folded", axis, n, rank),
                          lambda: shard_pgm(union, mesh, axis=axis))
 
+    @spans.traced("bp.fold")
     def _fold(self) -> PGM:
         p = self.pgm
         b, e, v, s = self.size, self.n_edges, self.n_vertices, \

@@ -47,6 +47,22 @@ config's ``admission``/``admission_kwargs`` pick its admission policy.
 ``scheduler="srbp"`` selects the paper's host-serial baseline
 (``repro_torch.core.serial``): ``run`` only, and it returns an
 ``SRBPResult``.
+
+Spans (``repro_torch.core.spans``) mark each stage on the host while a
+torch profiler is active: ``bp.call`` (an outermost ``run`` or
+``run_many``, which opens the call id every span inside shares),
+``bp.bucket`` (bucketing and placing a bucket), ``bp.fold`` (built on
+first use and kept: a bucket's union, in ``init``, and a graph's
+transposed tables, in its first update), ``bp.split`` (a bucket's
+per-graph results), ``bp.init``, ``bp.step`` (its own time is the chunk's
+set-up), ``bp.round`` (one loop iteration, inert or not) and in it
+``bp.update`` (the backend; with ``bp.prelude`` and ``"pallas"``'s
+``bp.transpose`` inside), ``bp.select`` (the unconverged count, the
+scheduler's select, its gating), ``bp.commit`` (gating, the commit,
+counters, history); ``bp.sync`` (each host read of a device value: the
+chunk start's budgets, ``done`` every ``SYNC_ROUNDS`` rounds,
+``finished``) and ``bp.result``. Off, they cost the loop one flag read an
+iteration and a test at each site.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import messages as M
+from repro_torch.core import spans
 from repro_torch.core.batch import (BatchedPGM, batch_generators, bucket_pgms,
                                     slot_generator)
 from repro_torch.core.graph import PGM, resolve_device
@@ -192,8 +209,10 @@ class BPState:
     ``rng`` is the state of the run's ``torch.Generator``
     (``Generator.get_state()``), a tuple of B such states on a bucket, so a
     resumed state draws exactly what an uninterrupted run would.
-    ``chunk_iters`` is bookkeeping (rounds of the last ``step`` in which
-    some graph was active), not trajectory.
+    ``chunk_iters`` is bookkeeping, not trajectory: the loop iterations
+    of the last ``step`` in which some graph was active, which the serving
+    pipeline reads to account its device sweeps
+    (``ServingPipeline._sync``).
     """
 
     graph: Any                  # PGM | BatchedPGM
@@ -205,7 +224,7 @@ class BPState:
     updates: torch.Tensor       # () / (B,) int64 committed messages
     unconverged_history: torch.Tensor  # (H,) / (B, H) int32
     max_residual: torch.Tensor  # () / (B,) f32
-    chunk_iters: torch.Tensor   # () int32, diagnostics only
+    chunk_iters: torch.Tensor   # () int32, read by serving's accounting
 
     @property
     def batched(self) -> bool:
@@ -362,6 +381,7 @@ class BPEngine:
 
     # -- lifecycle ---------------------------------------------------------
 
+    @spans.traced("bp.init")
     def init(self, graph: PGM | BatchedPGM, rng, *, logm=None) -> BPState:
         """Fresh trajectory state for ``graph``. ``rng`` is a
         ``torch.Generator`` on the graph's device; its state is copied, not
@@ -414,6 +434,7 @@ class BPEngine:
                                     device=dev),
             chunk_iters=torch.zeros((), dtype=torch.int32, device=dev))
 
+    @spans.traced("bp.step")
     def step(self, state: BPState, *,
              chunk_rounds: int | None = None) -> BPState:
         """Advance one chunk: at most ``chunk_rounds`` further rounds per
@@ -426,9 +447,11 @@ class BPEngine:
         chunk = chunk_rounds or cfg.chunk_rounds or cfg.max_rounds
         inner = sched.inner_sweeps
         # Host reads at chunk start: each graph's iteration budget.
+        with spans.span("bp.sync"):
+            rounds0 = state.rounds.reshape(-1).tolist()
+            done0 = state.done.reshape(-1).tolist()
         budgets = []
-        for r0, d0 in zip(state.rounds.reshape(-1).tolist(),
-                          state.done.reshape(-1).tolist()):
+        for r0, d0 in zip(rounds0, done0):
             limit = min(r0 + chunk, cfg.max_rounds)
             budgets.append(0 if d0 or r0 >= limit
                            else -(-(limit - r0) // inner))
@@ -457,8 +480,16 @@ class BPEngine:
         iters = torch.zeros_like(state.chunk_iters)
         hist_last = hist.shape[-1] - 1
         for it in range(n_iters):
+            on = spans.recording()
+            if on:
+                t_round = spans.begin("bp.round")
             active = ~done & (budget > it)
+            if on:
+                t = spans.begin("bp.update")
             cand, r = update(logm)
+            if on:
+                spans.end(t)
+                t = spans.begin("bp.select")
             unconverged = ((r >= eps) & edge_mask).sum(dim=-1).to(
                 torch.int32)
             if batched:
@@ -469,6 +500,9 @@ class BPEngine:
                 frontier, new_sstate = sched.select(graph, r, eps, gens[0],
                                                     sstate, unconverged)
             sstate = _where_tree(active, new_sstate, sstate)
+            if on:
+                spans.end(t)
+                t = spans.begin("bp.commit")
             # Converged -> commit nothing (IsConverged precedes Update).
             newly_done = (unconverged == 0) & active
             frontier = frontier & (active & ~newly_done)[..., None]
@@ -476,7 +510,11 @@ class BPEngine:
                 frontier.reshape(-1)[slice(*span)]
             logm = M.apply_frontier(logm, cand, commit, cfg.damping)
             for _ in range(inner - 1):     # Residual Splash's extra sweeps
+                if on:
+                    t_extra = spans.begin("bp.update")
                 cand, _ = update(logm)
+                if on:
+                    spans.end(t_extra)
                 logm = M.apply_frontier(logm, cand, commit, cfg.damping)
             updates = updates + frontier.sum(dim=-1) * inner
             if cfg.history:
@@ -489,8 +527,18 @@ class BPEngine:
             max_r = torch.where(active, r.amax(dim=-1), max_r)
             iters = iters + active.any().to(torch.int32)
             done = done | newly_done
-            if (it + 1) % SYNC_ROUNDS == 0 and it + 1 < n_iters and \
-                    bool((done | (budget <= it + 1)).all()):
+            if on:
+                spans.end(t)
+            stop = False
+            if (it + 1) % SYNC_ROUNDS == 0 and it + 1 < n_iters:
+                if on:
+                    t = spans.begin("bp.sync")
+                stop = bool((done | (budget <= it + 1)).all())
+                if on:
+                    spans.end(t)
+            if on:
+                spans.end(t_round)
+            if stop:
                 break
         rng = tuple(g.get_state() for g in gens)
         return dataclasses.replace(
@@ -499,11 +547,13 @@ class BPEngine:
             updates=updates, unconverged_history=hist, max_residual=max_r,
             chunk_iters=iters)
 
+    @spans.traced("bp.sync")
     def finished(self, state: BPState) -> bool:
         """True when every graph converged or exhausted ``max_rounds``."""
         return bool((state.done | (state.rounds >= self.config.max_rounds))
                     .all())
 
+    @spans.traced("bp.result")
     def result(self, state: BPState) -> BPResult:
         """Finalize a state into a ``BPResult`` (computes beliefs). On a
         rank-resident state the beliefs come from the chain fold and the
@@ -555,6 +605,7 @@ class BPEngine:
 
     # -- one-shot ----------------------------------------------------------
 
+    @spans.traced("bp.call", call=True)
     def run(self, graph: PGM | BatchedPGM, rng=None, *,
             state: BPState | None = None) -> BPResult:
         """One-shot inference, chunk by chunk when ``chunk_rounds`` is set
@@ -575,6 +626,7 @@ class BPEngine:
             state = self.step(state)
         return self.result(state)
 
+    @spans.traced("bp.call", call=True)
     def run_many(self, pgms: Sequence[PGM], rng, *, growth: float = 2.0,
                  max_batch: int | None = None) -> List[BPResult]:
         """Bucket ``pgms`` (shape-homogeneous padded batches), run each
@@ -589,21 +641,24 @@ class BPEngine:
         base = rng.initial_seed() if isinstance(rng, torch.Generator) \
             else int(rng)
         results: List[BPResult | None] = [None] * len(pgms)
-        buckets = bucket_pgms(pgms, growth=growth, max_batch=max_batch)
+        with spans.span("bp.bucket"):
+            buckets = bucket_pgms(pgms, growth=growth, max_batch=max_batch)
         buckets.reverse()
         while buckets:
             bucket = buckets.pop()
             indices, batch = bucket.indices, bucket.batch
             if self._place is not None:
                 # the whole bucket goes as soon as the rank holds its slice
-                batch = self._place(batch, self.device)
+                with spans.span("bp.bucket"):
+                    batch = self._place(batch, self.device)
             del bucket
             gens = [slot_generator(base, i, self.device) for i in indices]
             res = self.run(batch, gens)
-            for j, gi in enumerate(indices):
-                results[gi] = BPResult(**{
-                    f.name: _row(getattr(res, f.name), j)
-                    for f in dataclasses.fields(BPResult)})
+            with spans.span("bp.split"):
+                for j, gi in enumerate(indices):
+                    results[gi] = BPResult(**{
+                        f.name: _row(getattr(res, f.name), j)
+                        for f in dataclasses.fields(BPResult)})
         return results  # type: ignore[return-value]
 
     # -- serving with evacuation ------------------------------------------

@@ -45,6 +45,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import spans
+
 __all__ = ["NEG_INF", "EDGE_PAD", "VERTEX_PAD", "PGM", "build_pgm",
            "build_pgm_uniform", "host_operands", "pad_pgm", "pad_pgm_arrays",
            "resolve_device"]
@@ -179,6 +181,7 @@ class PGM:
         return self.log_psi_e.device
 
     @functools.cached_property
+    @spans.traced("bp.fold")
     def operands_t(self):
         """``(log_psi_e as (S, S, E), dst_mask as (S, E))``, contiguous: the
         TPU-layout kernel's static operands, transposed once per graph and

@@ -15,6 +15,10 @@ The port of ``repro.kernels.ops``. A single-graph backend is a
   (``PGM.operands_t``); ``pre`` and ``logm`` are transposed on every call
   and the result back to (E, S) -- three copies a call.
 
+The two kernel backends mark their edge prelude as the span ``bp.prelude``
+and ``"pallas"``'s copies as ``bp.transpose``
+(``repro_torch.core.spans``).
+
 A bucket (``BatchedPGM``) runs folded into its kept disjoint union through
 a single-graph backend -- one launch for the whole bucket. A batched
 backend is a ``(batch, logm (B, E, S)) -> (cand (B, E, S), resid (B, E))``
@@ -42,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import messages as M
+from repro_torch.core import spans
 from repro_torch.core.graph import PGM
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.message_update import fused_update_t
@@ -64,11 +69,25 @@ def kernel_operands_t(pgm: PGM):
 def pallas_update(pgm: PGM, logm: torch.Tensor):
     """(cand (E, S), resid (E,)) -- ``ref_update`` through the TPU-layout
     kernel, with the reference's (E, S) layout at the boundary."""
+    on = spans.recording()
+    if on:
+        t = spans.begin("bp.prelude")
     pre = M.edge_prelude(pgm, logm)
+    if on:
+        spans.end(t)
     logpsi_t, dmask_t = kernel_operands_t(pgm)
-    new_t, resid = fused_update_t(logpsi_t, pre.t().contiguous(),
-                                  logm.t().contiguous(), dmask_t)
-    return new_t.t().contiguous(), resid
+    if on:
+        t = spans.begin("bp.transpose")
+    pre_t, logm_t = pre.t().contiguous(), logm.t().contiguous()
+    if on:
+        spans.end(t)
+    new_t, resid = fused_update_t(logpsi_t, pre_t, logm_t, dmask_t)
+    if on:
+        t = spans.begin("bp.transpose")
+    new = new_t.t().contiguous()
+    if on:
+        spans.end(t)
+    return new, resid
 
 
 def make_pallas_update():
@@ -94,7 +113,12 @@ def triton_update(pgm: PGM, logm: torch.Tensor, *, semiring: str = "sum"):
     the way; the kernel takes the graph's precomputed int8 ``dst_mask``.
     Like the reference kernel path, padded edges are not masked out of the
     residual here (they are inert: zero residual by construction)."""
+    on = spans.recording()
+    if on:
+        t = spans.begin("bp.prelude")
     pre = M.edge_prelude(pgm, logm)
+    if on:
+        spans.end(t)
     return fused_update_e(pgm.log_psi_e, pre, logm, pgm.dst_mask,
                           semiring=semiring)
 

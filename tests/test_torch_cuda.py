@@ -112,6 +112,42 @@ def test_engine_on_card_is_deterministic(cuda, sched, kw):
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
+def test_kernel_launches_fall_inside_round_spans(cuda):
+    """Under a CUDA-only profile torch raises its profiler flag, the port
+    records its spans, and on the profiler's clock at least 99 % of an
+    Ising call's kernel launches lie inside its ``bp.round`` spans."""
+    import bisect
+
+    from torch.autograd import profiler as P
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import spans
+    pgm = TD.ising_grid_fast(100, 2.0, seed=0, device=cuda)
+    eng = BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs={
+        "low_p": 0.4, "high_p": 0.9}, backend="triton"), device=cuda)
+    eng.run(pgm, torch.Generator(cuda).manual_seed(1))   # kernels built
+    torch.cuda.synchronize()
+    before = {r[0] for r in spans.spans()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flag = P._is_profiler_enabled
+        eng.run(pgm, torch.Generator(cuda).manual_seed(1))
+        torch.cuda.synchronize()
+    assert flag and not P._is_profiler_enabled
+    rows = [r for r in spans.spans() if r[0] not in before]
+    rounds = sorted((r[2], r[3]) for r in rows if r[1] == "bp.round")
+    assert rounds
+    starts = [a for a, _ in rounds]
+    launches = [e.start_ns() for e in prof.profiler.kineto_results.events()
+                if e.name().startswith("cudaLaunchKernel")]
+    assert len(launches) > 10 * len(rounds)
+
+    def inside(t):
+        k = bisect.bisect_right(starts, t) - 1
+        return k >= 0 and t <= rounds[k][1]
+    share = sum(map(inside, launches)) / len(launches)
+    assert share >= 0.99, share
+
+
 def test_vertex_sum_is_deterministic_on_card(cuda):
     """The in-edge table fold adds in one fixed order, so the card's sum is
     the same run after run -- and bitwise the CPU's."""
