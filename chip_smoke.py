@@ -17,7 +17,9 @@ main paths and its serving path at full size and measures them:
   1,764,352 directed edges) through the ``"pallas"`` backends, whose
   kernel is ``fused_update_t``; slot 0 against its solo run; the zoo
   stream through both bucket paths against the CPU's plain path; then the
-  same timings and trace for a batched round;
+  same timings and trace for a batched round, and the edge-prelude kernel
+  bitwise ``messages.edge_prelude`` and timed at a frame, the bucket's
+  union and the Ising grid (``phase_prelude``);
 - serving: ``serve_async`` over an online stream of eight stereo frames
   of the same size interleaved with the zoo stream (two resident
   buckets, staging copies ahead of admission, compaction, two feeder
@@ -172,6 +174,9 @@ Every phase raises on failure; nothing is caught. Output:
   difference from the plain version, its time, the plain
   version's time and the least time the card could take (``bound_ms``) at
   the main path's shape, and ``shapes``, the same per measured shape;
+  the edge-prelude kernel's entry last (``prelude_by_path``: on every
+  path whose updates run through a kernel backend it launched once per
+  fused update, ``check_prelude_launches``);
 - last, ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 A fuller report goes to ``chiprun_out/chip_smoke_report.json``. The script
@@ -221,6 +226,9 @@ CHECK_T_STATES = CHECK_STATES + (200, 300)   # 300: the walk variant
 CHECK_T_EDGES = (1, 127, 4096, 1_764_352)
 T_SOURCE = "src/repro_torch/kernels/csrc/fused_update_t.cu"
 T_REPLACES = "src/repro/kernels/message_update.py:59"
+PRELUDE_SOURCE = "src/repro_torch/kernels/csrc/edge_prelude.cu"
+# no Pallas kernel: the reference's prelude is plain jnp
+PRELUDE_REPLACES = "src/repro/core/messages.py edge_prelude (plain jnp)"
 RESULT_FIELDS = ("logm", "beliefs", "rounds", "updates", "converged",
                  "max_residual", "unconverged_history", "sched_state")
 # The serving path: stereo frames at the Tsukuba size interleaved with the
@@ -602,6 +610,7 @@ def check_beliefs(pgm, res, padded=False) -> None:
 def phase_main(device, n=MAIN_N, c=MAIN_C):
     """The port's main path: RnBP on an n x n Ising grid through the
     kernel backend, launch counts reset just before and read just after."""
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as K
     from repro_torch.pgm import ising_grid_fast
@@ -610,10 +619,12 @@ def phase_main(device, n=MAIN_N, c=MAIN_C):
     build_s = time.perf_counter() - t0
     K.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     res, secs = run_engine(pgm, device, scheduler="rnbp",
                            scheduler_kwargs=MAIN_KW, eps=1e-3,
                            max_rounds=2000, backend="triton")
-    launches = dict(K.LAUNCHES, t=MU.LAUNCHES["sum"])
+    launches = dict(K.LAUNCHES, t=MU.LAUNCHES["sum"],
+                    prelude=EP.LAUNCHES["edge_prelude"])
     rounds = int(res.rounds)
     check_beliefs(pgm, res)
     if launches["sum"] < max(rounds, 1):
@@ -634,6 +645,7 @@ def phase_paper(device, n=PAPER_N, protein_vertices=120):
     the plain max-product backend."""
     import torch
     from repro_torch.core.messages import map_assignment
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import triton_update as K
     from repro_torch.kernels.ops import make_triton_update
     from repro_torch.pgm import ising_grid_fast, protein_like_graph
@@ -655,9 +667,11 @@ def phase_paper(device, n=PAPER_N, protein_vertices=120):
                 f"converged={row['converged']} {secs * 1e3:.1f} ms")
     pgm = graphs[f"ising{n}"]
     K.reset_launch_counts()
+    EP.reset_launch_counts()
     res_k, secs = run_engine(pgm, device, scheduler="lbp", max_rounds=500,
                              backend=make_triton_update(semiring="max"))
     max_launches = K.LAUNCHES["max"]
+    max_prelude = EP.LAUNCHES["edge_prelude"]
     res_p, _ = run_engine(pgm, device, scheduler="lbp", max_rounds=500,
                           backend="maxprod")
     if max_launches < max(int(res_k.rounds), 1):
@@ -670,7 +684,7 @@ def phase_paper(device, n=PAPER_N, protein_vertices=120):
                              "max-product backend")
     mapd = dict(graph=f"ising{n}", rounds=int(res_k.rounds),
                 converged=bool(res_k.converged), run_s=secs,
-                launches=max_launches,
+                launches=max_launches, prelude_launches=max_prelude,
                 ones=int(map_k[:pgm.n_real_vertices].sum()))
     log(f"  MAP ising{n}: rounds={mapd['rounds']} converged="
         f"{mapd['converged']} launches={max_launches} bitwise == maxprod")
@@ -700,6 +714,7 @@ def phase_timing(pgm, device, bw, f32, protein):
     import torch
     from repro_torch.core import messages as M
     from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels.ref import fused_update_e_ref
     from repro_torch.kernels.triton_update import fused_update_e
     from repro_torch.kernels.message_update import fused_update_t
@@ -753,8 +768,9 @@ def phase_timing(pgm, device, bw, f32, protein):
     unc = ((r >= 1e-3) & pgm.edge_mask).sum().to(torch.int32)
     frontier, _ = sched.select(pgm, r, 1e-3, gen, st, unc)
     parts = {
-        "vertex_logprod": lambda: M.vertex_logprod(pgm, logm),
-        "edge_prelude": lambda: M.edge_prelude(pgm, logm),
+        "edge_prelude": lambda: EP.edge_prelude(pgm, logm),
+        "  messages.edge_prelude (torch)": lambda: M.edge_prelude(pgm, logm),
+        "  vertex_logprod": lambda: M.vertex_logprod(pgm, logm),
         "unconverged_count": lambda: ((r >= 1e-3) & pgm.edge_mask).sum(),
         "rnbp_select": lambda: sched.select(pgm, r, 1e-3, gen, st, unc),
         "apply_frontier": lambda: M.apply_frontier(logm, cand, frontier),
@@ -916,6 +932,7 @@ def phase_batched(device, frames=STEREO_FRAMES, scene=STEREO,
     ``batch.graph(0)`` with its own generator, bitwise."""
     import torch
     from repro_torch.core import BPEngine, bucket_pgms, slot_generator
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.pgm import stereo_mrf
@@ -932,11 +949,13 @@ def phase_batched(device, frames=STEREO_FRAMES, scene=STEREO,
         torch.cuda.reset_peak_memory_stats()
     MU.reset_launch_counts()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     t0 = time.perf_counter()
     results = eng.run_many(pgms, 0)
     sync(device)
     run_s = time.perf_counter() - t0
     launches, other = MU.LAUNCHES["sum"], dict(TT.LAUNCHES)
+    prelude = EP.LAUNCHES["edge_prelude"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     del eng.run, eng.step
     if len(records) != 1:
@@ -969,6 +988,7 @@ def phase_batched(device, frames=STEREO_FRAMES, scene=STEREO,
                ms_per_iteration=loop["seconds"] * 1e3
                / max(loop["iterations"], 1),
                launches=launches, other_launches=other,
+               prelude_launches=prelude,
                peak_memory_bytes=peak, frames=frames_out,
                slot0_bitwise_solo=True, solo_rounds=int(solo.rounds))
     return bucket.batch, out
@@ -983,6 +1003,7 @@ def phase_zoo(device, n=ZOO_N, eps=ZOO_EPS, max_rounds=ZOO_ROUNDS):
     iterations."""
     import torch
     from repro_torch.core import BPConfig, BPEngine
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.pgm import zoo_stream
@@ -1000,7 +1021,9 @@ def phase_zoo(device, n=ZOO_N, eps=ZOO_EPS, max_rounds=ZOO_ROUNDS):
         per_bucket = instrument(eng, counts)
         MU.reset_launch_counts()
         TT.reset_launch_counts()
+        EP.reset_launch_counts()
         res = eng.run_many(pgms, 0)
+        prelude = EP.LAUNCHES["edge_prelude"]
         del eng.run, eng.step
         check_bucket_launches(label, per_bucket)
         worst, unconverged = 0.0, []
@@ -1021,6 +1044,7 @@ def phase_zoo(device, n=ZOO_N, eps=ZOO_EPS, max_rounds=ZOO_ROUNDS):
                     f"converged {bool(r_card.converged)}, belief diff {diff}")
             worst = max(worst, diff)
         out[label] = dict(buckets=per_bucket, max_prob_diff=worst,
+                          prelude_launches=prelude,
                           not_converged_on_cpu=unconverged,
                           rounds=[int(r.rounds) for r in res])
         log(f"  {label}: {len(pgms)} requests in {len(per_bucket)} buckets, "
@@ -1038,19 +1062,22 @@ def phase_protein_pallas(device, protein_vertices=120):
     """RnBP on the protein-like MRF (S = 81) through the ``"pallas"``
     backend: ``fused_update_t``'s launches at that shape, counts reset just
     before and read just after."""
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.pgm import protein_like_graph
     pgm = protein_like_graph(protein_vertices, seed=0, device=device)
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     res, secs = run_engine(pgm, device, scheduler="rnbp",
                            scheduler_kwargs=MAIN_KW, backend="pallas")
     launches = MU.LAUNCHES["sum"]
+    prelude = EP.LAUNCHES["edge_prelude"]
     check_beliefs(pgm, res)
     if launches < max(int(res.rounds), 1):
         raise AssertionError("the protein run bypassed fused_update_t")
     return dict(graph=f"protein_like_graph({protein_vertices}, seed=0)",
                 rounds=int(res.rounds), converged=bool(res.converged),
-                launches=launches, run_s=secs)
+                launches=launches, prelude_launches=prelude, run_s=secs)
 
 
 def widest_bucket(device, n=ZOO_N):
@@ -1073,6 +1100,7 @@ def phase_timing_batched(batch, others, device, bw, f32):
     from repro_torch.core import messages as M
     from repro_torch.core.batch import batch_generators
     from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels.message_update import fused_update_t
     from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
     from repro_torch.kernels.triton_update import fused_update_e
@@ -1136,7 +1164,9 @@ def phase_timing_batched(batch, others, device, bw, f32):
     vsum = M.vertex_logprod(union, logm)
     src, rev = union.edge_src, union.edge_rev
     parts = {
-        "edge_prelude": lambda: M.edge_prelude(union, logm),
+        "edge_prelude": lambda: EP.edge_prelude(union, logm),
+        "  messages.edge_prelude (torch)": lambda: M.edge_prelude(union,
+                                                                 logm),
         "  vertex_logprod": lambda: M.vertex_logprod(union, logm),
         "  gather logm[in_edges]": lambda: logm[union.in_edges],
         "  gather vsum[edge_src]": lambda: vsum[src],
@@ -1157,6 +1187,86 @@ def phase_timing_batched(batch, others, device, bw, f32):
     out["round_parts_ms"] = {k: time_ms(f, 20) for k, f in parts.items()}
     for k, v in out["round_parts_ms"].items():
         log(f"  round part {k}: {v:.4f} ms")
+    return out
+
+
+def rnbp_messages(graph, device, rounds=(0, 8, 32)):
+    """The messages of a real RnBP run (``MAIN_KW``, ``"triton"``) on
+    ``graph`` -- one graph, or a bucket whose messages are its union's
+    rows -- after each count of ``rounds``, as (E, S) copies."""
+    import torch
+    from repro_torch.core import BatchedPGM, BPConfig, BPEngine
+    from repro_torch.core import slot_generator
+    eng = BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs=MAIN_KW,
+                            eps=1e-3, max_rounds=max(rounds) + 1,
+                            backend="triton"), device=device)
+    gen = ([slot_generator(0, i, device) for i in range(graph.size)]
+           if isinstance(graph, BatchedPGM)
+           else torch.Generator(device=device).manual_seed(0))
+    state, done, out = eng.init(graph, gen), 0, []
+    for r in rounds:
+        if r > done:
+            state, done = eng.step(state, chunk_rounds=r - done), r
+        out.append(state.logm.reshape(-1, state.logm.shape[-1]).clone())
+    return out
+
+
+def bitwise(a, b) -> bool:
+    """Equal bit for bit, -0.0 against 0.0 included (float32)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_prelude(cases, device, bw):
+    """The edge-prelude kernel at the main paths' shapes. For each ``name:
+    (pgm, message sets)`` of ``cases``: on every set, one launch whose
+    ``pre`` is bitwise ``messages.edge_prelude``'s and the plain twin's;
+    on the last set, CUDA-event ms of the kernel, the twin and the torch
+    gathers of ``messages.edge_prelude``, the kernel's and the gathers'
+    device ms, and the kernel's bound: ``edge_prelude_cost``'s bytes at
+    the card's memory rate ``bw``."""
+    from repro_torch.core import messages as M
+    from repro_torch.kernels import edge_prelude as EP
+    from repro_torch.roofline.kernel_model import edge_prelude_cost
+    out = {}
+    for name, (pgm, logms) in cases.items():
+        def operands(lm):
+            return (lm, pgm.log_psi_v, pgm.state_mask, pgm.in_edges,
+                    pgm.in_mask, pgm.edge_src, pgm.edge_rev, pgm.edge_mask)
+        for lm in logms:
+            before = EP.LAUNCHES["edge_prelude"]
+            got = EP.edge_prelude(pgm, lm)
+            sync(device)
+            launched = EP.LAUNCHES["edge_prelude"] - before
+            if launched != (1 if device.type == "cuda" else 0):
+                raise AssertionError(f"{name}: {launched} prelude launches "
+                                     "for one call")
+            if not (bitwise(got, M.edge_prelude(pgm, lm))
+                    and bitwise(got, EP.edge_prelude_ref(*operands(lm)))):
+                raise AssertionError(f"{name}: the edge-prelude kernel is "
+                                     "not bitwise messages.edge_prelude")
+        lm = logms[-1]
+        (e, s), (v, d) = lm.shape, pgm.in_edges.shape
+        cost = edge_prelude_cost(e, v, s, d)
+
+        def kern():
+            return EP.edge_prelude(pgm, lm)
+
+        def gathers():
+            return M.edge_prelude(pgm, lm)
+        row = out[name] = dict(
+            E=e, V=v, S=s, D=d, message_sets=len(logms), bytes=cost.bytes,
+            bound_ms=cost.bytes / bw * 1e3, ms=time_ms(kern, 50),
+            device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: EP.edge_prelude_ref(*operands(lm)), 10),
+            torch_ms=time_ms(gathers, 20), torch_device_ms=device_ms(gathers))
+        log(f"  edge_prelude {name}: E={e} V={v} S={s} D={d}, bitwise on "
+            f"{len(logms)} message sets; kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+            f"({cost.bytes / 1e6:.1f} MB), twin {row['plain_ms']:.4f} ms, "
+            f"torch gathers {row['torch_ms']:.4f} ms (device "
+            f"{row['torch_device_ms']:.4f})")
     return out
 
 
@@ -1365,6 +1475,7 @@ def serve_once(eng, scenes, zoo_n, device, timed=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import serve_async
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     cuda = device.type == "cuda"
@@ -1377,6 +1488,7 @@ def serve_once(eng, scenes, zoo_n, device, timed=False):
         torch.cuda.reset_peak_memory_stats()
     MU.reset_launch_counts()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     try:
         with trace as prof:
             t0 = time.perf_counter()
@@ -1388,7 +1500,8 @@ def serve_once(eng, scenes, zoo_n, device, timed=False):
         undo()
     launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                 "fused_update_e/sum": TT.LAUNCHES["sum"],
-                "fused_update_e/max": TT.LAUNCHES["max"]}
+                "fused_update_e/max": TT.LAUNCHES["max"],
+                "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     if prof is not None:
         watch["busy"] = busy_seconds(prof)
     return rep, wall, launches, watch
@@ -1423,6 +1536,7 @@ def phase_serving(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
     card run's captured chunks."""
     import torch
     from repro_torch.core import BPEngine
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.pgm import stereo_mrf
@@ -1516,10 +1630,12 @@ def phase_serving(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
     # The deadline policy on the card and on the CPU's plain path.
     MU.reset_launch_counts()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     card, line, captured = deadline_run(device, zoo_n, slos)
     for k, v in (("fused_update_t/sum", MU.LAUNCHES["sum"]),
                  ("fused_update_e/sum", TT.LAUNCHES["sum"]),
-                 ("fused_update_e/max", TT.LAUNCHES["max"])):
+                 ("fused_update_e/max", TT.LAUNCHES["max"]),
+                 ("edge_prelude", EP.LAUNCHES["edge_prelude"])):
         launches[k] += v
     if TT.LAUNCHES["sum"] < card.stats.chunks:
         raise AssertionError("the deadline run bypassed fused_update_e")
@@ -1605,6 +1721,7 @@ def route_once(engines, stream, device, *, routing, steal, traced=False,
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.serve import serve_routed
@@ -1632,6 +1749,7 @@ def route_once(engines, stream, device, *, routing, steal, traced=False,
         torch.cuda.reset_peak_memory_stats()
     MU.reset_launch_counts()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     try:
         with trace as prof:
             t0 = time.perf_counter()
@@ -1645,7 +1763,8 @@ def route_once(engines, stream, device, *, routing, steal, traced=False,
             undo()
     launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                 "fused_update_e/sum": TT.LAUNCHES["sum"],
-                "fused_update_e/max": TT.LAUNCHES["max"]}
+                "fused_update_e/max": TT.LAUNCHES["max"],
+                "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     captured = {}
     for w, _ in hooks:
@@ -1691,6 +1810,7 @@ def router_deadline_run(device, zoo_n):
     the buckets run ``fused_update_e``. Returns the result, the launches,
     the captured states and the impossible rids."""
     from repro_torch.core import BPConfig, BPEngine, SweepClock
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.pgm import ising_grid, zoo_stream
@@ -1712,6 +1832,7 @@ def router_deadline_run(device, zoo_n):
     hooks = [watch_pipeline(e, capture=True) for e in engines]
     MU.reset_launch_counts()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     try:
         rep = serve_routed(engines, items(), 0, routing="deadline",
                            admission="deadline", clock=SweepClock(),
@@ -1721,7 +1842,8 @@ def router_deadline_run(device, zoo_n):
             undo()
     launches = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                 "fused_update_e/sum": TT.LAUNCHES["sum"],
-                "fused_update_e/max": TT.LAUNCHES["max"]}
+                "fused_update_e/max": TT.LAUNCHES["max"],
+                "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     captured = {}
     for w, _ in hooks:
         captured.update(w["captured"])
@@ -1735,6 +1857,7 @@ def skew_run(device, steal, fast_n=SKEW_FAST, hold_s=SKEW_HOLD_S):
     ``hold_s`` after its last request. LBP through ``"triton"``, graphs
     built on ``device``. ``(result, launches)``."""
     from repro_torch.core import BPConfig, BPEngine
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import triton_update as TT
     from repro_torch.pgm import ising_grid
     from repro_torch.serve import RoutingPolicy, serve_routed
@@ -1756,9 +1879,11 @@ def skew_run(device, steal, fast_n=SKEW_FAST, hold_s=SKEW_HOLD_S):
         yield from stream
         time.sleep(hold_s)
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     rep = serve_routed(engines, held(), 0, routing=Skew(), steal=steal,
                        **SKEW_KW)
-    return rep, {"fused_update_e/sum": TT.LAUNCHES["sum"]}
+    return rep, {"fused_update_e/sum": TT.LAUNCHES["sum"],
+                 "edge_prelude": EP.LAUNCHES["edge_prelude"]}
 
 
 def phase_router(device, frames=SERVE_FRAMES, scene=STEREO, zoo_n=SERVE_ZOO,
@@ -1999,6 +2124,7 @@ def phase_resilient(device, pgm, res, paper, ckpt_dir,
     from repro_torch.core.exact import kl_divergence, ve_marginals
     from repro_torch.core.schedulers import RnBP
     from repro_torch.ft import resilience as RES
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import triton_update as TT
     from repro_torch.kernels.ref import fused_update_e_ref
     from repro_torch.pgm import ising_grid_fast
@@ -2026,12 +2152,13 @@ def phase_resilient(device, pgm, res, paper, ckpt_dir,
     try:
         RES.save_pytree = timed_save
         TT.reset_launch_counts()
+        EP.reset_launch_counts()
         sync(device)
         t0 = time.perf_counter()
         got = resilient(0)
         sync(device)
         loop_s = time.perf_counter() - t0
-        launches = dict(TT.LAUNCHES)
+        launches = dict(TT.LAUNCHES, prelude=EP.LAUNCHES["edge_prelude"])
         RES.save_pytree = real_save
         if not same(got, res, total):
             raise AssertionError("the resilient run differs from phase 4's "
@@ -2229,6 +2356,7 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
     import torch
     from repro_torch import dist as D
     from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import triton_update as TT
     cuda = device.type == "cuda"
     out = {}
@@ -2245,10 +2373,12 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
         w, undo = watch_dist(timed=cuda)
         try:
             TT.reset_launch_counts()
+            EP.reset_launch_counts()
             D.comm.reset_stats()
             got = sharded()
             sync(device)
             launches = TT.LAUNCHES["sum"]
+            prelude = EP.LAUNCHES["edge_prelude"]
             stats = dict(D.comm.STATS)
         finally:
             undo()
@@ -2271,8 +2401,8 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
         sync(device)
         secs = time.perf_counter() - t0
         out["sharded"] = dict(
-            rounds=rounds, launches=launches, run_s=secs,
-            ms_per_round=secs * 1e3 / max(rounds, 1),
+            rounds=rounds, launches=launches, prelude_launches=prelude,
+            run_s=secs, ms_per_round=secs * 1e3 / max(rounds, 1),
             collectives=stats["collectives"],
             collective_ms_per_round=coll_ms / max(rounds, 1),
             collective_ms_by_name={k: v / max(rounds, 1)
@@ -2299,6 +2429,7 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
         try:
             D.bp_banded._band = timed_band
             TT.reset_launch_counts()
+            EP.reset_launch_counts()
             sync(device)
             t0 = time.perf_counter()
             logm, b_rounds, done = D.run_bp_banded(
@@ -2306,6 +2437,7 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
             sync(device)
             b_secs = time.perf_counter() - t0
             b_launches = TT.LAUNCHES["sum"]
+            b_prelude = EP.LAUNCHES["edge_prelude"]
         finally:
             D.bp_banded._band = real_band
             undo()
@@ -2318,7 +2450,8 @@ def phase_dist_one(device, pgm, res, store, backend="nccl",
             raise AssertionError(f"banded: {b_launches} fused_update_e "
                                  f"launches < {b_rounds} rounds")
         out["banded"] = dict(rounds=b_rounds, done=bool(done),
-                             launches=b_launches, partition_s=part_s,
+                             launches=b_launches,
+                             prelude_launches=b_prelude, partition_s=part_s,
                              run_s=b_secs, band_setup_s=band_s[0],
                              bitwise=True, ms_per_round=(
                                  b_secs - band_s[0]) * 1e3 / max(b_rounds, 1),
@@ -3038,6 +3171,7 @@ def phase_lm(device, wide_cfg=None, serve_cfg=None,
     kernels of the BP path run nowhere here: their counts go from 0."""
     import torch
     from repro_torch import configs as TC
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3045,6 +3179,7 @@ def phase_lm(device, wide_cfg=None, serve_cfg=None,
                              "checks would lose three digits")
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     t0 = time.perf_counter()
     out = dict(families=[lm_card_vs_cpu(TC.get(a).reduced(), device,
                                         **family)
@@ -3061,7 +3196,8 @@ def phase_lm(device, wide_cfg=None, serve_cfg=None,
     out["served_s"] = time.perf_counter() - t0
     out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                        "fused_update_e/sum": TT.LAUNCHES["sum"],
-                       "fused_update_e/max": TT.LAUNCHES["max"]}
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out
 
 
@@ -3443,6 +3579,7 @@ def phase_lm_train(device, families=None, wide_cfg=None, train_cfg=None,
     here: their counts go from 0."""
     import torch
     from repro_torch import configs as TC
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3450,6 +3587,7 @@ def phase_lm_train(device, families=None, wide_cfg=None, train_cfg=None,
                              "checks would lose three digits")
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     ckpt_dir = ckpt_dir or REPO / "chiprun_out" / "lm_train_ckpt"
     t0 = time.perf_counter()
     out = dict(families=[
@@ -3469,7 +3607,8 @@ def phase_lm_train(device, families=None, wide_cfg=None, train_cfg=None,
     out["trained_s"] = time.perf_counter() - t0
     out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                        "fused_update_e/sum": TT.LAUNCHES["sum"],
-                       "fused_update_e/max": TT.LAUNCHES["max"]}
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out
 
 
@@ -3882,11 +4021,13 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
     import torch
     import torch.multiprocessing as mp
     from repro_torch import configs as TC
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.models import build_model
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     out_dir = Path(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -3999,7 +4140,8 @@ def phase_lm_shard(device, out_dir, bw=3.35e12, families=None,
         raise AssertionError("a rank holds more than 0.6 of the model")
     out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                        "fused_update_e/sum": TT.LAUNCHES["sum"],
-                       "fused_update_e/max": TT.LAUNCHES["max"]}
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out
 
 
@@ -4389,10 +4531,12 @@ def phase_lm_strain(device, out_dir, cases=None, wide_cfg=None,
     import torch.multiprocessing as mp
     from repro_torch import configs as TC
     from repro_torch.ft import ElasticMesh
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     out_dir = Path(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4453,7 +4597,8 @@ def phase_lm_strain(device, out_dir, cases=None, wide_cfg=None,
                                              for r in ranks]
     out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                        "fused_update_e/sum": TT.LAUNCHES["sum"],
-                       "fused_update_e/max": TT.LAUNCHES["max"]}
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out
 
 
@@ -4851,11 +4996,13 @@ def phase_lm_blocks(device, out_dir, bw=3.35e12, mamba_cfg=None,
     import torch.multiprocessing as mp
     from repro_torch import configs as TC
     from repro_torch.ft import ElasticMesh
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.models.model import param_specs
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     out_dir = Path(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4962,7 +5109,8 @@ def phase_lm_blocks(device, out_dir, bw=3.35e12, mamba_cfg=None,
                                       if k != "layers"})
     out["launches"] = {"fused_update_t/sum": MU.LAUNCHES["sum"],
                        "fused_update_e/sum": TT.LAUNCHES["sum"],
-                       "fused_update_e/max": TT.LAUNCHES["max"]}
+                       "fused_update_e/max": TT.LAUNCHES["max"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out
 
 
@@ -5111,12 +5259,14 @@ def _submesh_run(name, fn, device, watch, out):
     import numpy as np
     import torch
     from repro_torch import dist as D
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import triton_update as TT
     cuda = device.type == "cuda"
     sync(device)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     TT.reset_launch_counts()
+    EP.reset_launch_counts()
     D.comm.reset_stats()
     watch["cycles"] = 0
     watch["sent"] = dict(records=0, tensor_bytes=0, ms=0.0)
@@ -5132,7 +5282,9 @@ def _submesh_run(name, fn, device, watch, out):
     out[name] = dict(
         rows=record_rows(recs), wall_s=wall, cycles=cycles,
         requests_per_s=len(recs) / wall if recs else 0.0,
-        launches=TT.LAUNCHES["sum"], collectives=st["collectives"],
+        launches=TT.LAUNCHES["sum"],
+        prelude_launches=EP.LAUNCHES["edge_prelude"],
+        collectives=st["collectives"],
         staged_bytes=st["staged_bytes"], decisions=st["decisions"],
         decision_bytes=st["decision_bytes"], decision_ms=st["decision_ms"],
         # two a stepped cycle, and one at the end
@@ -5407,9 +5559,11 @@ def phase_submesh(device, out_dir, frames=SUB_FRAMES, scene=STEREO,
                kernel_check=[dict(E=e, S=s_, max_abs_err=err) for (e, s_), err
                              in sorted(worst_by_shape.items())],
                max_abs_err=worst)
-    out["launches"] = {"fused_update_e/sum": sum(
-        r[name]["launches"] for r in ranks
-        for name in ("a", "rr", "solo", "ll") if name in r)}
+    out["launches"] = {k: sum(
+        r[name][field] for r in ranks
+        for name in ("a", "rr", "solo", "ll") if name in r)
+        for k, field in (("fused_update_e/sum", "launches"),
+                         ("edge_prelude", "prelude_launches"))}
     return out
 
 
@@ -5479,7 +5633,8 @@ def check_peak(predicted: float, measured) -> float | None:
 
 def round_parts_ms(parts) -> float:
     """Phase 12's measured ms of one batched round: the sum of its
-    top-level parts (the indented ones are inside ``edge_prelude``)."""
+    top-level parts (the indented ones are the torch prelude and its
+    gathers, which the ``edge_prelude`` kernel replaces)."""
     return sum(v for k, v in parts.items() if not k.startswith(" "))
 
 
@@ -5575,10 +5730,12 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
     (a) one engine round (``kernel_model.engine_round``) of the stereo
     bucket's union on ``device`` counted by an ``OpCounter`` under
     ``"triton"``, ``"pallas"`` and ``"triton"`` at ``semiring="max"``
-    (RnBP as phase 10): each kernel launched through its dispatcher op held
-    against its plain version on the same operands (sum within
+    (RnBP as phase 10): each update kernel launched through its dispatcher
+    op held against its plain version on the same operands (sum within
     ``SUM_TOL``, max bitwise), its counted flops and bytes exactly
-    ``fused_update_cost``'s, the round's counted bytes over ``round_ms``
+    ``fused_update_cost``'s; the edge prelude's op bitwise
+    ``messages.edge_prelude`` and counted exactly ``edge_prelude_cost``;
+    the round's counted bytes over ``round_ms``
     (phase 12's ms a round) as a share of the card's memory rate; the
     launches of the three rounds are the ``round_cost`` path's;
     (b) Qwen3-4B as published trained one step at ``ROUND_COST_TRAIN``,
@@ -5595,18 +5752,22 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
     (b) and (c) run on the host in subprocesses that ``counts``
     (``start_counts``) started before the earlier phases."""
     import torch
+    from repro_torch.core import messages as M
     from repro_torch.core.schedulers import RnBP
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     from repro_torch.kernels.ops import make_pallas_update, make_triton_update
     from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
-    from repro_torch.roofline.kernel_model import (card_peaks, engine_round,
+    from repro_torch.roofline.kernel_model import (card_peaks,
+                                                   edge_prelude_cost,
+                                                   engine_round,
                                                    fused_update_cost)
-    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.roofline.op_cost import OpCounter, charge
 
     class Captured(OpCounter):
-        """An ``OpCounter`` that keeps each kernel op's operands and
-        results."""
+        """An ``OpCounter`` that keeps each kernel op's operands, results
+        and counted cost."""
 
         def __init__(self):
             super().__init__()
@@ -5616,7 +5777,8 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if func.namespace == "repro_torch":
                 self.kernel_calls.append((func.overloadpacket.__name__,
-                                          args, out))
+                                          args, out, charge(
+                                              func, args, kwargs, out)))
             return out
 
     out = dict(rounds={})
@@ -5626,6 +5788,7 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
         if device.type == "cuda" else 3.35e12
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     for label, update, semiring in (
             ("triton", make_triton_update(), "sum"),
             ("pallas", make_pallas_update(), "sum"),
@@ -5636,12 +5799,21 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
         with Captured() as c:
             one_round(*args)
         sync(device)
-        (name, ops, got), = c.kernel_calls
+        (_, p_ops, p_got, p_cost), (name, ops, got, cost) = c.kernel_calls
+        if not torch.equal(p_got, M.edge_prelude(union, p_ops[0])):
+            raise AssertionError(f"{label}: the edge prelude's op is not "
+                                 "bitwise messages.edge_prelude")
+        p_model = edge_prelude_cost(e, union.n_vertices, s,
+                                    union.in_edges.shape[1])
+        if p_cost != {"fused": p_model}:
+            raise AssertionError(f"{label}: the edge prelude's op counted "
+                                 f"{p_cost}, not edge_prelude_cost's "
+                                 f"{p_model}")
         plain = (fused_update_e_ref(*ops) if name == "fused_update_e"
                  else fused_update_t_ref(*ops))
         err = compare(semiring, got, plain)
         model = fused_update_cost(e, s, semiring=semiring)
-        fused = c.by_class["fused"]
+        fused = cost["fused"]
         if (fused.flops, fused.bytes) != (model.flops, model.bytes):
             raise AssertionError(f"{label}: the kernel op counted {fused}, "
                                  f"not fused_update_cost's {model}")
@@ -5655,10 +5827,11 @@ def phase_round_cost(device, batch, round_ms, lm_peak, counts):
             round_ms=round_ms,
             memory_share=cost.bytes / (round_ms / 1e3) / bw
             if round_ms else None)
-        del args, ops, got, plain
+        del args, ops, got, plain, p_ops, p_got
     out["launches"] = {"fused_update_e/sum": TT.LAUNCHES["sum"],
                        "fused_update_e/max": TT.LAUNCHES["max"],
-                       "fused_update_t/sum": MU.LAUNCHES["sum"]}
+                       "fused_update_t/sum": MU.LAUNCHES["sum"],
+                       "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     if 0 in out["launches"].values():
         raise AssertionError(f"a kernel of the round_cost path was not "
                              f"launched: {out['launches']}")
@@ -5741,12 +5914,14 @@ def _drive(module, argv, device):
     its stdout, the kernels' launches during the call, wall seconds)."""
     import contextlib
     import io
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     if device.type != "cuda":
         argv = argv + ["--device", device.type]
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -5755,7 +5930,8 @@ def _drive(module, argv, device):
     wall = time.perf_counter() - t0
     launches = {"fused_update_e/sum": TT.LAUNCHES["sum"],
                 "fused_update_e/max": TT.LAUNCHES["max"],
-                "fused_update_t/sum": MU.LAUNCHES["sum"]}
+                "fused_update_t/sum": MU.LAUNCHES["sum"],
+                "edge_prelude": EP.LAUNCHES["edge_prelude"]}
     return out, buf.getvalue(), launches, wall
 
 
@@ -5843,7 +6019,7 @@ def phase_entry_points(device, argv=None):
                            wall_s=wall, stdout=text)
     out["launches"] = {k: sum(v["launches"][k] for v in out.values())
                        for k in ("fused_update_e/sum", "fused_update_e/max",
-                                 "fused_update_t/sum")}
+                                 "fused_update_t/sum", "edge_prelude")}
     return out
 
 
@@ -5936,10 +6112,12 @@ def run_blocks(name, blocks, ns, device):
     counted from 0 just before: (stdout, the kernels' launches, seconds
     per block to the card's last kernel). A failing block raises."""
     import io
+    from repro_torch.kernels import edge_prelude as EP
     from repro_torch.kernels import message_update as MU
     from repro_torch.kernels import triton_update as TT
     TT.reset_launch_counts()
     MU.reset_launch_counts()
+    EP.reset_launch_counts()
     buf = io.StringIO()
     seconds = []
     with registries_restored(), contextlib.redirect_stdout(buf):
@@ -5950,7 +6128,9 @@ def run_blocks(name, blocks, ns, device):
             seconds.append(time.perf_counter() - t0)
     return buf.getvalue(), {"fused_update_e/sum": TT.LAUNCHES["sum"],
                             "fused_update_e/max": TT.LAUNCHES["max"],
-                            "fused_update_t/sum": MU.LAUNCHES["sum"]}, seconds
+                            "fused_update_t/sum": MU.LAUNCHES["sum"],
+                            "edge_prelude": EP.LAUNCHES["edge_prelude"]}, \
+        seconds
 
 
 def phase_docs(device, pages=DOCS_PAGES, readme=None):
@@ -6125,6 +6305,56 @@ def launches_by_path(main, mapd, bmain, serving, routed, resilient,
                                    docs=dl.get("fused_update_t/sum", 0))}
 
 
+#: the paths on which every update runs through a kernel backend
+#: (``"triton"``, ``"pallas"`` or their bucket folds), so the edge-prelude
+#: kernel launches once for each update kernel's launch. The sharded and
+#: banded paths, the sub-meshes and ``distributed_bp`` run ``dist``'s own
+#: prelude, and ``kernels.md`` launches ``fused_update_e`` on operands of
+#: its own: there the prelude launches fewer times or not at all.
+PRELUDE_PATHS = ("one_graph", "batched", "serving", "routed", "resilient",
+                 "lm", "lm_train", "lm_sharded", "lm_sharded_train",
+                 "lm_blocks", "round_cost")
+UPDATE_KERNELS = ("fused_update_e/sum", "fused_update_e/max",
+                  "fused_update_t/sum")
+
+
+def prelude_by_path(main, mapd, bmain, serving, routed, resilient,
+                    dist_one, lm, lm_train, lm_shard, lm_strain, lm_blocks,
+                    submesh, round_cost, entry, docs):
+    """The edge-prelude kernel's launches on each path of
+    ``launches_by_path``, as the same phases counted them, each from 0
+    just before its path ran (the one-graph path: phase 4's RnBP and
+    phase 5's MAP run; ``entry_points``: the drivers in this process;
+    ``distributed_bp``'s ranks run ``dist``'s prelude)."""
+    def kernel(report):
+        return report["launches"]["edge_prelude"]
+    return dict(one_graph=main["launches"]["prelude"]
+                + mapd["prelude_launches"],
+                batched=bmain["prelude_launches"], serving=kernel(serving),
+                routed=kernel(routed),
+                resilient=resilient["launches"]["prelude"],
+                sharded=dist_one["sharded"]["prelude_launches"],
+                banded=dist_one["banded"]["prelude_launches"],
+                lm=kernel(lm), lm_train=kernel(lm_train),
+                lm_sharded=kernel(lm_shard),
+                lm_sharded_train=kernel(lm_strain),
+                lm_blocks=kernel(lm_blocks), sub_meshes=kernel(submesh),
+                round_cost=kernel(round_cost), entry_points=kernel(entry),
+                docs=kernel(docs))
+
+
+def check_prelude_launches(by_path) -> None:
+    """Raise unless, on each of ``PRELUDE_PATHS``, the edge-prelude kernel
+    (``by_path["edge_prelude"]``) launched as many times as the update
+    kernels together: one prelude before every fused update."""
+    for path in PRELUDE_PATHS:
+        updates = sum(by_path[k][path] for k in UPDATE_KERNELS)
+        if by_path["edge_prelude"][path] != updates:
+            raise AssertionError(
+                f"{path}: {by_path['edge_prelude'][path]} edge-prelude "
+                f"launches for {updates} fused updates")
+
+
 def log_serving(out) -> None:
     """Phase 14's progress lines."""
     st, lat, tr = out["stats"], out["latency_ms"], out["traced"]
@@ -6173,7 +6403,7 @@ def log_serving(out) -> None:
 
 
 def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
-                 by_path, served=None):
+                 by_path, served=None, prelude=None):
     """The ``{"kernels": [...]}`` entries: per kernel its main path's
     launches, ``launches_by_path`` (``by_path[name]``: its launches on the
     one-graph, batched, serving, routed, resilient, sharded, banded, LM
@@ -6189,7 +6419,14 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
     (``ms`` from CUDA events around back-to-back calls, ``device_ms`` the
     kernel's own time from the profiler; the one-graph
     S = 2 path, the protein MRF, the stereo bucket, the zoo's widest
-    bucket)."""
+    bucket). With ``prelude`` (``phase_prelude``'s rows) and
+    ``launches["prelude"]`` (the one-graph path's), the edge-prelude
+    kernel's entry follows: its largest difference from
+    ``messages.edge_prelude`` (0: ``phase_prelude`` and phase 24 raise on
+    any bit of difference), the one-graph path's shape (the Ising grid)
+    timed, and per shape ``{E, V, S, D, ms, device_ms, bound_ms,
+    plain_ms, torch_ms, torch_device_ms}``, ``plain_ms`` the plain twin's
+    and ``torch_ms`` the torch prelude's (``messages.edge_prelude``)."""
     served = served or {}
 
     def serving_err(name):
@@ -6234,6 +6471,18 @@ def kernels_line(timing, btiming, worst, worst_t, launches, launches_t,
         launches_by_path=by_path["fused_update_t/sum"], max_abs_err=err,
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, shapes=shapes))
+    if prelude is not None:
+        t = prelude["ising1000"]
+        kernels.append(dict(
+            name="edge_prelude", route="cuda", source=PRELUDE_SOURCE,
+            replaces=PRELUDE_REPLACES, launches=launches["prelude"],
+            launches_by_path=by_path["edge_prelude"], max_abs_err=0.0,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="bytes", library_ms=None,
+            shapes=[dict(shape=name, **{k: r[k] for k in (
+                "E", "V", "S", "D", "ms", "device_ms", "bound_ms",
+                "plain_ms", "torch_ms", "torch_device_ms")})
+                for name, r in prelude.items()]))
     return kernels
 
 
@@ -6343,6 +6592,12 @@ def main() -> int:
         "zoo": widest_bucket(device),
         "protein": BatchedPGM.from_pgms([protein_like_graph(
             seed=0, device=device)])}, device, bw, f32)
+
+    prelude = phase_prelude({
+        "tsukuba": (batch.graph(0), rnbp_messages(batch.graph(0), device)),
+        "tsukuba_x4": (batch.folded(), rnbp_messages(batch, device)),
+        "ising1000": (main_pgm, rnbp_messages(main_pgm, device))},
+        device, bw)
 
     protein_t = phase_protein_pallas(device)
     log(f"  {protein_t['graph']} RnBP through \"pallas\": rounds="
@@ -6478,21 +6733,23 @@ def main() -> int:
     checked["fused_update_e/sum"] += submesh["kernel_check"]
     for name, err in docs["kernel_check"].items():
         checked.setdefault(name, []).append({"max_abs_err": err})
+    paths = (main, mapd, bmain, serving, router, resil["resilient"],
+             dist_out["one"], lm, lm_train, lm_shard, lm_strain, lm_blocks,
+             submesh, costs, entry, docs)
+    by_path = launches_by_path(*paths)
+    by_path["edge_prelude"] = prelude_by_path(*paths)
     kernels = kernels_line(
         timing, btiming, worst, worst_t,
-        {"sum": main["launches"]["sum"], "max": mapd["launches"]},
-        bmain["launches"], launches_by_path(main, mapd, bmain, serving,
-                                            router, resil["resilient"],
-                                            dist_out["one"], lm, lm_train,
-                                            lm_shard, lm_strain, lm_blocks,
-                                            submesh, costs, entry, docs),
-        checked)
+        {"sum": main["launches"]["sum"], "max": mapd["launches"],
+         "prelude": main["launches"]["prelude"]},
+        bmain["launches"], by_path, checked, prelude=prelude)
     report = dict(card=smi, device=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   kernel_check=worst, main=main, paper=paper, map=mapd,
                   card_vs_cpu=cpu, timing=timing, trace=trace,
                   kernel_check_t=worst_t, batched=bmain, zoo=zoo,
-                  batched_timing=btiming, protein_pallas=protein_t,
+                  batched_timing=btiming, prelude=prelude,
+                  protein_pallas=protein_t,
                   batched_trace=btrace, serving=serving, router=router,
                   resilient=resil, dist=dist_out, lm=lm, lm_train=lm_train,
                   lm_shard=lm_shard, lm_strain=lm_strain,
@@ -6505,6 +6762,8 @@ def main() -> int:
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1))
     log(f"== done in {report['total_s']:.1f} s (total_s)")
+    log(f"  edge_prelude launches by path: {by_path['edge_prelude']}")
+    check_prelude_launches(by_path)
     print(smi)
     print(json.dumps({"docs": docs_line(docs)}))
     print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,14 @@
 ``triton_update.fused_update_e`` (CUDA C++ in ``csrc/fused_update_e.cu``)
 replaces the JAX package's Pallas kernels ``_sum_kernel``/``_max_kernel``;
 ``message_update.fused_update_t`` (``csrc/fused_update_t.cu``) replaces
-``_fused_kernel``; both are built by ``_build``. ``ref`` holds their plain
-versions; ``ops`` registers the update backends and folds them over a
-bucket.
-(``ops.triton_update`` is not re-exported here: the name is the
-submodule's; the two ``LAUNCHES`` counters live in their modules.)
+``_fused_kernel``; ``edge_prelude.edge_prelude`` (``csrc/edge_prelude.cu``)
+builds the kernel backends' edge prelude, which the reference leaves to
+plain jnp. All three are built by ``_build``. ``ref`` holds the update
+kernels' plain versions, ``edge_prelude`` its own twin; ``ops`` registers
+the update backends and folds them over a bucket.
+(``ops.triton_update`` and ``edge_prelude.edge_prelude`` are not
+re-exported here: the names are the submodules'; the ``LAUNCHES``
+counters live in their modules.)
 """
 
 from repro_torch.kernels.ops import (BATCH_UPDATE_BACKENDS, UPDATE_BACKENDS,

@@ -29,7 +29,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: the kernel sources, ``csrc/<name>.cu``
-SOURCES = ("fused_update_e", "fused_update_t")
+SOURCES = ("edge_prelude", "fused_update_e", "fused_update_t")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

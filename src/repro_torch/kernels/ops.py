@@ -6,10 +6,11 @@ The port of ``repro.kernels.ops``. A single-graph backend is a
 
 - ``"ref"``: plain torch sum-product (``messages.ref_update``);
 - ``"maxprod"``: plain torch max-product (``messages.max_product_update``);
-- ``"triton"``: the edge prelude in torch, then the hand-written CUDA
-  kernel ``triton_update.fused_update_e`` (edge-major); ``semiring="max"``
-  serves MAP;
-- ``"pallas"``: the edge prelude, then the hand-written CUDA kernel
+- ``"triton"``: the edge prelude (``edge_prelude.edge_prelude``, one
+  hand-written CUDA kernel, bitwise ``messages.edge_prelude``), then the
+  hand-written CUDA kernel ``triton_update.fused_update_e`` (edge-major);
+  ``semiring="max"`` serves MAP;
+- ``"pallas"``: the same edge prelude, then the hand-written CUDA kernel
   ``message_update.fused_update_t`` in the TPU's transposed layout. The
   graph's transposed table and mask are built once and kept with it
   (``PGM.operands_t``); ``pre`` and ``logm`` are transposed on every call
@@ -49,6 +50,7 @@ from repro_torch.core import messages as M
 from repro_torch.core import spans
 from repro_torch.core.graph import PGM
 from repro_torch.core.registry import Registry
+from repro_torch.kernels.edge_prelude import edge_prelude
 from repro_torch.kernels.message_update import fused_update_t
 from repro_torch.kernels.triton_update import fused_update_e
 
@@ -72,7 +74,7 @@ def pallas_update(pgm: PGM, logm: torch.Tensor):
     on = spans.recording()
     if on:
         t = spans.begin("bp.prelude")
-    pre = M.edge_prelude(pgm, logm)
+    pre = edge_prelude(pgm, logm)
     if on:
         spans.end(t)
     logpsi_t, dmask_t = kernel_operands_t(pgm)
@@ -116,7 +118,7 @@ def triton_update(pgm: PGM, logm: torch.Tensor, *, semiring: str = "sum"):
     on = spans.recording()
     if on:
         t = spans.begin("bp.prelude")
-    pre = M.edge_prelude(pgm, logm)
+    pre = edge_prelude(pgm, logm)
     if on:
         spans.end(t)
     return fused_update_e(pgm.log_psi_e, pre, logm, pgm.dst_mask,

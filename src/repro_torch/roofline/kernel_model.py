@@ -18,6 +18,7 @@ arithmetic op:
 The port's kernels pad nothing (no power-of-two states, no block-multiple
 edges), so the reference's ``padded=True`` and ``gpu_padded_shape`` have no
 counterpart: these are the logical costs, which are the launched ones.
+``edge_prelude_cost`` is the same contract for the edge-prelude kernel.
 ``bound_ms`` turns a cost into the least time a card could take for it,
 from the card's published peaks (``CARD_PEAKS``). ``round_cost`` counts
 one whole engine round with ``op_cost``, the kernel charged by this model.
@@ -30,7 +31,8 @@ import torch
 from repro_torch.roofline.op_cost import Cost, op_cost
 
 __all__ = ["Cost", "CARD_PEAKS", "card_peaks", "fused_update_cost",
-           "predicted_intensity", "bound_ms", "engine_round", "round_cost"]
+           "edge_prelude_cost", "predicted_intensity", "bound_ms",
+           "engine_round", "round_cost"]
 
 _FLOPS_PER_EDGE = {
     # semiring -> (S^2 coefficient, S coefficient, constant)
@@ -65,6 +67,24 @@ def fused_update_cost(n_edges: int, n_states: int, *, dtype_bytes: int = 4,
     a, b, c = _FLOPS_PER_EDGE[semiring]
     return Cost(float(e * (a * s * s + b * s + c)),
                 float(e * ((s * s + 3 * s + 1) * dtype_bytes + s)))
+
+
+def edge_prelude_cost(n_edges: int, n_vertices: int, n_states: int,
+                      in_width: int) -> Cost:
+    """Cost of one edge-prelude kernel (``kernels.edge_prelude``) over E
+    edges and V vertices of S states with an in-edge table D wide: the
+    operands the vertex walk reads, once each -- the messages (E, S) f32,
+    ``log_psi_v`` (V, S) f32, ``state_mask`` (V, S) bool, ``in_edges``
+    (V, D) i32, ``in_mask`` (V, D) bool, ``edge_rev`` (E,) i32,
+    ``edge_mask`` (E,) bool -- and ``pre`` (E, S) f32 written once.
+    ``edge_src`` is read only for padded edges, which real graphs do not
+    have, and is not charged; nor are a padded edge's extra reads of its
+    source's rows. Flops, one per output element per op: the fold's D
+    selects and D - 1 adds and the potential's add per vertex state, a
+    subtract and a select per edge state."""
+    e, v, s, d = int(n_edges), int(n_vertices), int(n_states), int(in_width)
+    return Cost(float(2 * s * (v * d + e)),
+                float(e * (8 * s + 5) + v * (5 * s + 5 * d)))
 
 
 def predicted_intensity(n_states: int, *, dtype_bytes: int = 4,

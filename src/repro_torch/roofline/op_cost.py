@@ -34,10 +34,12 @@ Rules, per op (one flop per output element for each arithmetic op, FMA = 2):
            ``repeat_interleave``, and the copies ``clone``, ``copy_``,
            ``_to_copy``: bytes in + out, no flops.
   fused    the port's kernels, bound as dispatcher ops
-           (``repro_torch::fused_update_e``, ``fused_update_t``): each
-           operand read once and each result written once, and the flops of
-           ``kernel_model.fused_update_cost`` -- the fused-kernel contract
-           the reference charges at a ``pallas_call``.
+           (``repro_torch::fused_update_e``, ``fused_update_t``,
+           ``edge_prelude``): each operand read once and each result
+           written once, and the flops of ``kernel_model.fused_update_cost``
+           (``edge_prelude_cost`` for the prelude) -- the fused-kernel
+           contract the reference charges at a ``pallas_call``. The
+           reference runs its prelude as plain jnp, charged op by op.
   view     views (``view``, ``transpose``, ``expand``, ``slice``,
            ``detach``, ...), allocations (``empty*``) and host reads:
            nothing.
@@ -208,7 +210,11 @@ def _conv_backward(args, out) -> Cost:
 
 
 def _fused(name: str, args) -> Cost:
-    from repro_torch.roofline.kernel_model import fused_update_cost
+    from repro_torch.roofline.kernel_model import (edge_prelude_cost,
+                                                   fused_update_cost)
+    if name == "edge_prelude":               # logm (E, S), ..., (V, D), ...
+        (e, s), (v, d) = args[0].shape, args[3].shape
+        return edge_prelude_cost(e, v, s, d)
     if name == "fused_update_e":             # (E, S, S), (E, S), ...
         e, s = args[1].shape
         semiring = args[4] if len(args) > 4 else "sum"

@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
+from repro_torch.kernels import edge_prelude as EP
 from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import ops
 from repro_torch.kernels import triton_update as TT
@@ -32,6 +33,7 @@ def counted(monkeypatch):
     """Count calls of the kernel wrappers on the engine's paths as
     launches."""
     real, real_t = ops.fused_update_e, ops.fused_update_t
+    real_p = ops.edge_prelude
 
     def counting(*args, semiring="sum"):
         TT.LAUNCHES[semiring] += 1
@@ -41,8 +43,13 @@ def counted(monkeypatch):
         MU.LAUNCHES["sum"] += 1
         return real_t(*args)
 
+    def counting_p(pgm, logm):
+        EP.LAUNCHES["edge_prelude"] += 1
+        return real_p(pgm, logm)
+
     monkeypatch.setattr(ops, "fused_update_e", counting)
     monkeypatch.setattr(ops, "fused_update_t", counting_t)
+    monkeypatch.setattr(ops, "edge_prelude", counting_p)
     monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=3:
                         (fn(), 0.0)[1])
 
@@ -471,7 +478,7 @@ def test_submesh_phase_on_cpu(tmp_path):
         [0, 0, 3, 0]
     assert out["rr"][2]["sent_to_front"]["tensor_bytes"] > 0
     assert out["ll"][0]["steals"] >= 1
-    assert out["launches"] == {"fused_update_e/sum": 0}
+    assert out["launches"] == {"fused_update_e/sum": 0, "edge_prelude": 0}
     assert all(r["peak_memory_bytes"] == 0 for r in out["rr"].values())
     assert out["kernel_check"] and out["max_abs_err"] == 0.0
     assert not (tmp_path / "submesh").exists()
@@ -505,7 +512,8 @@ def test_lm_phase_on_cpu():
     assert sv["trace"]["device_ops_per_step"] == 0
     assert out["launches"] == {"fused_update_t/sum": 0,
                                "fused_update_e/sum": 0,
-                               "fused_update_e/max": 0}
+                               "fused_update_e/max": 0,
+                               "edge_prelude": 0}
     cs.log_lm(out)
 
 
@@ -566,7 +574,8 @@ def test_lm_train_phase_on_cpu(tmp_path):
     assert "trace" not in t and t["peak_memory_bytes"] is None
     assert out["launches"] == {"fused_update_t/sum": 0,
                                "fused_update_e/sum": 0,
-                               "fused_update_e/max": 0}
+                               "fused_update_e/max": 0,
+                               "edge_prelude": 0}
     cs.log_lm_train(out)
 
 
@@ -665,7 +674,8 @@ def test_lm_shard_phase_on_cpu(tmp_path):
     assert max(b16["rank_param_bytes"]) < 0.6 * sv["param_bytes"]
     assert out["launches"] == {"fused_update_t/sum": 0,
                                "fused_update_e/sum": 0,
-                               "fused_update_e/max": 0}
+                               "fused_update_e/max": 0,
+                               "edge_prelude": 0}
     assert not (tmp_path / "shard").exists()
     cs.log_lm_shard(out)
 
@@ -774,7 +784,8 @@ def test_lm_strain_phase_on_cpu(tmp_path):
     assert c["eval_drop"] > 0 and c["replicated_masters"] > 0
     assert out["launches"] == {"fused_update_t/sum": 0,
                                "fused_update_e/sum": 0,
-                               "fused_update_e/max": 0}
+                               "fused_update_e/max": 0,
+                               "edge_prelude": 0}
     assert not (tmp_path / "strain").exists()
     cs.log_lm_strain(out)
 
@@ -895,7 +906,8 @@ def test_lm_blocks_phase_on_cpu(tmp_path):
         assert w["replicated_leaves"] > 0
     assert out["launches"] == {"fused_update_t/sum": 0,
                                "fused_update_e/sum": 0,
-                               "fused_update_e/max": 0}
+                               "fused_update_e/max": 0,
+                               "edge_prelude": 0}
     assert not (tmp_path / "blocks").exists()
     cs.log_lm_blocks(out)
 
@@ -915,7 +927,8 @@ def test_round_cost_phase_on_cpu(counted, tmp_path):
     first = cs.phase_round_cost(CPU, batch, 2.0, None, counts)
     assert first["launches"] == {"fused_update_e/sum": 1,
                                  "fused_update_e/max": 1,
-                                 "fused_update_t/sum": 1}
+                                 "fused_update_t/sum": 1,
+                                 "edge_prelude": 3}
     for label, r in first["rounds"].items():
         assert r["max_abs_err"] == 0.0, label
         assert 0 < r["kernel_bytes"] < r["bytes"] and r["memory_share"] > 0
@@ -968,7 +981,7 @@ def test_entry_points_phase_on_cpu():
     assert out["train_lm"]["drift"] == 0.0
     assert set(out["launches"]) == {"fused_update_e/sum",
                                     "fused_update_e/max",
-                                    "fused_update_t/sum"}
+                                    "fused_update_t/sum", "edge_prelude"}
     out["distributed_bp"] = dict(
         stdout="devices: 2\n", rounds={"LBP": 80, "RnBP": 77},
         banded_rounds=80, launches=[0, 0], wall_s=0.5, bitwise=True,
@@ -1035,3 +1048,116 @@ def test_docs_phase_on_cpu(counted):
         out["launches"]["fused_update_t/sum"] > 0
     assert set(by_path["fused_update_e/max"]) == set(
         by_path["fused_update_e/sum"])
+
+
+def test_prelude_phase_on_cpu(counted):
+    """The edge-prelude phase at tiny sizes: a stereo frame, a bucket's
+    union and an Ising grid, each on messages of a real RnBP run, bitwise
+    the torch prelude and the twin; times and bounds reported."""
+    from repro_torch.core import BatchedPGM
+    from repro_torch.pgm import ising_grid_fast, stereo_mrf
+    frames = [stereo_mrf(6, 8, 16, seed=i, device="cpu").pgm
+              for i in range(2)]
+    batch = BatchedPGM.from_pgms(frames)
+    ising = ising_grid_fast(9, 2.0, seed=0, device="cpu")
+    cases = {"frame": (frames[0], cs.rnbp_messages(frames[0], CPU)),
+             "union": (batch.folded(), cs.rnbp_messages(batch, CPU)),
+             "ising": (ising, cs.rnbp_messages(ising, CPU, rounds=(0, 4)))}
+    out = cs.phase_prelude(cases, CPU, 3.35e12)
+    assert set(out) == {"frame", "union", "ising"}
+    assert out["union"]["E"] == 2 * frames[0].n_edges
+    assert [out[k]["message_sets"] for k in ("frame", "union", "ising")] \
+        == [3, 3, 2]
+    for row in out.values():
+        assert row["bound_ms"] == row["bytes"] / 3.35e12 * 1e3 > 0
+        assert row["device_ms"] == row["torch_device_ms"] == 0.0
+
+
+def test_prelude_phase_rejects_a_prelude_one_ulp_off(counted, monkeypatch):
+    from repro_torch.kernels import edge_prelude as EP
+    from repro_torch.pgm import ising_grid_fast
+    real = EP.edge_prelude
+
+    def one_ulp_off(pgm, logm):
+        pre = real(pgm, logm).clone()
+        pre.view(-1)[0] = torch.nextafter(pre.view(-1)[0],
+                                          torch.tensor(float("inf")))
+        return pre
+    ising = ising_grid_fast(6, 2.0, seed=0, device="cpu")
+    monkeypatch.setattr(EP, "edge_prelude", one_ulp_off)
+    with pytest.raises(AssertionError, match="not bitwise"):
+        cs.phase_prelude({"ising": (ising, cs.rnbp_messages(ising, CPU))},
+                         CPU, 3.35e12)
+
+
+def test_prelude_launches_counted_on_each_path(counted):
+    """The one-graph, MAP, batched and protein paths at tiny sizes count
+    the edge prelude beside the update kernels, one call for each fused
+    update; ``prelude_by_path`` reads them into the prelude's row and
+    ``check_prelude_launches`` holds that row to the updates'."""
+    pgm, res, main = cs.phase_main(CPU, n=12)
+    assert main["launches"]["prelude"] == main["launches"]["sum"] > 0
+    _, mapd = cs.phase_paper(CPU, n=8, protein_vertices=16)
+    assert mapd["prelude_launches"] == mapd["launches"] > 0
+    _, bmain = cs.phase_batched(CPU, frames=2, scene={
+        "height": 6, "width": 8, "n_disp": 4}, max_rounds=300)
+    assert bmain["prelude_launches"] == bmain["launches"] > 0
+    prot = cs.phase_protein_pallas(CPU, protein_vertices=16)
+    assert prot["prelude_launches"] == prot["launches"] > 0
+    four = {"launches": {"fused_update_e/sum": 0, "fused_update_e/max": 0,
+                         "fused_update_t/sum": 0, "edge_prelude": 0}}
+    dist_one = {k: {"launches": 0, "prelude_launches": 0}
+                for k in ("sharded", "banded")}
+    paths = (main, mapd, bmain, four, four,
+             {"launches": {"sum": 0, "max": 0, "prelude": 0}}, dist_one,
+             four, four, four, four, four,
+             {"launches": {"fused_update_e/sum": 0, "edge_prelude": 0}},
+             four, four, four)
+    by_path = cs.launches_by_path(*paths)
+    by_path["edge_prelude"] = cs.prelude_by_path(*paths)
+    assert set(by_path["edge_prelude"]) == set(by_path["fused_update_e/sum"])
+    assert by_path["edge_prelude"]["one_graph"] == \
+        main["launches"]["sum"] + mapd["launches"]
+    assert by_path["edge_prelude"]["batched"] == bmain["launches"]
+    cs.check_prelude_launches(by_path)
+    by_path["edge_prelude"]["batched"] -= 1
+    with pytest.raises(AssertionError, match="batched: .* edge-prelude"):
+        cs.check_prelude_launches(by_path)
+
+
+def test_kernels_line_has_the_prelude_entry(counted):
+    """With ``phase_prelude``'s rows, the ``{"kernels": ...}`` line ends
+    with the edge-prelude kernel's entry: the one-graph path's launches,
+    its row by path, no difference from the torch prelude, and every
+    timed shape."""
+    from repro_torch.pgm import ising_grid_fast, stereo_mrf
+    frame = stereo_mrf(6, 8, 16, seed=0, device="cpu").pgm
+    ising = ising_grid_fast(9, 2.0, seed=0, device="cpu")
+    prelude = cs.phase_prelude(
+        {"tsukuba": (frame, cs.rnbp_messages(frame, CPU, rounds=(0, 4))),
+         "ising1000": (ising, cs.rnbp_messages(ising, CPU, rounds=(0, 4)))},
+        CPU, 3.35e12)
+    rows = {k: {"ms": 1.0, "device_ms": 0.5, "bound_ms": 0.25,
+                "plain_ms": 2.0, "bound_by": "bytes", "E": 10, "S": 2,
+                "max_abs_err": 0.0} for k in ("main/sum", "main/max",
+                                               "main/t", "protein/sum",
+                                               "protein/max")}
+    brow = dict(rows["main/t"], e={sr: rows["main/sum"]
+                                   for sr in ("sum", "max")})
+    btiming = {k: brow for k in ("stereo", "zoo", "protein")}
+    by_path = {k: dict(one_graph=1, batched=2) for k in (
+        "fused_update_e/sum", "fused_update_e/max", "fused_update_t/sum",
+        "edge_prelude")}
+    kernels = cs.kernels_line(rows, btiming, {"sum": 0.0, "max": 0.0}, 0.0,
+                              {"sum": 5, "max": 6, "prelude": 11}, 7,
+                              by_path, prelude=prelude)
+    assert [k["name"] for k in kernels][-1] == "edge_prelude"
+    k = kernels[-1]
+    assert (k["launches"], k["max_abs_err"], k["bound_by"]) == \
+        (11, 0.0, "bytes")
+    assert k["launches_by_path"] == by_path["edge_prelude"]
+    assert k["source"] == "src/repro_torch/kernels/csrc/edge_prelude.cu"
+    assert k["bound_ms"] == prelude["ising1000"]["bound_ms"] > 0
+    assert [x["shape"] for x in k["shapes"]] == ["tsukuba", "ising1000"]
+    assert k["shapes"][0]["S"] == 16 and k["shapes"][1]["S"] == 2
+    json.dumps(kernels)

@@ -33,6 +33,11 @@ no JAX:
   NCCL bitwise one device's steps in both modes; two gloo ranks sharing
   the card within 1e-4 of one device, their exchanges staged through the
   host.
+- The edge-prelude kernel is bitwise ``messages.edge_prelude`` and its
+  plain twin (as int32 bits, padded rows included) at a Tsukuba frame, a
+  union of four, a 1000 x 1000 Ising grid and the S = 81 protein-like
+  graph, on messages of several rounds of real RnBP runs, aligned and not;
+  it launches once per update on both kernel backends' paths.
 """
 
 import numpy as np
@@ -41,6 +46,7 @@ import torch
 
 from repro_torch.core import BatchedPGM, BPConfig, BPEngine, slot_generator
 from repro_torch.core import messages as M
+from repro_torch.kernels import edge_prelude as EP
 from repro_torch.kernels import message_update as MU
 from repro_torch.kernels import triton_update as TT
 from repro_torch.kernels.ref import fused_update_e_ref, fused_update_t_ref
@@ -654,3 +660,82 @@ def test_docs_pages_run_on_the_card(cuda):
     assert out["kernel_check"]["fused_update_e/max"] == 0.0
     assert all(n > 0 for n in out["launches"].values())
     assert out["pages"]["kernels.md"]["launches"]["fused_update_e/max"] == 1
+
+
+# ------------------------------------------------------------ edge prelude --
+
+@pytest.fixture(scope="module")
+def prelude_graphs():
+    """The main paths' prelude shapes on the card: a Tsukuba-size stereo
+    frame (S = 16), a bucket of four, a 1000 x 1000 Ising grid (S = 2) and
+    the protein-like MRF of the zoo (S = 81, in-degree up to 15)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda")
+    frames = [TD.stereo_mrf(288, 384, 16, seed=i, device=dev).pgm
+              for i in range(4)]
+    return {"tsukuba": frames[0],
+            "tsukuba_x4": BatchedPGM.from_pgms(frames),
+            "ising1000": TD.ising_grid_fast(1000, 2.0, seed=0, device=dev),
+            "protein_s81": TD.protein_like_graph(seed=0, device=dev)}
+
+
+def unaligned(t, floats):
+    """A contiguous copy of ``t`` starting ``floats`` floats past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[floats:floats + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("name", ["tsukuba", "tsukuba_x4", "ising1000",
+                                  "protein_s81"])
+def test_edge_prelude_kernel_is_bitwise_the_torch_prelude(prelude_graphs,
+                                                          name):
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    graph = prelude_graphs[name]
+    pgm = graph.folded() if isinstance(graph, BatchedPGM) else graph
+    sets = cs.rnbp_messages(graph, dev, rounds=(0, 5, 20))
+    sets.append(unaligned(sets[-1], 1))
+    sets.append(unaligned(sets[-2], 2))
+    for logm in sets:
+        before = EP.LAUNCHES["edge_prelude"]
+        pre = EP.edge_prelude(pgm, logm)
+        torch.cuda.synchronize()
+        assert EP.LAUNCHES["edge_prelude"] == before + 1
+        assert cs.bitwise(pre, M.edge_prelude(pgm, logm))
+        assert cs.bitwise(pre, EP.edge_prelude_ref(
+            logm, pgm.log_psi_v, pgm.state_mask, pgm.in_edges, pgm.in_mask,
+            pgm.edge_src, pgm.edge_rev, pgm.edge_mask))
+
+
+@pytest.mark.parametrize("backend", ["triton", "pallas"])
+def test_edge_prelude_launches_once_per_update(cuda, backend):
+    """One prelude launch per update kernel launch, on a graph's run and
+    on a bucket's fold; and one for a max-product update."""
+    from repro_torch.kernels import ops as TO
+    pgm = TD.ising_grid_fast(40, 2.5, seed=0, device=cuda)
+    batch = BatchedPGM.from_pgms([TD.stereo_mrf(12, 16, 8, seed=i,
+                                                device=cuda).pgm
+                                  for i in range(3)])
+    eng = BPEngine(BPConfig(scheduler="rnbp", scheduler_kwargs={
+        "low_p": 0.4, "high_p": 0.9}, eps=1e-3, max_rounds=60,
+        backend=backend), device=cuda)
+    counts = TT.LAUNCHES if backend == "triton" else MU.LAUNCHES
+    for graph, gen in ((pgm, torch.Generator(cuda).manual_seed(0)),
+                       (batch, [slot_generator(0, i, cuda)
+                                for i in range(batch.size)])):
+        EP.reset_launch_counts()
+        TT.reset_launch_counts()
+        MU.reset_launch_counts()
+        eng.run(graph, gen)
+        torch.cuda.synchronize()
+        assert counts["sum"] > 0
+        assert EP.LAUNCHES["edge_prelude"] == counts["sum"]
+    EP.reset_launch_counts()
+    TT.reset_launch_counts()
+    TO.make_triton_update(semiring="max")(pgm, M.init_messages(pgm))
+    torch.cuda.synchronize()
+    assert EP.LAUNCHES["edge_prelude"] == TT.LAUNCHES["max"] == 1

@@ -161,5 +161,6 @@ def test_build_flags_target_hopper_without_fast_math():
     p = _build.library_path("fused_update_e")
     assert p.parent.name == "kernels" and p.parent.parent.name == "build"
     assert p == _build.library_path("fused_update_e")     # stable key
-    assert _build.SOURCES == ("fused_update_e", "fused_update_t")
+    assert _build.SOURCES == ("edge_prelude", "fused_update_e",
+                              "fused_update_t")
     assert all((_build._CSRC / f"{n}.cu").is_file() for n in _build.SOURCES)
